@@ -4,7 +4,7 @@
 
 Phases, in order; any failed check exits non-zero:
 
-1. build: compile the four CUDA sources of ``src/repro_torch/csrc`` (one
+1. build: compile the seven CUDA sources of ``src/repro_torch/csrc`` (one
    nvcc each, in parallel) and print the card's name and power limit;
 2. kernel parity: run one warm STAR epoch at full TPC-C widths (the main
    path's configuration below) while recording the arguments of the first
@@ -23,19 +23,38 @@ Phases, in order; any failed check exits non-zero:
    orders_by_cust key layout holds), the full mix, 2,048 transactions an
    epoch, 16 OCC rounds: 4 measured epochs after the warm one, with
    ``replica_consistent()`` at every fence and every kernel launched;
-   then one more epoch under ``torch.profiler`` for the card's busy time.
+   then one more epoch under ``torch.profiler`` for the card's busy time;
+5. LM kernel parity: Hymba-1.5B at its published widths and depth in
+   bf16, random weights from a seed, serves 8 requests of 2,048 tokens
+   plus 2 new ones through ``ServeEngine.generate`` while the first call
+   of each LM kernel wrapper is recorded; rmsnorm (bf16), flash attention
+   (bf16, prefill and decode) and the SSD scan (f32) are then held against
+   their plain versions on the same card inputs, each within the
+   tolerance stated at its check, and timed beside one PyTorch call that
+   computes the same function where there is one;
+6. serve parity: Hymba at full width, depth cut to 2 layers, float32, the
+   same weights on the card and the CPU: one 2,048-token prompt, then 8
+   decode steps with the same token fed to both; every logit within
+   ``TOL_SERVE``;
+7. serve path: ``ServeEngine.generate`` on the full model, 8 x 2,048
+   prompt tokens and 64 decode steps, after an untimed one: 3 timed runs
+   (the median by total time is reported, all three beside it), the LM
+   kernels' launch counts from the first; then a prefill, and a prefill
+   with 8 decode steps, under ``torch.profiler`` for where the time goes.
 
 Kernel times are device times: CUDA events around a call enqueued while
 a spin kernel keeps the card busy, so the wrapper's host time is not
-counted; the median of 20 calls.  Bounds are bytes over 3.35 TB/s (each
-input read once, each output written once, counting what the recorded
-inputs need) or integer operations over 16.7 T/s, whichever is larger.
+counted; the median of 20 calls (5 for the slow plain versions of the LM
+kernels).  Bounds are the larger of bytes over 3.35 TB/s (each input read
+once, each output written once, counting what this run's inputs need)
+and operations over the card's peak rate for their type: int32 16.7 T/s,
+float32 67 TFLOP/s outside the tensor cores, bf16 989 TFLOP/s.
 
 It prints the build time, the ``nvidia-smi`` name and power limit, one
-JSON line of kernels, one JSON line of main-path figures and, last, the
-``{"ok": true, "device": ...}`` line.  It needs one CUDA card and the
-repository around it; without either it exits non-zero and prints no
-result.
+JSON line of kernels, one of main-path figures, one of serve-path figures
+and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
+card and the repository around it; without either it exits non-zero and
+prints no result.
 """
 import json
 import statistics
@@ -50,16 +69,30 @@ H100_MAX_CLOCK_HZ = 1.98e9
 MAIN = dict(n_partitions=16, n_items=100_000, cust_per_district=3_000,
             order_ring=256, mix="full", delivery_gen_lag=2048)
 MAIN_TXNS, MAIN_EPOCHS, MAX_ROUNDS = 2048, 4, 16
+H100_BF16_FLOPS = 989e12         # dense tensor cores (data sheet)
+H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
+SERVE_ARCH = "hymba-1.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
+PARITY_LAYERS, PARITY_DECODE, PROFILE_STEPS = 2, 8, 8
+SERVE_RUNS = 3                   # measured generates; the median is reported
+TOL_BF16_NORM = 1e-2             # reasons beside each check
+TOL_BF16_FLASH = 2e-2
+TOL_SSD = 1e-3
+TOL_SERVE = 1e-3
 FIG11 = dict(n_partitions=4, n_items=4000, cust_per_district=100,
              order_ring=128, mix="full", delivery_gen_lag=512)
 FIG11_TXNS, FIG11_EPOCHS = 512, 3
+# the pl.pallas_call site of each TPU kernel
 REPLACES = {
-    "scan_window": "src/repro/kernels/occ/kernel.py:103",
-    "occ_round.lock_build": "src/repro/kernels/occ/kernel.py:164",
-    "occ_round.validate": "src/repro/kernels/occ/kernel.py:321",
-    "occ_round.install": "src/repro/kernels/occ/kernel.py:289",
-    "index_merge": "src/repro/kernels/index_merge/kernel.py:139",
-    "thomas_merge": "src/repro/kernels/thomas_merge/kernel.py:68",
+    "scan_window": "src/repro/kernels/occ/kernel.py:129",
+    "occ_round.lock_build": "src/repro/kernels/occ/kernel.py:174",
+    "occ_round.validate": "src/repro/kernels/occ/kernel.py:421",
+    "occ_round.install": "src/repro/kernels/occ/kernel.py:301",
+    "index_merge": "src/repro/kernels/index_merge/kernel.py:170",
+    "thomas_merge": "src/repro/kernels/thomas_merge/kernel.py:77",
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
+    "mamba2_ssd": "src/repro/kernels/mamba2_ssd/kernel.py:75",
 }
 SOURCE = {
     "scan_window": "src/repro_torch/csrc/scan_window.cu",
@@ -68,6 +101,9 @@ SOURCE = {
     "occ_round.install": "src/repro_torch/csrc/occ_round.cu",
     "index_merge": "src/repro_torch/csrc/index_merge.cu",
     "thomas_merge": "src/repro_torch/csrc/thomas_merge.cu",
+    "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "mamba2_ssd": "src/repro_torch/csrc/ssd.cu",
 }
 
 
@@ -427,6 +463,320 @@ def profile_epoch(eng, cfg, state):
 
 
 # ---------------------------------------------------------------------------
+# phases 5-7: the LM serving path (Hymba-1.5B)
+# ---------------------------------------------------------------------------
+def allclose_err(got, want, tol):
+    """(max abs difference of two tensor trees, whether every element is
+    within ``tol + tol * |want|``): each tolerance is atol = rtol."""
+    import torch
+    err = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.float(), w.float()
+        check(g.shape == w.shape, f"shape {tuple(g.shape)} vs "
+              f"{tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), "non-finite output")
+        d = (g - w).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        if not bool((d <= tol + tol * w.abs()).all()):
+            return err, False
+    return err, True
+
+
+def record_generate(eng, prompts, n):
+    """``eng.generate(prompts, n)`` with the first main-path call of each
+    LM kernel wrapper recorded (a copy of its arguments)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers, mamba2
+    rec = Recorder()
+
+    def norm_key(x, w, residual=None, **kw):
+        """norm2 at prefill and decode shapes; gate_norm at prefill."""
+        T = x.numel() // x.shape[-1]
+        if residual is not None:
+            return "rmsnorm/prefill" if T > SERVE_BATCH else "rmsnorm/decode"
+        if x.shape[-1] == eng.cfg.d_inner and T > SERVE_BATCH:
+            return "rmsnorm/gate"
+        return None
+    rec.wrap(layers, "rmsnorm", norm_key)
+    rec.wrap(fa_ops, "attention", lambda q, *a, **k:
+             "flash/prefill" if q.shape[1] > 1 else "flash/decode")
+    rec.wrap(mamba2, "ssd", lambda *a, **k: "ssd")
+    try:
+        eng.generate(prompts, n)
+    finally:
+        rec.restore()
+    return rec.calls
+
+
+def lm_kernel_checks(calls):
+    """Parity (against the plain version on the same card inputs), timing
+    and bound of the three LM kernels on their recorded arguments."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         visible)
+    from repro_torch.kernels.mamba2_ssd.ops import ssd
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    def report(name, kernel, plain, args, kw, tol, nbytes, nflops, rate,
+               library=None):
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(got, want, tol)
+        check(ok, f"{name}: kernel differs from its plain version by {err} "
+              f"(tolerance {tol})")
+        del got, want
+        ms = cuda_ms(lambda: kernel(*args, **kw))
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=5)
+        lib_ms = None if library is None else cuda_ms(library)
+        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        b_ops = nflops / rate * 1e3
+        return {"name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": 0,
+                "max_abs_err": err, "tolerance": tol, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "library_ms": lib_ms, "bytes": int(nbytes),
+                "flops": int(nflops)}
+
+    rows = {}
+    # -- rmsnorm, residual form at the prefill shape (norm2: T=16,384,
+    # D=1,600).  bf16: the outputs may differ by one rounding step of
+    # bf16 (2^-8 relative) where the two sums of squares, taken in another
+    # order, straddle a rounding boundary: tolerance 1e-2.
+    (x, w, r), kw = calls["rmsnorm/prefill"]
+    T, D = x.numel() // x.shape[-1], x.shape[-1]
+    es = x.element_size()
+    s = (x.float() + r.float()).to(x.dtype)
+    rows["rmsnorm"] = report(
+        "rmsnorm", rmsnorm, rmsnorm_ref, (x, w, r), kw, TOL_BF16_NORM,
+        nbytes=es * (4 * T * D + D), nflops=5 * T * D, rate=H100_F32_FLOPS,
+        library=lambda: F.rms_norm(s, (D,), w, kw.get("eps", 1e-5)))
+    del s
+    # the other two forms on the path: no residual (gate_norm, D=3,200)
+    # and the decode shape (T=8)
+    for key in ("rmsnorm/gate", "rmsnorm/decode"):
+        args, kw = calls[key]
+        err, ok = allclose_err(rmsnorm(*args, **kw), rmsnorm_ref(*args, **kw),
+                               TOL_BF16_NORM)
+        check(ok, f"{key}: kernel differs from its plain version by {err}")
+
+    # -- flash attention.  bf16 in, f32 scores and sums; the kernel rounds
+    # the unnormalised probabilities to bf16 and the plain version the
+    # normalised ones: tolerance 2e-2, tests/test_kernels.py's bf16 bound.
+    def flash_row(key, name):
+        (q, k, v, qp, kp), kw = calls[key]
+        B, Sq, H, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        mask = visible(qp, kp, causal=kw["causal"], window=kw["window"])
+        pairs = int(mask.sum())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        gqa = {"enable_gqa": True} if H != Hkv else {}
+        return report(
+            name, fa_ops.attention, attention_ref, (q, k, v, qp, kp), kw,
+            TOL_BF16_FLASH,
+            nbytes=q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * Hkv
+                                       * D) + 4 * (Sq + Sk),
+            nflops=4 * B * H * pairs * D, rate=H100_BF16_FLOPS,
+            library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, **gqa))
+    rows["flash_attention"] = flash_row("flash/prefill", "flash_attention")
+    dec = flash_row("flash/decode", "flash_attention")
+    rows["flash_attention"]["decode"] = {
+        k: dec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms", "bytes",
+                            "flops")}
+
+    # -- ssd.  f32 throughout; the kernel's chunked sums against the
+    # sequential recurrence over 2,048 steps: tolerance 1e-3 (1e-4 at the
+    # 64-256-step shapes of tests/test_kernels.py).
+    (xdt, logd, Bv, Cv), kw = calls["ssd"]
+    BH, S, P = xdt.shape
+    N, heads, Q = Bv.shape[-1], kw["heads"], kw["chunk"]
+    pairs = Q * (Q + 1) // 2
+    flops = BH * (S // Q) * (2 * pairs * (N + P) + 4 * Q * P * N)
+    rows["mamba2_ssd"] = report(
+        "mamba2_ssd", ssd, lambda *a, chunk, heads: ssd_ref(*a, heads=heads),
+        (xdt, logd, Bv, Cv), kw, TOL_SSD,
+        nbytes=4 * (2 * BH * S * P + BH * S + 2 * (BH // heads) * S * N
+                    + BH * P * N),
+        nflops=flops, rate=H100_F32_FLOPS)
+    return rows
+
+
+def serve_parity(dev):
+    """Hymba at full width, depth cut to 2 layers, float32: one 2,048-token
+    prompt and 8 decode steps on the card (kernels) and on the CPU (plain
+    versions), the same token fed to both at each step.  Returns the
+    largest logit difference."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=PARITY_LAYERS,
+                              dtype="float32")
+    cpu = tf.LM(cfg, seed=0, device="cpu")
+    card = tf.LM(cfg, seed=0, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    alloc = SERVE_PROMPT + PARITY_DECODE
+    worst = 0.0
+    with torch.inference_mode():
+        lc, cc = tf.prefill(cpu, {"tokens": prompt}, cfg, alloc_len=alloc)
+        lg, cg = tf.prefill(card, {"tokens": prompt.to(dev)}, cfg,
+                            alloc_len=alloc)
+        for step in range(PARITY_DECODE + 1):
+            err, ok = allclose_err(lg.cpu(), lc, TOL_SERVE)
+            worst = max(worst, err)
+            check(ok, f"serve parity: card and CPU logits differ by {err} "
+                  f"at step {step} (tolerance {TOL_SERVE})")
+            if step == PARITY_DECODE:
+                break
+            tok = lc[:, -1].argmax(-1)[:, None].to(torch.int32)
+            lc, cc = tf.decode_step(cpu, cc, tok, cfg)
+            lg, cg = tf.decode_step(card, cg, tok.to(dev), cfg)
+    return worst
+
+
+def profile_device(fn):
+    """Run ``fn()`` under torch.profiler: (wall s, {kernel: (device ms,
+    calls)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            per[e.key[:80]] = (us / 1e3, e.count)
+    return wall, per
+
+
+def serve_path(dev):
+    """Phases 5-7.  Returns (kernel rows, serve_path figures)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine, ServeStats
+
+    # ---- 5. LM kernels on the serve path's own arguments ---------------
+    t0 = time.perf_counter()
+    cfg = get_arch(SERVE_ARCH)
+    eng = ServeEngine(cfg, LM(cfg, seed=0, device=dev), device=dev,
+                      max_len=SERVE_PROMPT + SERVE_GEN)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    calls = record_generate(eng, prompts, 2)
+    print(f"serve warm-up: {cfg.name}, {SERVE_BATCH} x {SERVE_PROMPT} "
+          f"tokens + 2, in {time.perf_counter() - t0:.1f} s (set-up "
+          f"included)")
+    rows = lm_kernel_checks(calls)
+    del calls
+    torch.cuda.empty_cache()
+    print("LM kernel parity, max abs err (tolerance atol = rtol): " +
+          ", ".join(f"{k} {r['max_abs_err']:.3g} ({r['tolerance']})"
+                    for k, r in rows.items()))
+
+    # ---- 6. serve parity, card against CPU ------------------------------
+    t0 = time.perf_counter()
+    worst = serve_parity(dev)
+    print(f"serve parity: {PARITY_LAYERS}-layer full-width {cfg.name}, f32,"
+          f" prefill {SERVE_PROMPT} + {PARITY_DECODE} decode steps: max "
+          f"logit difference {worst:.3g} (tol {TOL_SERVE}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. the serve path, measured ------------------------------------
+    # an untimed generate first: the phases above emptied the allocator's
+    # cache, and the first prefill after that pays for its allocations
+    eng.generate(prompts, 2)
+    runs = []
+    for i in range(SERVE_RUNS):
+        eng.stats = ServeStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        out = eng.generate(prompts, SERVE_GEN)
+        runs.append(dataclasses.replace(eng.stats))
+        if i == 0:       # the counts and the checks of one generate
+            counts = _build.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check(tuple(out.shape) == (SERVE_BATCH, SERVE_GEN)
+                  and out.dtype == torch.int32,
+                  "serve: output shape or type")
+            check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                  "serve: a token outside the vocabulary")
+    st = sorted(runs, key=lambda r: r.prefill_s + r.decode_s)[len(runs) // 2]
+    L = cfg.n_layers
+    need = {"flash_attention.prefill": L,
+            "flash_attention.decode": L * SERVE_GEN,
+            "mamba2_ssd": L,
+            "rmsnorm": (5 * L + 1) * (SERVE_GEN + 1)}
+    for k, n in need.items():
+        check(counts.get(k, 0) >= n, f"serve: {k} launched "
+              f"{counts.get(k, 0)} times, expected >= {n}")
+    rows["rmsnorm"]["launches"] = counts.get("rmsnorm", 0)
+    rows["mamba2_ssd"]["launches"] = counts.get("mamba2_ssd", 0)
+    fl = rows["flash_attention"]
+    fl["decode"]["launches"] = counts.get("flash_attention.decode", 0)
+    fl["prefill_launches"] = counts.get("flash_attention.prefill", 0)
+    fl["launches"] = fl["prefill_launches"] + fl["decode"]["launches"]
+    for r in runs:
+        print(f"serve: {SERVE_BATCH} x {SERVE_PROMPT} prefill in "
+              f"{r.prefill_s:.3f} s, {SERVE_GEN} decode steps in "
+              f"{r.decode_s:.3f} s")
+
+    # where the time goes: a prefill alone, then a prefill and 8 decode
+    # steps, under the profiler; decode = the difference
+    pw, pre = profile_device(lambda: eng.generate(prompts, 0))
+    dw, both = profile_device(lambda: eng.generate(prompts, PROFILE_STEPS))
+    dec = {k: ((ms - pre.get(k, (0, 0))[0]) / PROFILE_STEPS,
+               (n - pre.get(k, (0, 0))[1]) / PROFILE_STEPS)
+           for k, (ms, n) in both.items()}
+
+    def top(per, wall_ms):
+        busy = sum(ms for ms, _ in per.values())
+        return {"wall_ms": wall_ms, "device_busy_ms": busy,
+                "busy_share": busy / wall_ms if wall_ms else None,
+                "top_kernels": [[k, ms, n] for k, (ms, n) in sorted(
+                    per.items(), key=lambda kv: -kv[1][0])[:8]]}
+    figures = {
+        "arch": cfg.name, "dtype": cfg.dtype, "batch": SERVE_BATCH,
+        "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+        "prefill_s": st.prefill_s,
+        "prefill_tokens_per_s": st.prefill_tokens / st.prefill_s,
+        "decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
+        "decode_tokens_per_s": st.decoded_tokens / st.decode_s,
+        "runs": [[r.prefill_s, r.decode_s / r.decode_steps * 1e3]
+                 for r in runs],
+        "peak_mem_gb": peak / 1e9, "launches": {
+            k: counts.get(k, 0) for k in need},
+        "parity_max_logit_err": worst,
+        "profiled_prefill": top(pre, pw * 1e3),
+        "profiled_decode_step": top(dec, (dw - pw) / PROFILE_STEPS * 1e3)}
+    del eng
+    torch.cuda.empty_cache()
+    return rows, figures
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 def main():
@@ -446,10 +796,12 @@ def main():
 
 def run(dev):
     import torch
-    from repro_torch.db import tpcc
     from repro_torch.kernels import _build
 
     name = torch.cuda.get_device_name(0)
+    # float32 stays float32 on the card (the plain versions' products)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # ---- 1. build + device ----------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()
@@ -460,6 +812,28 @@ def run(dev):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
+
+    kernels, main_path = star_phases(dev)
+    main_path.update(device=name, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+    lm_rows, serve = serve_path(dev)
+    kernels.update(lm_rows)
+    serve.update(device=name, nvidia_smi=smi)
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"main_path": main_path}))
+    print(json.dumps({"serve_path": serve}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def star_phases(dev):
+    """Phases 2-4 (the STAR epoch).  Returns (kernel rows, main-path
+    figures)."""
+    import torch
+    from repro_torch.db import tpcc
+    from repro_torch.kernels import _build
 
     # ---- 2. kernels at main-path shapes ---------------------------------
     t0 = time.perf_counter()
@@ -535,19 +909,13 @@ def run(dev):
     t_part = sum(m["t_part_s"] for m, _, _ in rows)
     t_sm = sum(m["t_sm_s"] for m, _, _ in rows)
     t_f = sum(m["t_fence1_s"] + m["t_fence2_s"] for m, _, _ in rows)
-    print(json.dumps({"kernels": list(kernels.values())}))
-    print(json.dumps({"main_path": {
+    return kernels, {
         "epochs": MAIN_EPOCHS, "txns_per_epoch": MAIN_TXNS,
         "committed": committed, "committed_txn_per_s": committed / wall,
         "t_part_s": t_part, "t_sm_s": t_sm, "t_fence_s": t_f,
         "wall_s": wall, "index_overflow": totals["index_overflow"],
         "consume_skips": totals["consume_skips"],
-        "retries": totals["retries"], "device": name, "nvidia_smi": smi,
-        "profiled_epoch": prof}}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
-    return 0
+        "retries": totals["retries"], "profiled_epoch": prof}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 
 The package mirrors ``repro``'s layout module for module.  It imports
 ``torch`` and numpy only: never JAX and nothing of ``repro``.  Entry points
-(``core.engine.StarEngine``, ``storage.StorageEngine``, ``convert``) run on
-``cuda`` unless the caller passes ``device="cpu"``; the kernels in
+(``core.engine.StarEngine``, ``storage.StorageEngine``, ``convert``,
+``models.transformer.LM``, ``serve.engine.ServeEngine``,
+``launch.serve``) run on ``cuda`` unless the caller passes
+``device="cpu"``; the kernels in
 ``csrc/`` are built with nvcc at their first launch (``kernels._build``).
 
 Package inits stay empty of imports so that every module can be imported

@@ -1,7 +1,8 @@
-"""Carry storage state across between numpy (the JAX engine's arrays, read
-with ``np.asarray``) and the port's ``StorageEngine``.
+"""Carry state across between numpy (the JAX package's arrays, read with
+``np.asarray``) and the port: storage state for ``StorageEngine``, and a
+JAX LM parameter tree for ``models.transformer.LM``.
 
-TID words are uint32 in the reference and int64 in the port; both
+TID words are uint32 in the reference and int64 in the port; both storage
 functions check the range as they convert.
 """
 from __future__ import annotations
@@ -52,3 +53,55 @@ def to_numpy_state(store):
             "indexes": [{"key": ix["key"].cpu().numpy(),
                          "prow": ix["prow"].cpu().numpy(),
                          "tid": tids(ix["tid"])} for ix in st["indexes"]]}
+
+
+def _tensor(a, dev):
+    """numpy -> tensor of the same dtype (bfloat16 arrives as ml_dtypes'
+    bfloat16, which torch does not read: it is carried bit for bit)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def params_from_jax(params, cfg, device=None):
+    """A JAX parameter tree (``repro.models.transformer.init_params``
+    layout, leaves as numpy arrays, layers stacked on a leading L axis)
+    -> the port's model state: ``{name: tensor}`` for
+    ``LM.load_state_dict``, layers unstacked into ``layers.<i>.<name>``.
+    Layouts (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ``in_proj``, ``conv_w``
+    (W, C), ...) and dtypes are kept.  Raises ValueError on a missing,
+    extra or misshapen parameter."""
+    from repro_torch.models.transformer import param_shapes
+    dev = resolve_device(device)
+    want = param_shapes(cfg)
+    flat = {k: v for k, v in _flatten(params) if not k.startswith("layers.")}
+    for k, v in _flatten(params.get("layers", {}), "layers."):
+        v = np.asarray(v)
+        if v.shape[:1] != (cfg.n_layers,):
+            raise ValueError(f"{k}: leading axis {v.shape[:1]}, expected "
+                             f"{cfg.n_layers} stacked layers")
+        _, name = k.split(".", 1)
+        for i in range(cfg.n_layers):
+            flat[f"layers.{i}.{name}"] = v[i]
+    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameters missing {missing}, "
+                         f"unexpected {extra}")
+    out = {}
+    for k, v in flat.items():
+        v = np.asarray(v)
+        if tuple(v.shape) != want[k][0]:
+            raise ValueError(f"{k}: shape {tuple(v.shape)}, the config "
+                             f"needs {want[k][0]}")
+        out[k] = _tensor(v, dev)
+    return out

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("scan_window", "occ_round", "index_merge", "thomas_merge")
+SOURCES = ("scan_window", "occ_round", "index_merge", "thomas_merge",
+           "rmsnorm", "flash_attention", "ssd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -138,6 +139,13 @@ def checked(name: str, t, dtype, shape, device):
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return t
+
+
+def aligned16(t):
+    """``t`` contiguous and starting on a 16-byte boundary (a copy if it is
+    not), for kernels that move 16-byte vectors."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def stream_ptr(device) -> int:

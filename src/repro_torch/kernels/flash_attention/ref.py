@@ -1,0 +1,61 @@
+"""Plain PyTorch version of the flash-attention kernel
+(``csrc/flash_attention.cu``): masked attention with explicit (q_pos, k_pos)
+positions, mirroring ``repro/kernels/flash_attention/ref.py``.
+
+Covers causal prefill, bidirectional encoding, sliding windows and
+slot-cache decode (k_pos = slot positions, -1 = empty).  GQA: query head
+``b`` reads kv head ``b // groups``.
+
+One difference from the JAX oracle, shared with the kernel: a query row
+that sees no key at all gives 0 (the oracle's softmax over a row of -1e30
+gives the uniform average of every value row).  On the serve path no row
+is fully masked, since every query sees its own position.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def visible(q_pos, k_pos, *, causal=True, window=None):
+    """(Sq, Sk) bool: which keys each query sees."""
+    mask = (k_pos[None, :] >= 0).expand(q_pos.shape[0], -1)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, groups=1, causal=True,
+                        window=None, scale=None):
+    """q: (BH, Sq, D); k, v: (BH // groups, Sk, D); q_pos (Sq,), k_pos (Sk,)
+    int32.  Scores and softmax in float32; the probabilities are rounded to
+    v's dtype before the product with v, as the JAX oracle does."""
+    D = q.shape[-1]
+    scale = scale if scale is not None else D ** -0.5
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=0)
+        v = v.repeat_interleave(groups, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    mask = visible(q_pos, k_pos, causal=causal, window=window)
+    s = s.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(s, dim=-1) * mask.any(-1)[None, :, None]
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
+                        v.float()).to(v.dtype)
+
+
+def attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                  scale=None):
+    """:func:`flash_attention_ref` in the wrappers' (B, S, H, D) layout:
+    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = flash_attention_ref(
+        q.transpose(1, 2).reshape(B * H, Sq, D),
+        k.transpose(1, 2).reshape(B * Hkv, Sk, D),
+        v.transpose(1, 2).reshape(B * Hkv, Sk, D),
+        q_pos, k_pos, groups=H // Hkv, causal=causal, window=window,
+        scale=scale)
+    return out.reshape(B, H, Sq, D).transpose(1, 2)

@@ -14,7 +14,8 @@ JSON object (``ph:"X"`` complete events, microsecond timestamps) that
 https://ui.perfetto.dev and ``chrome://tracing`` load directly.
 
 Kernel-launch hooks: the kernel dispatch wrappers in ``kernels/occ``,
-``kernels/index_merge`` and ``kernels/thomas_merge`` call
+``kernels/index_merge``, ``kernels/thomas_merge``, ``kernels/rmsnorm``,
+``kernels/flash_attention`` and ``kernels/mamba2_ssd`` call
 :func:`kernel_launch` once per dispatch (PyTorch runs eagerly, so every
 call is a dispatch); the marks carry the kernel name and backend as args
 and also feed a process-wide dispatch counter.  The count of CUDA launches

@@ -1,0 +1,204 @@
+"""Parity of the LM kernels' wrappers in the PyTorch port with the JAX
+package's Pallas kernels (run in interpret mode, as tests/test_kernels.py
+runs them).  On the CPU each wrapper runs its plain version; the CUDA
+kernels are held against those plain versions on the card by
+chip_smoke.py.  Inputs are made with numpy from a seed.
+
+Tolerances (float32) follow tests/test_kernels.py: rmsnorm 1e-6, flash
+attention 1e-5, SSD 1e-4 — both sides compute in float32 and differ only
+in the order of their sums.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa
+from repro.kernels.flash_attention.ref import flash_attention_ref as jfa_ref
+from repro.kernels.mamba2_ssd.ops import ssd as jssd
+from repro.kernels.rmsnorm.ops import rmsnorm as jrmsnorm
+from repro.models.attention import expand_kv as jexpand_kv
+from repro_torch.configs.base import get_arch
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     visible)
+from repro_torch.kernels.mamba2_ssd.ops import ssd as tssd
+from repro_torch.kernels.rmsnorm.ops import rmsnorm as trmsnorm
+from repro_torch.models.attention import expand_kv
+
+F32 = np.float32
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got.float() if isinstance(
+        got, torch.Tensor) else got, F32), np.asarray(want, F32), atol=tol,
+        rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("with_residual", [True, False])
+@pytest.mark.parametrize("T,D", [(64, 128), (32, 200)])
+def test_rmsnorm_matches_pallas(T, D, with_residual):
+    rng = np.random.default_rng(T + D)
+    x = rng.standard_normal((T, D)).astype(F32)
+    w = rng.standard_normal(D).astype(F32)
+    r = rng.standard_normal((T, D)).astype(F32) if with_residual else None
+    jy, jr = jrmsnorm(jnp.asarray(x), jnp.asarray(w),
+                      None if r is None else jnp.asarray(r))
+    ty, tr = trmsnorm(torch.tensor(x), torch.tensor(w),
+                      None if r is None else torch.tensor(r))
+    _close(ty, jy, 1e-6)
+    _close(tr, jr, 1e-6)
+    if r is None:
+        assert np.array_equal(tr.numpy(), x)
+
+
+def test_rmsnorm_bf16_sums_in_float32():
+    """The plain version copies the Pallas kernel: x + r in float32, not
+    rounded to bf16 before the norm.  Held to the Pallas kernel at the
+    bf16 tolerance of tests/test_kernels.py (2e-2)."""
+    rng = np.random.default_rng(3)
+    x, r = (rng.standard_normal((16, 64)).astype(F32) for _ in range(2))
+    w = rng.standard_normal(64).astype(F32)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (x, w, r)]
+    jy, jr = jrmsnorm(*bf)
+    tb = [torch.tensor(a).to(torch.bfloat16) for a in (x, w, r)]
+    ty, tr = trmsnorm(*tb)
+    assert ty.dtype == tr.dtype == torch.bfloat16
+    _close(ty, np.asarray(jy, F32), 2e-2)
+    _close(tr, np.asarray(jr, F32), 0)
+    want = (tb[0].float() + tb[2].float())
+    want = want * torch.rsqrt(want.square().mean(-1, keepdim=True) + 1e-5)
+    assert torch.equal(ty, (want * tb[1].float()).to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (4, 1), (2, 2)])
+def test_mha_matches_pallas(causal, window, H, Hkv):
+    """Causal, windowed and bidirectional; GQA groups 2, 4 and 1."""
+    rng = np.random.default_rng(H * 10 + Hkv)
+    B, S, D = 2, 64, 16
+    q = rng.standard_normal((B, S, H, D)).astype(F32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(F32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(F32)
+    want = jfa.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, window=window, block_q=32, block_k=32)
+    got = tfa.mha(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                  causal=causal, window=window)
+    assert got.shape == (B, S, H, D)
+    _close(got, want, 1e-5)
+
+
+def test_decode_wrapped_ring_matches_pallas():
+    """Slot-cache decode on a ring that has wrapped (pos > S_alloc)."""
+    rng = np.random.default_rng(1)
+    B, S_alloc, H, Hkv, D = 2, 128, 4, 2, 32
+    pos = 200
+    q = rng.standard_normal((B, 1, H, D)).astype(F32)
+    k = rng.standard_normal((B, S_alloc, Hkv, D)).astype(F32)
+    v = rng.standard_normal((B, S_alloc, Hkv, D)).astype(F32)
+    slot_pos = np.full(S_alloc, -1, np.int32)
+    for p in range(pos - S_alloc, pos):
+        slot_pos[p % S_alloc] = p
+    want = jfa.decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      jnp.asarray(slot_pos), pos, window=100, block_k=64)
+    got = tfa.decode(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                     torch.tensor(slot_pos), pos, window=100)
+    _close(got, want, 1e-5)
+
+
+def test_fully_masked_rows_give_zero_and_never_occur_when_serving():
+    """A query that sees no key gives 0 in the port (kernel and plain
+    version alike) where the JAX oracle gives the uniform average of v.
+    On the serve path no row is fully masked: prefill queries see their own
+    position and decode writes the token's slot before attending."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((1, 4, 8)).astype(F32) for _ in range(3))
+    q_pos = np.array([0, 1, 2, 3], np.int32)
+    k_pos = np.array([2, 3, -1, -1], np.int32)          # rows 0, 1 see none
+    got = flash_attention_ref(*map(torch.tensor, (q, k, v, q_pos, k_pos)))
+    want = jfa_ref(*map(jnp.asarray, (q, k, v, q_pos, k_pos)))
+    assert np.all(got[0, :2].numpy() == 0)
+    np.testing.assert_allclose(np.asarray(want)[0, :2],
+                               np.broadcast_to(v[0].mean(0), (2, 8)),
+                               atol=1e-6)
+    _close(got[:, 2:], np.asarray(want)[:, 2:], 1e-5)
+    # the serve path's masks: causal prefill with a window, and a decode
+    # step at every position of a wrapped 32-slot ring
+    S = 96
+    pos = torch.arange(S, dtype=torch.int32)
+    assert visible(pos, pos, causal=True, window=32).any(-1).all()
+    slot_pos = torch.full((32,), -1, dtype=torch.int32)
+    for p in range(S):
+        slot_pos[p % 32] = p
+        assert visible(torch.tensor([p], dtype=torch.int32), slot_pos,
+                       causal=True, window=32).any()
+
+
+def test_padded_head_expansion_matches_jax():
+    """Hymba's padded heads (25 -> 32 query, 5 -> 7 kv) use the irregular
+    kv_index_map; the expansion gathers the same heads as the JAX model."""
+    cfg = get_arch("hymba-1.5b")
+    idx = cfg.kv_index_map()
+    assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (32, 7)
+    assert len(set(idx)) == 7 and max(idx) == 6
+    k = np.random.default_rng(4).standard_normal((2, 5, 7, 4)).astype(F32)
+    want = jexpand_kv(jnp.asarray(k), 1, idx)
+    got = expand_kv(torch.tensor(k), 1, idx)
+    assert got.shape == (2, 5, 32, 4)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    small = get_arch("granite-8b", smoke=True)
+    g = small.n_heads // small.n_kv_heads
+    assert np.array_equal(expand_kv(torch.tensor(k), g).numpy(),
+                          np.asarray(jexpand_kv(jnp.asarray(k), g)))
+
+
+# ---------------------------------------------------------------------------
+# mamba2 SSD
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("heads", [1, 3])
+def test_ssd_matches_pallas(chunk, heads):
+    """Two chunk sizes; B and C either per row or shared by 3 heads (the
+    model's ngroups = 1 layout, expanded for the JAX kernel)."""
+    rng = np.random.default_rng(chunk + heads)
+    BH, S, P, N = 6, 64, 8, 16
+    xdt = rng.standard_normal((BH, S, P)).astype(F32)
+    logd = (-np.abs(rng.standard_normal((BH, S))) * 0.2).astype(F32)
+    Bv = rng.standard_normal((BH // heads, S, N)).astype(F32)
+    Cv = rng.standard_normal((BH // heads, S, N)).astype(F32)
+    jy, jh = jssd(jnp.asarray(xdt), jnp.asarray(logd),
+                  jnp.asarray(np.repeat(Bv, heads, 0)),
+                  jnp.asarray(np.repeat(Cv, heads, 0)), chunk=chunk)
+    ty, th = tssd(*map(torch.tensor, (xdt, logd, Bv, Cv)), chunk=chunk,
+                  heads=heads)
+    _close(ty, jy, 1e-4)
+    _close(th, jh, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the card-only path: no CPU fallback for a non-CPU tensor
+# ---------------------------------------------------------------------------
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel path, which
+    refuses anything but a CUDA tensor: no wrapper drops to its plain
+    version there."""
+    m = torch.device("meta")
+    x = torch.empty((4, 64), device=m)
+    with pytest.raises(ValueError, match="kernel needs"):
+        trmsnorm(x, torch.empty(64, device=m))
+    q = torch.empty((1, 8, 2, 16), device=m)
+    with pytest.raises(ValueError, match="kernel needs"):
+        tfa.attention(q, q, q, torch.arange(8, dtype=torch.int32,
+                                            device=m),
+                      torch.arange(8, dtype=torch.int32, device=m))
+    with pytest.raises(ValueError, match="kernel needs"):
+        tssd(torch.empty((2, 8, 4), device=m), torch.empty((2, 8), device=m),
+             torch.empty((2, 8, 4), device=m),
+             torch.empty((2, 8, 4), device=m))
