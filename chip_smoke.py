@@ -27,11 +27,17 @@ Phases, in order; any failed check exits non-zero:
 5. LM kernel parity: Hymba-1.5B at its published widths and depth in
    bf16, random weights from a seed, serves 8 requests of 2,048 tokens
    plus 2 new ones through ``ServeEngine.generate`` while the first call
-   of each LM kernel wrapper is recorded; rmsnorm (bf16), flash attention
-   (bf16, prefill and decode) and the SSD scan (f32) are then held against
-   their plain versions on the same card inputs, each within the
-   tolerance stated at its check, and timed beside one PyTorch call that
-   computes the same function where there is one;
+   of each LM kernel wrapper is recorded; both flash-attention
+   configurations are first held against their plain version on a sweep
+   of small shapes (f32 and bf16, every head dim, ragged lengths, causal,
+   windowed and bidirectional masks, regular and padded head maps, rings
+   with empty slots, fully masked rows); then rmsnorm (bf16), flash
+   attention (bf16, prefill and decode, unexpanded K/V with the head map)
+   and the SSD scan (f32) are held against their plain versions on the
+   recorded card inputs, each within the tolerance stated at its check,
+   and timed beside one PyTorch call that computes the same function where
+   there is one (SDPA needs K/V expanded to every query head: that
+   gather's time is reported beside it and left out of its figure);
 6. serve parity: Hymba at full width, depth cut to 2 layers, float32, the
    same weights on the card and the CPU: one 2,048-token prompt, then 8
    decode steps with the same token fed to both; every logit within
@@ -77,6 +83,7 @@ PARITY_LAYERS, PARITY_DECODE, PROFILE_STEPS = 2, 8, 8
 SERVE_RUNS = 3                   # measured generates; the median is reported
 TOL_BF16_NORM = 1e-2             # reasons beside each check
 TOL_BF16_FLASH = 2e-2
+TOL_F32_FLASH = 1e-5
 TOL_SSD = 1e-3
 TOL_SERVE = 1e-3
 FIG11 = dict(n_partitions=4, n_items=4000, cust_per_district=100,
@@ -508,6 +515,65 @@ def record_generate(eng, prompts, n):
     return rec.calls
 
 
+def flash_sweep(fa_ops, attention_ref, dev):
+    """Both flash-attention configurations against their plain version on
+    small shapes that reach every branch of the kernel: f32 (1e-5: both
+    sum in f32, in another order) and bf16 (2e-2), every head dim, lengths
+    that are not multiples of the 64-row tiles, causal, windowed and
+    bidirectional masks, a regular GQA map and Hymba's padded one (32
+    query heads over 7 kv heads), more query heads on one kv head than a
+    decode pass keeps (16 over 1), rings with empty slots, rows that see
+    no key (the mean of v), decode over one and several slot splits."""
+    import torch
+    gen = torch.Generator().manual_seed(11)
+    hymba = [min(h // 5, 6) for h in range(32)]
+
+    def ring(Sk, pos):
+        """slot positions of a ring of Sk slots after writing 0..pos"""
+        sp = torch.full((Sk,), -1, dtype=torch.int32)
+        for p in range(max(0, pos + 1 - Sk), pos + 1):
+            sp[p % Sk] = p
+        return sp
+    ar = lambda n, off=0: torch.arange(off, off + n, dtype=torch.int32)
+    # (B, H, Hkv, kv_head, q_pos, k_pos, causal, window)
+    cases = [
+        (2, 4, 2, None, ar(100), ar(100), True, None),
+        (1, 32, 7, hymba, ar(150), ar(150), True, 40),
+        (2, 4, 2, None, ar(70), ar(130), False, None),
+        # keys start at 10 and some slots are empty: queries 0-9 see none
+        (1, 32, 7, hymba, ar(70),
+         torch.where(ar(130) % 7 == 3, -1, ar(130, 10)), True, 48),
+        (3, 8, 2, None, ar(1, 299), ring(300, 299), True, None),
+        (2, 32, 7, hymba, ar(1, 1500), ring(1000, 1500), True, 256),
+        (2, 16, 1, None, ar(1, 50), ring(64, 50), True, 24),
+        (2, 32, 7, hymba, ar(1, 5), ar(200, 10), True, None),  # sees none
+        (1, 8, 4, None, ar(1, 10), ring(90, 80), False, None),
+    ]
+    worst = {}
+    for dtype, tol in ((torch.float32, TOL_F32_FLASH),
+                       (torch.bfloat16, TOL_BF16_FLASH)):
+        for D in fa_ops.HEAD_DIMS:
+            for B, H, Hkv, kvh, qp, kp, causal, window in cases:
+                Sq, Sk = qp.shape[0], kp.shape[0]
+                q, k, v = (torch.randn((B, S, n, D), generator=gen).to(
+                    dev, dtype) for S, n in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+                args = (q, k, v, qp.to(dev), kp.to(dev))
+                kw = dict(causal=causal, window=window, kv_head=kvh)
+                got = fa_ops.attention(*args, **kw)
+                want = attention_ref(*args, **kw)
+                torch.cuda.synchronize()
+                err, ok = allclose_err(got, want, tol)
+                what = (f"flash sweep {dtype} D={D} B={B} H={H}/{Hkv} "
+                        f"Sq={Sq} Sk={Sk} causal={causal} window={window}")
+                check(ok, f"{what}: kernel differs from its plain version "
+                      f"by {err} (tolerance {tol})")
+                key = f"{str(dtype)[6:]} {'decode' if Sq == 1 else 'prefill'}"
+                worst[key] = max(worst.get(key, 0.0), err)
+    print("flash sweep: " + ", ".join(f"{k} max abs err {e:.3g}"
+                                      for k, e in worst.items()))
+    return worst
+
+
 def lm_kernel_checks(calls):
     """Parity (against the plain version on the same card inputs), timing
     and bound of the three LM kernels on their recorded arguments."""
@@ -551,11 +617,17 @@ def lm_kernel_checks(calls):
     (x, w, r), kw = calls["rmsnorm/prefill"]
     T, D = x.numel() // x.shape[-1], x.shape[-1]
     es = x.element_size()
-    s = (x.float() + r.float()).to(x.dtype)
     rows["rmsnorm"] = report(
         "rmsnorm", rmsnorm, rmsnorm_ref, (x, w, r), kw, TOL_BF16_NORM,
-        nbytes=es * (4 * T * D + D), nflops=5 * T * D, rate=H100_F32_FLOPS,
-        library=lambda: F.rms_norm(s, (D,), w, kw.get("eps", 1e-5)))
+        nbytes=es * (4 * T * D + D), nflops=5 * T * D, rate=H100_F32_FLOPS)
+    # no single PyTorch call adds the residual and normalises: F.rms_norm
+    # is timed on the pre-added sum (half the bytes) and after its add
+    eps = kw.get("eps", 1e-5)
+    s = (x.float() + r.float()).to(x.dtype)
+    rows["rmsnorm"].update(
+        library_note="none: no single call adds the residual and normalises",
+        rms_norm_ms=cuda_ms(lambda: F.rms_norm(s, (D,), w, eps)),
+        add_rms_norm_ms=cuda_ms(lambda: F.rms_norm(x + r, (D,), w, eps)))
     del s
     # the other two forms on the path: no residual (gate_norm, D=3,200)
     # and the decode shape (T=8)
@@ -568,28 +640,41 @@ def lm_kernel_checks(calls):
     # -- flash attention.  bf16 in, f32 scores and sums; the kernel rounds
     # the unnormalised probabilities to bf16 and the plain version the
     # normalised ones: tolerance 2e-2, tests/test_kernels.py's bf16 bound.
+    # K and V are the unexpanded (B, Sk, 7, 64) tensors, read through the
+    # head map; bytes count them once, operations the visible pairs.
+    sweep = flash_sweep(fa_ops, attention_ref,
+                        calls["flash/prefill"][0][0].device)
+
     def flash_row(key, name):
         (q, k, v, qp, kp), kw = calls[key]
         B, Sq, H, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         mask = visible(qp, kp, causal=kw["causal"], window=kw["window"])
         pairs = int(mask.sum())
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        gqa = {"enable_gqa": True} if H != Hkv else {}
-        return report(
+        idx = torch.tensor(kw["kv_head"], device=q.device)
+        qt = q.transpose(1, 2)
+
+        def expand():
+            return (k.index_select(2, idx).transpose(1, 2),
+                    v.index_select(2, idx).transpose(1, 2))
+        kt, vt = expand()
+        row = report(
             name, fa_ops.attention, attention_ref, (q, k, v, qp, kp), kw,
             TOL_BF16_FLASH,
             nbytes=q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * Hkv
-                                       * D) + 4 * (Sq + Sk),
+                                       * D) + 4 * (Sq + Sk + H),
             nflops=4 * B * H * pairs * D, rate=H100_BF16_FLOPS,
             library=lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, **gqa))
+                qt, kt, vt, attn_mask=mask))
+        row["expand_ms"] = cuda_ms(expand)
+        return row
     rows["flash_attention"] = flash_row("flash/prefill", "flash_attention")
+    rows["flash_attention"]["sweep_max_abs_err"] = sweep
     dec = flash_row("flash/decode", "flash_attention")
     rows["flash_attention"]["decode"] = {
         k: dec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                            "bound_ms", "bound_by", "library_ms", "bytes",
-                            "flops")}
+                            "bound_ms", "bound_by", "library_ms",
+                            "expand_ms", "bytes", "flops")}
 
     # -- ssd.  f32 throughout; the kernel's chunked sums against the
     # sequential recurrence over 2,048 steps: tolerance 1e-3 (1e-4 at the
@@ -673,8 +758,10 @@ def serve_path(dev):
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import ServeEngine, ServeStats
+    expand = fa_ref.expand_kv
 
     # ---- 5. LM kernels on the serve path's own arguments ---------------
     t0 = time.perf_counter()
@@ -708,12 +795,16 @@ def serve_path(dev):
     # cache, and the first prefill after that pays for its allocations
     eng.generate(prompts, 2)
     runs = []
+    expansions = []          # calls of the plain version's K/V expansion
+    fa_ref.expand_kv = lambda *a, **k: expansions.append(1) or expand(*a,
+                                                                      **k)
     for i in range(SERVE_RUNS):
         eng.stats = ServeStats()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         out = eng.generate(prompts, SERVE_GEN)
+        fa_ref.expand_kv = expand
         runs.append(dataclasses.replace(eng.stats))
         if i == 0:       # the counts and the checks of one generate
             counts = _build.launch_counts()
@@ -732,6 +823,10 @@ def serve_path(dev):
     for k, n in need.items():
         check(counts.get(k, 0) >= n, f"serve: {k} launched "
               f"{counts.get(k, 0)} times, expected >= {n}")
+    for k in ("flash_attention.prefill", "flash_attention.decode"):
+        check(counts.get(k, 0) == need[k], f"serve: {k} launched "
+              f"{counts.get(k, 0)} times, expected one a layer a step")
+    check(not expansions, "serve: K/V were expanded on the serve path")
     rows["rmsnorm"]["launches"] = counts.get("rmsnorm", 0)
     rows["mamba2_ssd"]["launches"] = counts.get("mamba2_ssd", 0)
     fl = rows["flash_attention"]
@@ -876,7 +971,8 @@ def star_phases(dev):
         batches.append(tpcc.make_batch(cfg, state, MAIN_TXNS, seed=ep))
     torch.cuda.synchronize()
     base = {f: getattr(eng.stats, f) for f in
-            ("committed_cross", "index_overflow", "consume_skips", "retries")}
+            ("committed_cross", "index_overflow", "consume_skips", "retries",
+             "fence_time_s")}
 
     def measured(f):
         """A stats counter over the measured epochs only."""
@@ -908,7 +1004,7 @@ def star_phases(dev):
     wall = sum(w for _, w, _ in rows)
     t_part = sum(m["t_part_s"] for m, _, _ in rows)
     t_sm = sum(m["t_sm_s"] for m, _, _ in rows)
-    t_f = sum(m["t_fence1_s"] + m["t_fence2_s"] for m, _, _ in rows)
+    t_f = totals["fence_time_s"]
     return kernels, {
         "epochs": MAIN_EPOCHS, "txns_per_epoch": MAIN_TXNS,
         "committed": committed, "committed_txn_per_s": committed / wall,

@@ -297,7 +297,7 @@ class StarEngine:
              "tau_p_ms": tau_p, "tau_s_ms": tau_s,
              "t_part_s": t_part, "t_sm_s": t_sm,
              "t_sm_round_s": t_sm_round,
-             "t_fence1_s": t_f1, "t_fence2_s": t_f2,
+             "t_fence1_s": t_fence1, "t_fence2_s": t_fence2,
              "t_fence_net_s": t_net1 + t_net2,
              "op_bytes_overlapped": ob_head, "op_bytes_fence": ob_tail,
              "p_committed": p_committed, "c_committed": c_committed,

@@ -1,60 +1,90 @@
 // flash_attention: FlashAttention-2 style attention with explicit query and
-// key positions, in two launch configurations (prefill and decode).
+// key positions and an explicit query-head -> kv-head map, in two launch
+// configurations (prefill and decode).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, _flash_kernel
 // (:27) and its wrapper flash_attention_pallas (:92).  Same function: key
 // j is visible to query i iff k_pos[j] >= 0, and k_pos[j] <= q_pos[i] when
 // causal, and k_pos[j] > q_pos[i] - window when windowed; softmax over the
 // visible keys in float32 with an online (running max, running sum)
-// rescaling; the probabilities are rounded to v's type before the product
-// with v, as the Pallas kernel does.  GQA: query head h reads kv head
-// h / groups.  A query that sees no key gives 0 (the Pallas kernel's
-// finite -1e30 mask would give the mean of the keys it visited).
+// rescaling; the unnormalised probabilities are rounded to v's type before
+// the product with v, as the Pallas kernel does.  Query head h reads kv
+// head kv_head[h] (any map: Hymba's padded 32 -> 7 is not h / groups), so
+// K and V are read as they are stored, never expanded.  A query that sees
+// no key gives the mean of v over all Sk keys (an f32 sum divided by Sk),
+// as the Pallas kernel's finite -1e30 mask does (every p = 1, l = Sk).
 //
 // Layout: q, o (B, Sq, H, D) and k, v (B, Sk, Hkv, D), read through
-// element strides (batch, head, position) with the last axis contiguous,
-// so the wrapper transposes nothing.  float32 or bfloat16; D in
-// {16, 32, 64, 128}.
+// element strides (batch, head, position) with the last axis contiguous.
+// float32 or bfloat16; D in {16, 32, 64, 128}.
 //
 // What bounds it on the H100.  Prefill (8 requests x 32 heads x 2,048
 // positions, window 1,024): operations, ~1.0e11 flops a call over the
-// visible keys against ~0.27 GB moved.  Decode (one query a head against
-// a 1,024-slot ring): bytes, the whole K and V cache once (67 MB).
+// visible pairs against ~0.1 GB moved.  Decode (one query a head against a
+// 1,024-slot ring): bytes, the unexpanded K and V cache once (14.7 MB).
 //
 // What the design does about it.
-// - Prefill: one block of 4 warps per (64 query rows, head, batch).  K/V
-//   tiles of 64 keys are staged in shared memory; each warp owns 16 query
-//   rows and keeps their running max and sum, and an f32 accumulator in
-//   shared memory.  In bf16 both products run on the tensor cores through
-//   WMMA (16x16x16, f32 accumulate); in float32 they are plain FMAs, so
-//   that float32 stays float32 (no TF32).  A key tile that no query of the
-//   block can see (all slots empty, or wholly outside the causal window by
-//   the tile's min/max position) is skipped before it is loaded: for
-//   causal windowed prefill that drops every tile outside the band.
-// - Masking never forms -inf - -inf: a masked score is not exponentiated
-//   (its probability is 0) and the running max starts at -1e30, finite.
-// - Decode: one block of 256 threads per (head, batch).  Each thread
-//   scores one key of a 256-key tile (16-byte loads of its K row); the
-//   tile's max and sum are block reductions; then each thread accumulates
-//   one output dimension over a share of the tile's keys, reading V rows
-//   with neighbouring threads on neighbouring addresses.
+// - Prefill, bf16: one block of 4 warps per (query head, 128 query rows,
+//   request) at D <= 64 (64 rows at D = 128); each warp owns two m-tiles
+//   of 16 rows (one at D = 128), so every K and V fragment it loads from
+//   shared memory serves two products.  Both products run on mma.sync
+//   m16n8k16 (bf16 in, f32 accumulate) with operands loaded by ldmatrix
+//   from shared rows padded by 16 bytes (conflict-free).  Q's fragments
+//   are loaded once into registers; S stays in the accumulator registers
+//   and is reused, packed to bf16, as P's A fragment; O stays in registers
+//   and is rescaled there.  Row max and sum take quad shuffles (a row
+//   spans 4 lanes); scores stay unscaled and each probability is one FMA
+//   and one ex2.approx (scale * log2(e) folded in); the row sums stay per
+//   thread until the end.  K and V tiles of 64 keys come through a
+//   2-stage cp.async ring, the next visible tile loading while this one
+//   computes: one barrier a tile.  Every key tile is classified once, at
+//   the block's start, from the block's min/max query position and the
+//   tile's min/max key position (positions are explicit): a tile no query
+//   sees is skipped before it is loaded, a tile every query sees wholly
+//   (no empty slot, inside the causal limit and the window) skips the
+//   per-element mask.  Occupancy: at D = 64 a thread takes 240 registers
+//   and a block ~57 KB of shared memory, so two blocks (8 warps) share an
+//   SM.  In trial runs on the H100, one m-tile a warp (with four blocks
+//   an SM), 8 warps a block, and key tiles of 32 or 128 were all slower.
+//   The grid runs the heads fastest, so blocks that
+//   share a kv head (adjacent heads under any monotone map) run together
+//   and L2 serves their K and V.
+// - Prefill, float32: plain FMAs (no TF32) with scores, probabilities and
+//   the accumulator in shared memory; not on the timed path.
+// - Decode: one block of 4 warps per (kv head, request, split of the
+//   slots).  The block serves every query head mapped to its kv head, so
+//   each K and V row is read once a step.  8 lanes x 16 bytes cover a
+//   128-byte bf16 row (a warp instruction reads 4 rows, 4 such steps in
+//   flight at once); each lane group keeps its own (m, l, acc) per query
+//   head, combined by shuffles, then across the block's warps in shared
+//   memory, then across the splits by the block that arrives last (a
+//   counter per (request, kv head) that the last block resets to 0, so no
+//   memset runs between calls): one launch a call.  The wrapper picks the
+//   splits so that all blocks fit on the card at once (two an SM at 222
+//   registers a thread): in trial runs a second wave cost more than the
+//   extra blocks gained.
+// - Masking never forms -inf - -inf: a masked score is -inf and the
+//   running max starts at -1e30, finite.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BQ = 64;          // query rows a prefill block
-constexpr int BK = 64;          // keys a prefill tile
+constexpr int BQ = 64;           // query rows a float32 prefill block
+constexpr int BK = 64;           // keys a prefill tile
 constexpr int PF_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int DEC_THREADS = 256;
-constexpr int DEC_TILE = 256;   // keys a decode tile: one a thread
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_U = 4;         // row steps a decode warp loads at once
+constexpr int MAXG = 8;          // query heads a decode pass keeps
+constexpr int MAX_HEADS = 256;
+constexpr int MAX_SPLITS = 32;   // decode blocks per (request, kv head)
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const void* q;
@@ -63,7 +93,12 @@ struct Args {
   void* o;
   const int* qpos;
   const int* kpos;
-  int B, H, groups, Sq, Sk;
+  // kv_head[h]: query head h's kv head, then the heads grouped by kv head
+  // (H), then where each group starts in that list (Hkv + 1)
+  const int* kv_head;
+  float* ws;                              // decode: partial (acc, m, l)
+  int* counters;                          // decode: (B * Hkv,), all 0
+  int B, H, Hkv, Sq, Sk, splits;
   long long qs[3], ks[3], vs[3], os[3];  // batch, head, position strides
   float scale;
   int causal, window;                     // window <= 0: none
@@ -86,27 +121,14 @@ template <typename T, int VEC> struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 __device__ __forceinline__ int warp_min_i(int v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 __device__ __forceinline__ int warp_max_i(int v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -114,195 +136,515 @@ __device__ __forceinline__ bool sees(int kp, int qp, int causal, int window) {
   return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
-// ---------------------------------------------------------------------------
-// prefill
-// ---------------------------------------------------------------------------
-template <typename T, int D> struct PF {
-  static constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
-  // row strides (elements) of the shared tiles: bf16 rows are padded to a
-  // multiple of 16 bytes for WMMA; float rows to an odd count of words, so
-  // that lanes reading one column of 32 rows hit 32 banks
-  static constexpr int LD = BF ? D + 8 : D + 1;     // Q, K, V tiles (T)
-  static constexpr int LDP = BF ? BK + 8 : BK + 4;  // probabilities (T)
-  static constexpr int LDS = BK + 4;                // scores (float)
-  static constexpr int LDO = D + 4;                 // accumulator (float)
-  static constexpr size_t al(size_t b) { return (b + 127) / 128 * 128; }
-  static constexpr size_t Q_OFF = 0;
-  static constexpr size_t K_OFF = Q_OFF + al(BQ * LD * sizeof(T));
-  static constexpr size_t V_OFF = K_OFF + al(BK * LD * sizeof(T));
-  static constexpr size_t S_OFF = V_OFF + al(BK * LD * sizeof(T));
-  static constexpr size_t P_OFF = S_OFF + al(BQ * LDS * sizeof(float));
-  static constexpr size_t O_OFF = P_OFF + al(BQ * LDP * sizeof(T));
-  static constexpr size_t M_OFF = O_OFF + al(BQ * LDO * sizeof(float));
-  static constexpr size_t I_OFF = M_OFF + al(3 * BQ * sizeof(float));
-  static constexpr size_t SMEM = I_OFF + al((BQ + BK + 4) * sizeof(int));
-};
+// mean over all Sk keys of v's rows into mean[0, D), lanes over d; the
+// output of a query that sees no key
+template <typename T, int D>
+__device__ void warp_mean_v(const T* v, long long stride, int Sk,
+                            float* mean) {
+  for (int d = threadIdx.x & 31; d < D; d += 32) {
+    float s = 0.f;
+    for (int j = 0; j < Sk; ++j) s += to_f(v[j * stride + d]);
+    mean[d] = s / (float)Sk;
+  }
+  __syncwarp();
+}
 
-// rows [0, nrows) of a (rows, D) tile from global memory (row stride
-// `stride` elements) into shared memory with row stride LD; rows at or
-// past `valid` are zero
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride, int valid,
-                                          int nrows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
-  using P = Pack<T, VEC>;
-  for (int i = threadIdx.x; i < nrows * CPR; i += PF_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    P v;
-    if (r < valid) {
-      v = *reinterpret_cast<const P*>(src + r * stride + c);
-    } else {
+// the block's min and max query position over its nq valid rows (every
+// warp computes the same)
+__device__ __forceinline__ void q_range(const Args& a, int q0, int nq,
+                                        int& lo, int& hi) {
+  const int lane = threadIdx.x & 31;
+  lo = INT32_MAX;
+  hi = INT32_MIN;
+  for (int i = lane; i < nq; i += 32) {
+    lo = min(lo, a.qpos[q0 + i]);
+    hi = max(hi, a.qpos[q0 + i]);
+  }
+  lo = warp_min_i(lo);
+  hi = warp_max_i(hi);
+}
+
+// classify every key tile once, a thread a tile, into cls[0, nT): 0 when
+// no query of the block can see it (skipped before it is loaded), 2 when
+// every query sees all of it (no per-element mask), 1 otherwise.  Decided
+// from the tile's min/max key position, which holds for any explicit
+// positions; the caller synchronises before reading cls.
+__device__ void classify_tiles(const Args& a, int nT, int qlo, int qhi,
+                               unsigned char* cls) {
+  const bool vec = (reinterpret_cast<uintptr_t>(a.kpos) & 15) == 0;
+  for (int t = threadIdx.x; t < nT; t += blockDim.x) {
+    const int k0 = t * BK, n = min(BK, a.Sk - k0);
+    int lo = INT32_MAX, hi = -1;
+    bool empty = n < BK;
+    auto upd = [&](int p) {
+      if (p < 0) {
+        empty = true;
+      } else {
+        lo = min(lo, p);
+        hi = max(hi, p);
+      }
+    };
+    if (n == BK && vec) {
+      const int4* p4 = reinterpret_cast<const int4*>(a.kpos + k0);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) v.v[j] = from_f<T>(0.f);
-    }
-    if constexpr (LD % VEC == 0) {
-      *reinterpret_cast<P*>(dst + r * LD + c) = v;
+      for (int i = 0; i < BK / 4; ++i) {
+        const int4 x = p4[i];
+        upd(x.x);
+        upd(x.y);
+        upd(x.z);
+        upd(x.w);
+      }
     } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) dst[r * LD + c + j] = v.v[j];
+      for (int i = 0; i < n; ++i) upd(a.kpos[k0 + i]);
     }
+    const bool vis = hi >= 0 && (!a.causal || lo <= qhi) &&
+                     (a.window <= 0 || hi > qlo - a.window);
+    const bool full = !empty && (!a.causal || hi <= qlo) &&
+                      (a.window <= 0 || lo > qhi - a.window);
+    cls[t] = vis ? (full ? 2 : 1) : 0;
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(PF_THREADS) prefill_kernel(Args a) {
-  using L = PF<T, D>;
+// the first tile at or after t that is not skipped (nT if none)
+__device__ __forceinline__ int next_tile(const unsigned char* cls, int t,
+                                         int nT) {
+  while (t < nT && cls[t] == 0) ++t;
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers: cp.async, ldmatrix, mma.sync
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x, flushing denormal results to 0 (MUFU.EX2 without exp2f's scaling)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ---------------------------------------------------------------------------
+// prefill, bfloat16: mma.sync with registers for S, P and O
+// ---------------------------------------------------------------------------
+template <int D> struct PFB {
+  // m-tiles of 16 rows a warp: two share each K/V fragment loaded from
+  // shared memory, halving ldmatrix traffic per product, where registers
+  // allow (D <= 64)
+  static constexpr int MT = D <= 64 ? 2 : 1;
+  static constexpr int BQ = 16 * MT * (PF_THREADS / 32);   // rows a block
+  static constexpr int LD = D + 8;    // elements a shared row (16-byte pad)
+  static constexpr int TILE = BK * LD;
+  static constexpr size_t Q_OFF = 0;
+  static constexpr size_t KV_OFF = BQ * LD * 2;        // 2 x (K, V) stages
+  static constexpr size_t KP_OFF = KV_OFF + 4 * TILE * 2;
+  static constexpr size_t MEAN_OFF = KP_OFF + 2 * BK * 4;
+  static constexpr size_t CLS_OFF = MEAN_OFF + (PF_THREADS / 32) * D * 4;
+  static constexpr size_t smem(int nT) { return CLS_OFF + nT; }
+};
+
+// issue the cp.async copies of key tile t (rows past Sk zero) into one
+// stage, and its key positions (past Sk: -1) with plain stores
+template <int D>
+__device__ __forceinline__ void load_kv(const Args& a, __nv_bfloat16* Ks,
+                                        __nv_bfloat16* Vs, int* kps,
+                                        const __nv_bfloat16* k,
+                                        const __nv_bfloat16* v, int t) {
+  constexpr int LD = PFB<D>::LD, CPR = D / 8;
+  const int k0 = t * BK;
+  for (int i = threadIdx.x; i < BK * CPR; i += PF_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = k0 + r < a.Sk;
+    const long long j = ok ? k0 + r : 0;
+    cp_async16(Ks + r * LD + c, k + j * a.ks[2] + c, ok);
+    cp_async16(Vs + r * LD + c, v + j * a.vs[2] + c, ok);
+  }
+  if (threadIdx.x < BK)
+    kps[threadIdx.x] =
+        k0 + (int)threadIdx.x < a.Sk ? a.kpos[k0 + threadIdx.x] : -1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
+    prefill_bf16_kernel(Args a) {
+  using L = PFB<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = L::LD, MT = L::MT, BQ = L::BQ;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
-  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
+  bf16* KV = reinterpret_cast<bf16*>(smem + L::KV_OFF);
+  int* KP = reinterpret_cast<int*>(smem + L::KP_OFF);
+  unsigned char* cls = smem + L::CLS_OFF;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.x, q0 = blockIdx.y * BQ, b = blockIdx.z;
+  const int hk = a.kv_head[h];
+  const int nq = min(BQ, a.Sq - q0);
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  bf16* o = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
+
+  for (int i = tid; i < BQ * (D / 8); i += PF_THREADS) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool ok = r < nq;
+    cp_async16(Qs + r * LD + c, q + (long long)(q0 + (ok ? r : 0)) * a.qs[2] + c,
+               ok);
+  }
+  int qlo, qhi;
+  q_range(a, q0, nq, qlo, qhi);
+  const int nT = (a.Sk + BK - 1) / BK;
+  classify_tiles(a, nT, qlo, qhi, cls);
+  __syncthreads();
+  int t = next_tile(cls, 0, nT);
+  if (t < nT) load_kv<D>(a, KV, KV + L::TILE, KP, k, v, t);
+  cp_async_commit();
+
+  // this thread's rows: in m-tile i, rows r0 + 16 i + g and + 8 (mma
+  // layout), with [i][0] and [i][1] their running max, sum and position
+  const int r0 = warp * 16 * MT;
+  int qp[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      qp[i][hf] = a.qpos[q0 + min(r0 + 16 * i + g + 8 * hf, nq - 1)];
+  // scores stay unscaled: p = 2^(s * sl2 - m * sl2), one FMA and one ex2
+  const float sl2 = a.scale * LOG2E;
+  const float ninf = __int_as_float(0xff800000);
+  float acc[MT][D / 8][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    m[i][0] = m[i][1] = NEG;
+    l[i][0] = l[i][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  }
+  uint32_t qf[MT][D / 16][4];
+  bool have_q = false;
+  int stage = 0;
+
+  while (t < nT) {
+    const bool cur_full = cls[t] == 2;
+    cp_async_wait_all();
+    __syncthreads();          // tile t landed; the other stage is consumed
+    if (!have_q) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldsm_x4(qf[i][kk], Qs + (r0 + 16 * i + (lane & 15)) * LD +
+                                 kk * 16 + (lane >> 4) * 8);
+      have_q = true;
+    }
+    const int tn = next_tile(cls, t + 1, nT);
+    if (tn < nT) {
+      bf16* nk = KV + (stage ^ 1) * 2 * L::TILE;
+      load_kv<D>(a, nk, nk + L::TILE, KP + (stage ^ 1) * BK, k, v, tn);
+    }
+    cp_async_commit();
+    const bf16* Ks = KV + stage * 2 * L::TILE;
+    const bf16* Vs = Ks + L::TILE;
+    const int* kps = KP + stage * BK;
+
+    // S = Q K^T for this warp's rows and the tile's 64 keys; each K
+    // fragment serves every m-tile
+    float s[MT][BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, Ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma16816(s[i][2 * np], qf[i][kk], bfr[0], bfr[1]);
+          mma16816(s[i][2 * np + 1], qf[i][kk], bfr[2], bfr[3]);
+        }
+      }
+    }
+    if (!cur_full) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kps[j * 8 + 2 * tq + (e & 1)];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            if (!sees(kp, qp[i][e >> 1], a.causal, a.window))
+              s[i][j][e] = ninf;
+        }
+    }
+
+    // online softmax: quad shuffles for the row max; the row sums stay
+    // per thread until the end
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = m[i][hf];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[i][j][2 * hf], s[i][j][2 * hf + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float al = ex2((m[i][hf] - mx) * sl2), ms = mx * sl2;
+        m[i][hf] = mx;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          s[i][j][2 * hf] = ex2(fmaf(s[i][j][2 * hf], sl2, -ms));
+          s[i][j][2 * hf + 1] = ex2(fmaf(s[i][j][2 * hf + 1], sl2, -ms));
+          rs += s[i][j][2 * hf] + s[i][j][2 * hf + 1];
+        }
+        l[i][hf] = l[i][hf] * al + rs;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[i][j][2 * hf] *= al;
+          acc[i][j][2 * hf + 1] *= al;
+        }
+      }
+    }
+
+    // O += P V, P from S's registers packed to bf16 (A fragments); each V
+    // fragment serves every m-tile
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        pa[i][0] = pack_bf16(s[i][2 * kk][0], s[i][2 * kk][1]);
+        pa[i][1] = pack_bf16(s[i][2 * kk][2], s[i][2 * kk][3]);
+        pa[i][2] = pack_bf16(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+        pa[i][3] = pack_bf16(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bfr[4];
+        ldsm_x4_t(bfr, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                LD + dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma16816(acc[i][2 * dp], pa[i], bfr[0], bfr[1]);
+          mma16816(acc[i][2 * dp + 1], pa[i], bfr[2], bfr[3]);
+        }
+      }
+    }
+    t = tn;
+    stage ^= 1;
+  }
+  cp_async_wait_all();
+
+  // rows that saw no key (l == 0) get the mean of v over all Sk keys
+  bool dead[MT][2], any_dead = false;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[i][hf] += __shfl_xor_sync(FULL, l[i][hf], 1);
+      l[i][hf] += __shfl_xor_sync(FULL, l[i][hf], 2);
+      dead[i][hf] = l[i][hf] == 0.f && r0 + 16 * i + g + 8 * hf < nq;
+      any_dead |= dead[i][hf];
+    }
+  float* mean = reinterpret_cast<float*>(smem + L::MEAN_OFF) + warp * D;
+  if (__any_sync(FULL, any_dead)) warp_mean_v<bf16, D>(v, a.vs[2], a.Sk,
+                                                       mean);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + 16 * i + g + 8 * hf;
+      if (r >= nq) continue;
+      const float inv = dead[i][hf] ? 0.f : 1.f / l[i][hf];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = j * 8 + 2 * tq;
+        const float x0 = dead[i][hf] ? mean[c] : acc[i][j][2 * hf] * inv;
+        const float x1 = dead[i][hf] ? mean[c + 1] : acc[i][j][2 * hf + 1] * inv;
+        *reinterpret_cast<__nv_bfloat162*>(o + (q0 + r) * a.os[2] + c) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// prefill, float32: plain FMAs through shared memory
+// ---------------------------------------------------------------------------
+template <int D> struct PFF {
+  // odd row strides (words): lanes reading one column of 32 rows hit 32
+  // banks
+  static constexpr int LD = D + 1;     // Q, K, V tiles
+  static constexpr int LDS = BK + 4;   // scores, then probabilities
+  static constexpr int LDO = D + 4;    // accumulator
+  static constexpr size_t al(size_t b) { return (b + 127) / 128 * 128; }
+  static constexpr size_t Q_OFF = 0;
+  static constexpr size_t K_OFF = Q_OFF + al(BQ * LD * 4);
+  static constexpr size_t V_OFF = K_OFF + al(BK * LD * 4);
+  static constexpr size_t S_OFF = V_OFF + al(BK * LD * 4);
+  static constexpr size_t O_OFF = S_OFF + al(BQ * LDS * 4);
+  static constexpr size_t M_OFF = O_OFF + al(BQ * LDO * 4);
+  static constexpr size_t I_OFF = M_OFF + al(3 * BQ * 4);
+  static constexpr size_t CLS_OFF = I_OFF + al((BQ + BK) * 4);
+  static constexpr size_t smem(int nT) { return CLS_OFF + nT; }
+};
+
+// rows [0, BQ or BK) of a (rows, D) float tile into shared memory (row
+// stride LD); rows at or past `valid` are zero
+template <int D, int LD>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long stride, int valid,
+                                              int nrows) {
+  constexpr int CPR = D / 4;
+  for (int i = threadIdx.x; i < nrows * CPR; i += PF_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) x = *reinterpret_cast<const float4*>(src + r * stride + c);
+    dst[r * LD + c] = x.x;
+    dst[r * LD + c + 1] = x.y;
+    dst[r * LD + c + 2] = x.z;
+    dst[r * LD + c + 3] = x.w;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
+  using L = PFF<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* Ks = reinterpret_cast<float*>(smem + L::K_OFF);
+  float* Vs = reinterpret_cast<float*>(smem + L::V_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  T* Ps = reinterpret_cast<T*>(smem + L::P_OFF);
   float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
   float* mrow = reinterpret_cast<float*>(smem + L::M_OFF);
   float* lrow = mrow + BQ;
   float* arow = lrow + BQ;
   int* qp = reinterpret_cast<int*>(smem + L::I_OFF);
   int* kp = qp + BQ;
-  int* flag = kp + BK;            // [0] tile visible, [1] qmin, [2] qmax
+  unsigned char* cls = smem + L::CLS_OFF;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int hk = h / a.groups;
+  const int h = blockIdx.x, q0 = blockIdx.y * BQ, b = blockIdx.z;
+  const int hk = a.kv_head[h];
   const int nq = min(BQ, a.Sq - q0);
-  const T* q = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const T* k = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const T* v = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  T* o = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
+  const float* q = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  float* o = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[1];
 
-  load_tile<T, D, L::LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQ);
+  load_tile_f32<D, L::LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQ);
   for (int i = tid; i < BQ; i += PF_THREADS) {
     qp[i] = a.qpos[q0 + min(i, nq - 1)];   // padding rows repeat the last
     mrow[i] = NEG;
     lrow[i] = 0.f;
   }
   for (int i = tid; i < BQ * L::LDO; i += PF_THREADS) Os[i] = 0.f;
+  int qlo, qhi;
+  q_range(a, q0, nq, qlo, qhi);
+  const int nT = (a.Sk + BK - 1) / BK;
+  classify_tiles(a, nT, qlo, qhi, cls);
   __syncthreads();
-  if (warp == 0) {
-    int lo = INT32_MAX, hi = INT32_MIN;
-    for (int i = lane; i < nq; i += 32) {
-      lo = min(lo, qp[i]);
-      hi = max(hi, qp[i]);
-    }
-    lo = warp_min_i(lo);
-    hi = warp_max_i(hi);
-    if (lane == 0) {
-      flag[1] = lo;
-      flag[2] = hi;
-    }
-  }
 
   const int r0 = warp * 16;                // this warp's query rows
-  for (int k0 = 0; k0 < a.Sk; k0 += BK) {
-    const int nk = min(BK, a.Sk - k0);
+  for (int t = next_tile(cls, 0, nT); t < nT; t = next_tile(cls, t + 1, nT)) {
+    const int k0 = t * BK, nk = min(BK, a.Sk - k0);
     __syncthreads();                       // the last tile is consumed
     for (int i = tid; i < BK; i += PF_THREADS)
       kp[i] = i < nk ? a.kpos[k0 + i] : -1;
-    __syncthreads();
-    if (warp == 0) {                       // can any query see this tile?
-      int lo = INT32_MAX, hi = -1;
-      for (int i = lane; i < BK; i += 32) {
-        if (kp[i] >= 0) {
-          lo = min(lo, kp[i]);
-          hi = max(hi, kp[i]);
-        }
-      }
-      lo = warp_min_i(lo);
-      hi = warp_max_i(hi);
-      if (lane == 0)
-        flag[0] = hi >= 0 && (!a.causal || lo <= flag[2]) &&
-                  (a.window <= 0 || hi > flag[1] - a.window);
-    }
-    __syncthreads();
-    if (!flag[0]) continue;
-    load_tile<T, D, L::LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BK);
-    load_tile<T, D, L::LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BK);
+    load_tile_f32<D, L::LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BK);
+    load_tile_f32<D, L::LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BK);
     __syncthreads();
 
     // scores of this warp's 16 rows against the tile's 64 keys
-    if constexpr (L::BF) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::load_matrix_sync(fa, Qs + r0 * L::LD + kk * 16, L::LD);
-          wmma::load_matrix_sync(fb, Ks + n * 16 * L::LD + kk * 16, L::LD);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-#pragma unroll
-        for (int e = 0; e < fc.num_elements; ++e) fc.x[e] *= a.scale;
-        wmma::store_matrix_sync(Ss + r0 * L::LDS + n * 16, fc, L::LDS,
-                                wmma::mem_row_major);
-      }
-    } else {
-      for (int rr = 0; rr < 16; ++rr) {
-        const float* qrow = Qs + (r0 + rr) * L::LD;
-        for (int c = lane; c < BK; c += 32) {
-          const float* krow = Ks + c * L::LD;
-          float acc = 0.f;
+    for (int rr = 0; rr < 16; ++rr) {
+      const float* qrow = Qs + (r0 + rr) * L::LD;
+      for (int c = lane; c < BK; c += 32) {
+        const float* krow = Ks + c * L::LD;
+        float acc = 0.f;
 #pragma unroll 16
-          for (int d = 0; d < D; ++d) acc += qrow[d] * krow[d];
-          Ss[(r0 + rr) * L::LDS + c] = acc * a.scale;
-        }
+        for (int d = 0; d < D; ++d) acc += qrow[d] * krow[d];
+        Ss[(r0 + rr) * L::LDS + c] = acc * a.scale;
       }
     }
     __syncwarp();
 
-    // online softmax over this warp's rows
+    // online softmax over this warp's rows; probabilities overwrite scores
     for (int rr = 0; rr < 16; ++rr) {
       const int r = r0 + rr;
-      const int qpr = qp[r];
       float sv[BK / 32];
       bool vis[BK / 32];
       float tmax = NEG;
 #pragma unroll
       for (int u = 0; u < BK / 32; ++u) {
         const int c = lane + 32 * u;
-        vis[u] = sees(kp[c], qpr, a.causal, a.window);
+        vis[u] = sees(kp[c], qp[r], a.causal, a.window);
         sv[u] = Ss[r * L::LDS + c];
         if (vis[u]) tmax = fmaxf(tmax, sv[u]);
       }
-      tmax = warp_max(tmax);
-      const float m_old = mrow[r];
-      const float m_new = fmaxf(m_old, tmax);
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, x));
+      const float m_new = fmaxf(mrow[r], tmax);
       float psum = 0.f;
 #pragma unroll
       for (int u = 0; u < BK / 32; ++u) {
         const float p = vis[u] ? expf(sv[u] - m_new) : 0.f;
         psum += p;
-        Ps[r * L::LDP + lane + 32 * u] = from_f<T>(p);
+        Ss[r * L::LDS + lane + 32 * u] = p;
       }
-      psum = warp_sum(psum);
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1)
+        psum += __shfl_xor_sync(FULL, psum, x);
+      __syncwarp();
       if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
+        const float alpha = expf(mrow[r] - m_new);
         arow[r] = alpha;
         mrow[r] = m_new;
         lrow[r] = lrow[r] * alpha + psum;
@@ -310,150 +652,248 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(Args a) {
     }
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const float alpha = arow[r0 + rr];
-      for (int d = lane; d < D; d += 32) Os[(r0 + rr) * L::LDO + d] *= alpha;
-    }
-    __syncwarp();
-
-    // accumulator += P V for this warp's rows
-    if constexpr (L::BF) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* op = Os + r0 * L::LDO + n * 16;
-        wmma::load_matrix_sync(fc, op, L::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::load_matrix_sync(fa, Ps + r0 * L::LDP + kk * 16, L::LDP);
-          wmma::load_matrix_sync(fb, Vs + kk * 16 * L::LD + n * 16, L::LD);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-        wmma::store_matrix_sync(op, fc, L::LDO, wmma::mem_row_major);
-      }
-    } else {
-      for (int rr = 0; rr < 16; ++rr) {
-        const float* prow = Ps + (r0 + rr) * L::LDP;
-        for (int d = lane; d < D; d += 32) {
-          float acc = 0.f;
+      const int r = r0 + rr;
+      const float* prow = Ss + r * L::LDS;
+      for (int d = lane; d < D; d += 32) {
+        float acc = 0.f;
 #pragma unroll 16
-          for (int j = 0; j < BK; ++j) acc += prow[j] * Vs[j * L::LD + d];
-          Os[(r0 + rr) * L::LDO + d] += acc;
-        }
+        for (int j = 0; j < BK; ++j) acc += prow[j] * Vs[j * L::LD + d];
+        Os[r * L::LDO + d] = Os[r * L::LDO + d] * arow[r] + acc;
       }
     }
   }
-  __syncwarp();
+  __syncthreads();
+  // rows that saw no key: the mean of v over all Sk keys (the warp's own
+  // score rows hold it)
+  bool dead = false;
+  for (int rr = 0; rr < 16 && r0 + rr < nq; ++rr) dead |= lrow[r0 + rr] == 0.f;
+  float* mean = Ss + r0 * L::LDS;
+  if (dead) warp_mean_v<float, D>(v, a.vs[2], a.Sk, mean);
   for (int rr = 0; rr < 16; ++rr) {
     const int r = r0 + rr;
     if (r >= nq) break;
     const float l = lrow[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
     for (int d = lane; d < D; d += 32)
-      o[(q0 + r) * a.os[2] + d] = from_f<T>(Os[r * L::LDO + d] * inv);
+      o[(q0 + r) * a.os[2] + d] = l > 0.f ? Os[r * L::LDO + d] / l : mean[d];
   }
 }
 
 // ---------------------------------------------------------------------------
-// decode (one query a head)
+// decode (one query a head): a block per (slot split, kv head, request)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < DEC_THREADS / 32; ++i) r = fmaxf(r, red[i]);
-  return r;
-}
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = 0.f;
-#pragma unroll
-  for (int i = 0; i < DEC_THREADS / 32; ++i) r += red[i];
-  return r;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int NG = DEC_THREADS / D;      // key groups of the V pass
+  constexpr int VEC = 16 / sizeof(T);    // elements a lane loads
+  constexpr int LPR = D / VEC;           // lanes a K/V row
+  constexpr int RPW = 32 / LPR;          // rows a warp instruction
+  constexpr int STEP = DEC_WARPS * RPW;  // rows the block covers a step
   using P = Pack<T, VEC>;
-  __shared__ float qs[D];
-  __shared__ float pr[DEC_TILE];
-  __shared__ float red[DEC_THREADS / 32];
-  __shared__ float accs[DEC_THREADS];
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.groups;
-  const T* q = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  __shared__ int heads[MAX_HEADS];
+  __shared__ int is_last;
+  __shared__ float wm[DEC_WARPS][MAXG], wl[DEC_WARPS][MAXG];
+  __shared__ float wacc[DEC_WARPS][MAXG][D];
+  __shared__ float cf[MAXG][MAX_SPLITS], cden[MAXG];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int row = lane / LPR, c = (lane % LPR) * VEC;
+  // the query heads of kv head hk: order[off[hk], off[hk + 1]) of the
+  // table's grouped list
+  const int* order = a.kv_head + a.H;
+  const int off = order[a.H + hk], G = order[a.H + hk + 1] - off;
+  for (int i = tid; i < G; i += DEC_THREADS) heads[i] = order[off + i];
+  __syncthreads();
+  const int per = (a.Sk + a.splits - 1) / a.splits;
+  const int j0 = sp * per, j1 = min(a.Sk, j0 + per);
   const T* k = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
   const T* v = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  T* o = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
   const int qpos = a.qpos[0];
-  for (int d = tid; d < D; d += DEC_THREADS) qs[d] = to_f(q[d]);
-  __syncthreads();
+  const float sl2 = a.scale * LOG2E;
+  float* ws = a.ws + (long long)b * a.H * a.splits * (D + 2);
 
-  float m = NEG, l = 0.f, acc = 0.f;
-  const int d = tid % D, g = tid / D;
-  for (int k0 = 0; k0 < a.Sk; k0 += DEC_TILE) {
-    const int j = k0 + tid;
-    bool vis = false;
-    float s = NEG;
-    if (j < a.Sk && sees(a.kpos[j], qpos, a.causal, a.window)) {
-      vis = true;
-      const T* krow = k + j * a.ks[2];
-      float dot = 0.f;
+  for (int g0 = 0; g0 < G; g0 += MAXG) {
+    const int ng = min(MAXG, G - g0);
+    float qv[MAXG][VEC], acc[MAXG][VEC], m[MAXG], l[MAXG];
 #pragma unroll
-      for (int c = 0; c < D; c += VEC) {
-        const P kv = *reinterpret_cast<const P*>(krow + c);
+    for (int gi = 0; gi < MAXG; ++gi) {
+      m[gi] = NEG;
+      l[gi] = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot += qs[c + e] * to_f(kv.v[e]);
+      for (int e = 0; e < VEC; ++e) qv[gi][e] = acc[gi][e] = 0.f;
+      if (gi < ng) {
+        const T* qh = static_cast<const T*>(a.q) + b * a.qs[0] +
+                      heads[g0 + gi] * a.qs[1];
+        const P x = *reinterpret_cast<const P*>(qh + c);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qv[gi][e] = to_f(x.v[e]) * sl2;
       }
-      s = dot * a.scale;
     }
-    if (!__syncthreads_or(vis)) continue;
-    const float m_new = fmaxf(m, block_max(vis ? s : NEG, red));
-    const float alpha = expf(m - m_new);
-    const float p = vis ? expf(s - m_new) : 0.f;
-    pr[tid] = to_f(from_f<T>(p));           // rounded as v's type
-    l = l * alpha + block_sum(p, red);      // (its syncs publish pr)
-    m = m_new;
-    const int nk = min(DEC_TILE, a.Sk - k0);
-    float part = 0.f;
-    for (int jj = g; jj < nk; jj += NG)
-      part += pr[jj] * to_f(v[(k0 + jj) * a.vs[2] + d]);
-    acc = acc * alpha + part;
-    __syncthreads();                        // pr is consumed
-  }
-  accs[tid] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float out = 0.f;
+    for (int jb = j0 + warp * RPW; jb < j1; jb += STEP * DEC_U) {
+      // positions, K and V of DEC_U rows, all loads in flight together
+      P kr[DEC_U], vr[DEC_U];
+      int kp[DEC_U];
 #pragma unroll
-    for (int gg = 0; gg < NG; ++gg) out += accs[gg * D + tid];
-    o[tid] = from_f<T>(l > 0.f ? out / l : 0.f);
+      for (int u = 0; u < DEC_U; ++u) {
+        const int j = jb + u * STEP + row;
+        const long long jj = j < j1 ? j : j0;
+        kp[u] = j < j1 ? a.kpos[j] : -1;
+        kr[u] = *reinterpret_cast<const P*>(k + jj * a.ks[2] + c);
+        vr[u] = *reinterpret_cast<const P*>(v + jj * a.vs[2] + c);
+      }
+#pragma unroll
+      for (int u = 0; u < DEC_U; ++u) {
+        const bool vis = sees(kp[u], qpos, a.causal, a.window);
+        float kf[VEC], vf[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          kf[e] = to_f(kr[u].v[e]);
+          vf[e] = to_f(vr[u].v[e]);
+        }
+#pragma unroll
+        for (int gi = 0; gi < MAXG; ++gi) {
+          if (gi >= ng) break;
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) s += qv[gi][e] * kf[e];
+#pragma unroll
+          for (int x = 1; x < LPR; x <<= 1) s += __shfl_xor_sync(FULL, s, x);
+          if (vis) {
+            const float mn = fmaxf(m[gi], s);
+            const float al = ex2(m[gi] - mn), p = ex2(s - mn);
+            const float pr = to_f(from_f<T>(p));   // rounded as v's type
+            l[gi] = l[gi] * al + p;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[gi][e] = acc[gi][e] * al + pr * vf[e];
+            m[gi] = mn;
+          }
+        }
+      }
+    }
+    // combine the warp's row groups (lanes LPR apart), then its warps
+#pragma unroll
+    for (int gi = 0; gi < MAXG; ++gi) {
+      if (gi >= ng) break;
+#pragma unroll
+      for (int x = LPR; x < 32; x <<= 1) {
+        const float mo = __shfl_xor_sync(FULL, m[gi], x);
+        const float lo = __shfl_xor_sync(FULL, l[gi], x);
+        const float mn = fmaxf(m[gi], mo);
+        const float sa = ex2(m[gi] - mn), sb = ex2(mo - mn);
+        l[gi] = l[gi] * sa + lo * sb;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[gi][e] = acc[gi][e] * sa +
+                       __shfl_xor_sync(FULL, acc[gi][e], x) * sb;
+        m[gi] = mn;
+      }
+      if (row == 0) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) wacc[warp][gi][c + e] = acc[gi][e];
+      }
+      if (lane == 0) {
+        wm[warp][gi] = m[gi];
+        wl[warp][gi] = l[gi];
+      }
+    }
+    __syncthreads();
+    // this split's (acc[D], m, l) of each head, into the scratch
+    for (int i = tid; i < ng * (D + 2); i += DEC_THREADS) {
+      const int gi = i / (D + 2), d = i % (D + 2);
+      float mn = NEG;
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) mn = fmaxf(mn, wm[w][gi]);
+      float s = d == D ? mn : 0.f;
+      if (d != D) {
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w)
+          s += (d < D ? wacc[w][gi][d] : wl[w][gi]) * ex2(wm[w][gi] - mn);
+      }
+      ws[((long long)heads[g0 + gi] * a.splits + sp) * (D + 2) + d] = s;
+    }
+    __syncthreads();                       // wm, wl, wacc are consumed
+  }
+
+  // the last block of (request, kv head) to arrive combines the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = a.counters + b * a.Hkv + hk;
+    const int last = atomicAdd(cnt, 1) == a.splits - 1;
+    if (last) *cnt = 0;                    // ready for the next call
+    is_last = last;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int g0 = 0; g0 < G; g0 += MAXG) {
+    const int ng = min(MAXG, G - g0);
+    // each split's m, one thread a (head, split); then per head the
+    // weights 2^(m - max) and the sum of the weighted l
+    for (int i = tid; i < ng * a.splits; i += DEC_THREADS) {
+      const int gi = i / a.splits, s = i % a.splits;
+      cf[gi][s] = __ldcg(ws + ((long long)heads[g0 + gi] * a.splits + s) *
+                                  (D + 2) + D);
+    }
+    __syncthreads();
+    if (tid < ng) {
+      const float* w = ws + (long long)heads[g0 + tid] * a.splits * (D + 2);
+      float mn = NEG, den = 0.f;
+      for (int s = 0; s < a.splits; ++s) mn = fmaxf(mn, cf[tid][s]);
+      for (int s = 0; s < a.splits; ++s) {
+        cf[tid][s] = ex2(cf[tid][s] - mn);
+        den += __ldcg(w + s * (D + 2) + D + 1) * cf[tid][s];
+      }
+      cden[tid] = den;
+    }
+    __syncthreads();
+    for (int i = tid; i < ng * D; i += DEC_THREADS) {
+      const int gi = i / D, d = i % D, h = heads[g0 + gi];
+      const float* w = ws + (long long)h * a.splits * (D + 2) + d;
+      float num = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < a.splits; ++s) num += __ldcg(w + s * (D + 2)) * cf[gi][s];
+      float out;
+      if (cden[gi] > 0.f) {
+        out = num / cden[gi];
+      } else {                             // no visible key: mean of v
+        float sum = 0.f;
+        for (int j = 0; j < a.Sk; ++j) sum += to_f(v[j * a.vs[2] + d]);
+        out = sum / (float)a.Sk;
+      }
+      T* o = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
+      o[d] = from_f<T>(out);
+    }
+    __syncthreads();                       // cf, cden are consumed
   }
 }
 
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t st) {
   if (a.Sq == 1) {
-    decode_kernel<T, D><<<dim3(a.H, a.B), DEC_THREADS, 0, st>>>(a);
-  } else {
-    const size_t smem = PF<T, D>::SMEM;
+    if (a.ws == nullptr || a.counters == nullptr || a.splits < 1 ||
+        a.splits > MAX_SPLITS)
+      return (int)cudaErrorInvalidValue;
+    decode_kernel<T, D><<<dim3(a.splits, a.Hkv, a.B), DEC_THREADS, 0, st>>>(
+        a);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid(a.H, (a.Sq + BQ - 1) / BQ, a.B);
+    const size_t smem = PFF<D>::smem((a.Sk + BK - 1) / BK);
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        prefill_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    prefill_kernel<T, D>
-        <<<dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), PF_THREADS, smem, st>>>(a);
+    prefill_f32_kernel<D><<<grid, PF_THREADS, smem, st>>>(a);
+  } else {
+    const dim3 grid(a.H, (a.Sq + PFB<D>::BQ - 1) / PFB<D>::BQ, a.B);
+    const size_t smem = PFB<D>::smem((a.Sk + BK - 1) / BK);
+    const cudaError_t e = cudaFuncSetAttribute(
+        prefill_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    prefill_bf16_kernel<D><<<grid, PF_THREADS, smem, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -472,19 +912,27 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
 }  // namespace
 
 // Strides are in elements, in the order (batch, head, position) for q, k,
-// v and o; the last axis is contiguous.  dtype 0 = float32, 1 = bfloat16.
-// Sq == 1 runs the decode configuration, any other Sq the prefill one.
+// v and o; the last axis is contiguous.  kv_head: int32, the (H,) map of
+// query heads to kv heads in [0, Hkv), then the H query heads ordered by
+// kv head, then the Hkv + 1 offsets of each kv head's run in that order.
+// dtype 0 = float32, 1 = bfloat16.  Sq == 1 runs the decode
+// configuration, any other Sq the prefill one; decode splits the slots
+// over `splits` blocks per (request, kv head) and needs `ws`, float32 of
+// B * H * splits * (D + 2), and `counters`, int32 of B * Hkv, zero before
+// the first call (each call leaves them zero).  Prefill ignores all three.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* qpos,
-    const void* kpos, int B, int H, int groups, int Sq, int Sk, int D,
-    long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-    long long kss, long long vsb, long long vsh, long long vss, long long osb,
-    long long osh, long long oss, float scale, int causal, int window,
-    int dtype, void* stream) {
+    const void* kpos, const void* kv_head, void* ws, void* counters, int B,
+    int H, int Hkv, int Sq, int Sk, int D, int splits, long long qsb,
+    long long qsh, long long qss, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, long long osb, long long osh,
+    long long oss, float scale, int causal, int window, int dtype,
+    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaGetLastError();
-  if (groups <= 0 || H % groups) return (int)cudaErrorInvalidValue;
-  Args a{q,   k,      v,  o,  (const int*)qpos, (const int*)kpos,
-         B,   H,      groups, Sq, Sk,
+  if (Hkv <= 0 || H > MAX_HEADS) return (int)cudaErrorInvalidValue;
+  Args a{q,      k,   v,  o,  (const int*)qpos, (const int*)kpos,
+         (const int*)kv_head, (float*)ws, (int*)counters,
+         B,      H,   Hkv, Sq, Sk, splits,
          {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
          scale, causal, window};
   cudaStream_t st = (cudaStream_t)stream;

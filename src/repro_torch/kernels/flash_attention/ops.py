@@ -4,8 +4,16 @@ plain version (``ref.attention_ref``) for CPU tensors.
 
 Layout (B, S, H, D) at the wrappers, as in the JAX package; the kernel
 reads that layout through its strides, so nothing is transposed on the
-card.  ``block_q``/``block_k`` are accepted for the JAX signatures; the
-kernel's tiles are its own (64 query rows by 64 keys).
+card.  K and V stay unexpanded: query head h reads kv head ``kv_head[h]``
+through a table on the card (built from ``H // Hkv`` when no map is
+given), which also lists the query heads of each kv head for decode.
+``block_q``/``block_k`` are accepted for the JAX signatures; the kernel's
+tiles are its own (64 query rows by 64 keys).
+
+Decode splits each (request, kv head)'s slots over several blocks, which
+combine through a scratch buffer and a counter per (request, kv head) kept
+here per device; the kernel leaves the counters at zero, so no call
+clears them.  Calls on one device must therefore run on one stream.
 """
 from __future__ import annotations
 
@@ -20,34 +28,97 @@ from repro_torch.obs.trace import kernel_launch
 KERNEL = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+MAX_HEADS = 256                  # csrc/flash_attention.cu MAX_HEADS
+MAX_SPLITS = 32                  # csrc/flash_attention.cu MAX_SPLITS
+# q, k, v, o, q_pos, k_pos, kv_head, ws, counters; B, H, Hkv, Sq, Sk, D,
+# splits; 12 strides; scale; causal, window, dtype; stream
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p])
 
+_TABLES: dict = {}   # (kv_head, Hkv, device) -> int32 table on the card
+_SCRATCH: dict = {}  # device -> (ws float32, counters int32)
+_SMS: dict = {}      # device -> streaming multiprocessors
+
+
+def head_map(H: int, Hkv: int, kv_head=None) -> tuple:
+    """The query head -> kv head map as a tuple of H ints in [0, Hkv)."""
+    if kv_head is None:
+        if H % Hkv:
+            raise ValueError(f"attention: {H} query heads over {Hkv} kv "
+                             f"heads need an explicit kv_head map")
+        return tuple(h // (H // Hkv) for h in range(H))
+    kv_head = tuple(int(x) for x in kv_head)
+    if len(kv_head) != H or not all(0 <= x < Hkv for x in kv_head):
+        raise ValueError(f"attention: kv_head {kv_head} is not a map of "
+                         f"{H} query heads onto {Hkv} kv heads")
+    return kv_head
+
+
+def head_table(kv_head: tuple, Hkv: int) -> list:
+    """The kernel's head table: the map itself, the query heads ordered by
+    kv head, and the Hkv + 1 offsets of each kv head's run in that order."""
+    order = sorted(range(len(kv_head)), key=lambda h: (kv_head[h], h))
+    offsets = [sum(1 for x in kv_head if x < g) for g in range(Hkv + 1)]
+    return list(kv_head) + order + offsets
+
+
+def _table(kv_head: tuple, Hkv: int, dev):
+    t = _TABLES.get((kv_head, Hkv, dev))
+    if t is None:
+        t = _TABLES[(kv_head, Hkv, dev)] = torch.tensor(
+            head_table(kv_head, Hkv), dtype=torch.int32, device=dev)
+    return t
+
+
+def decode_splits(B: int, Hkv: int, Sk: int, dev) -> int:
+    """Blocks per (request, kv head) in decode: as many as fill the card
+    with two blocks an SM in one wave (the kernel's registers allow two),
+    each with at least 64 slots, at most MAX_SPLITS."""
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return max(1, min(2 * sms // (B * Hkv), Sk // 64, MAX_SPLITS))
+
+
+def _scratch(dev, n_ws: int, n_cnt: int):
+    """The decode scratch of ``dev``, grown to the sizes asked for (new
+    counters start at zero; the kernel leaves them there)."""
+    ws, cnt = _SCRATCH.get(dev, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_cnt:
+        cnt = torch.zeros(n_cnt, dtype=torch.int32, device=dev)
+    _SCRATCH[dev] = (ws, cnt)
+    return ws, cnt
+
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
-              scale=None):
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) with H % Hkv == 0 (query
-    head h reads kv head h // (H // Hkv)); q_pos (Sq,), k_pos (Sk,) int32
-    (-1 = empty slot).  Returns (B, Sq, H, D) in q's dtype.  Sq == 1 runs
+              scale=None, kv_head=None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); q_pos (Sq,), k_pos (Sk,)
+    int32 (-1 = empty slot).  Query head h reads kv head ``kv_head[h]``
+    (H ints in [0, Hkv)); without a map H % Hkv == 0 and it reads
+    h // (H // Hkv).  Returns (B, Sq, H, D) in q's dtype.  Sq == 1 runs
     the decode configuration of the kernel, any other Sq the prefill one."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if H % Hkv:
-        raise ValueError(f"attention: {H} query heads over {Hkv} kv heads")
-    groups = H // Hkv
+    kv_head = head_map(H, Hkv, kv_head)
     scale = float(scale if scale is not None else D ** -0.5)
     name = f"{KERNEL}.{'decode' if Sq == 1 else 'prefill'}"
     kernel_launch(name, backend=q.device.type, q=Sq, k=Sk, heads=B * H)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos, k_pos, causal=causal,
-                             window=window, scale=scale)
+                             window=window, scale=scale, kv_head=kv_head)
     if q.dtype not in DTYPES:
         raise ValueError(f"attention: dtype {q.dtype}, the kernel takes "
                          f"float32 or bfloat16")
     if D not in HEAD_DIMS:
         raise ValueError(f"attention: head dim {D}, the kernel takes "
                          f"{HEAD_DIMS}")
+    if H > MAX_HEADS:
+        raise ValueError(f"attention: {H} heads, the kernel takes at most "
+                         f"{MAX_HEADS}")
     dev = q.device
     chk = _build.checked
     qs = chk("q", _build.aligned16(q), q.dtype, (B, Sq, H, D), dev)
@@ -55,32 +126,40 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     vs = chk("v", _build.aligned16(v), q.dtype, (B, Sk, Hkv, D), dev)
     qp = chk("q_pos", q_pos.to(torch.int32).contiguous(), torch.int32,
              (Sq,), dev)
-    kp = chk("k_pos", k_pos.to(torch.int32).contiguous(), torch.int32,
+    kp = chk("k_pos", _build.aligned16(k_pos.to(torch.int32)), torch.int32,
              (Sk,), dev)
     o = torch.empty_like(qs)
+    splits, ws_ptr, cnt_ptr = 0, 0, 0
+    if Sq == 1:
+        splits = decode_splits(B, Hkv, Sk, dev)
+        ws, cnt = _scratch(dev, B * H * splits * (D + 2), B * Hkv)
+        ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
     strides = [s for t in (qs, ks, vs, o) for s in
                (t.stride(0), t.stride(2), t.stride(1))]
     f = _build.bind("flash_attention", "flash_attention_fwd", _ARGS)
     _build.launch(name, f, qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                  o.data_ptr(), qp.data_ptr(), kp.data_ptr(), B, H, groups,
-                  Sq, Sk, D, *strides, scale, int(causal),
+                  o.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+                  _table(kv_head, Hkv, dev).data_ptr(), ws_ptr, cnt_ptr, B, H,
+                  Hkv, Sq, Sk, D, splits, *strides, scale, int(causal),
                   0 if window is None else int(window), DTYPES[q.dtype],
                   _build.stream_ptr(dev))
     return o
 
 
-def mha(q, k, v, *, causal=True, window=None, block_q=256, block_k=256):
+def mha(q, k, v, *, causal=True, window=None, block_q=256, block_k=256,
+        kv_head=None):
     """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, H, D)."""
     dev = q.device
     return attention(q, k, v, torch.arange(q.shape[1], dtype=torch.int32,
                                            device=dev),
                      torch.arange(k.shape[1], dtype=torch.int32, device=dev),
-                     causal=causal, window=window)
+                     causal=causal, window=window, kv_head=kv_head)
 
 
-def decode(q, k_cache, v_cache, slot_pos, pos, *, window=None, block_k=256):
+def decode(q, k_cache, v_cache, slot_pos, pos, *, window=None, block_k=256,
+           kv_head=None):
     """q: (B, 1, H, D); caches: (B, S_alloc, Hkv, D); slot_pos: (S_alloc,)
     absolute positions per slot (-1 empty); pos: the current position."""
     q_pos = torch.full((1,), int(pos), dtype=torch.int32, device=q.device)
     return attention(q, k_cache, v_cache, q_pos, slot_pos, causal=True,
-                     window=window)
+                     window=window, kv_head=kv_head)

@@ -3,13 +3,15 @@
 positions, mirroring ``repro/kernels/flash_attention/ref.py``.
 
 Covers causal prefill, bidirectional encoding, sliding windows and
-slot-cache decode (k_pos = slot positions, -1 = empty).  GQA: query head
-``b`` reads kv head ``b // groups``.
+slot-cache decode (k_pos = slot positions, -1 = empty).  Query head ``h``
+reads kv head ``kv_head[h]`` (``h // groups`` by default); the kv heads are
+expanded with :func:`expand_kv`, as the JAX model does, and only here: the
+kernel reads them unexpanded.
 
-One difference from the JAX oracle, shared with the kernel: a query row
-that sees no key at all gives 0 (the oracle's softmax over a row of -1e30
-gives the uniform average of every value row).  On the serve path no row
-is fully masked, since every query sees its own position.
+A query row that sees no key gets a uniform softmax, the mean of every
+value row, as the JAX oracle's softmax over a row of -1e30 and the Pallas
+kernel (p = 1 for each key, l = Sk) give.  On the serve path no row is
+fully masked, since every query sees its own position.
 """
 from __future__ import annotations
 
@@ -28,6 +30,16 @@ def visible(q_pos, k_pos, *, causal=True, window=None):
     return mask
 
 
+def expand_kv(k, groups: int, index_map=None):
+    """(B, S, Hkv, Dh) -> (B, S, H, Dh).  With padded heads the q->kv
+    assignment is an explicit gather (the grouping is irregular)."""
+    if index_map is not None:
+        return k[:, :, torch.as_tensor(index_map, device=k.device), :]
+    if groups == 1:
+        return k
+    return k.repeat_interleave(groups, dim=2)
+
+
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, groups=1, causal=True,
                         window=None, scale=None):
     """q: (BH, Sq, D); k, v: (BH // groups, Sk, D); q_pos (Sq,), k_pos (Sk,)
@@ -41,17 +53,21 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, groups=1, causal=True,
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     mask = visible(q_pos, k_pos, causal=causal, window=window)
     s = s.masked_fill(~mask[None], NEG_INF)
-    p = torch.softmax(s, dim=-1) * mask.any(-1)[None, :, None]
+    p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
                         v.float()).to(v.dtype)
 
 
 def attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
-                  scale=None):
+                  scale=None, kv_head=None):
     """:func:`flash_attention_ref` in the wrappers' (B, S, H, D) layout:
-    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D)."""
+    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D).  ``kv_head``:
+    query head -> kv head (``h // (H // Hkv)`` when None)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    if kv_head is not None:
+        k, v = expand_kv(k, 1, kv_head), expand_kv(v, 1, kv_head)
+        Hkv = H
     out = flash_attention_ref(
         q.transpose(1, 2).reshape(B * H, Sq, D),
         k.transpose(1, 2).reshape(B * Hkv, Sk, D),

@@ -5,9 +5,11 @@ ROADMAP Queue 1, item 11).
 Where the JAX model computes attention in XLA (``_attend`` /
 ``chunked_attention``), the port calls the flash-attention kernel:
 ``ops.mha`` for prefill, ``ops.decode`` for one-token steps against the
-slot cache.  Padded heads (``cfg.pad_heads_to``) expand the kv heads with
-the irregular ``kv_index_map`` here, and the kernel then runs with one
-query head per kv head; a regular GQA layout goes to the kernel unexpanded.
+slot cache.  The kernel reads the kv heads unexpanded through
+``cfg.kv_index_map()``, the query head -> kv head map, which is irregular
+under padded heads (``cfg.pad_heads_to``); only the kernel's plain version
+expands them (``flash_attention.ref.expand_kv``, as the JAX model
+does).
 
 The decode cache is updated in place (JAX returns a new one).
 """
@@ -39,24 +41,6 @@ def _head_mask(cfg, dtype, device):
             < cfg.n_heads).to(dtype)
 
 
-def expand_kv(k, groups: int, index_map=None):
-    """(B, S, Hkv, Dh) -> (B, S, H, Dh).  With padded heads the q->kv
-    assignment is an explicit gather (the grouping is irregular)."""
-    if index_map is not None:
-        return k[:, :, torch.as_tensor(index_map, device=k.device), :]
-    if groups == 1:
-        return k
-    return k.repeat_interleave(groups, dim=2)
-
-
-def _kv_for_kernel(k, v, cfg):
-    """The kernel takes H % Hkv == 0; padded heads are expanded first."""
-    if not cfg.pad_heads_to:
-        return k, v
-    idx = cfg.kv_index_map()
-    return expand_kv(k, 1, idx), expand_kv(v, 1, idx)
-
-
 def _project(p, x, cfg, positions):
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
@@ -77,8 +61,8 @@ def attention_forward(p, x, cfg, positions):
     """Full-sequence attention (prefill).  x: (B, S, d); positions: (S,)
     int32.  Returns (y, (k, v)) with k/v post-RoPE for cache seeding."""
     q, k, v = _project(p, x, cfg, positions)
-    ke, ve = _kv_for_kernel(k, v, cfg)
-    out = fa.mha(q, ke, ve, causal=cfg.causal, window=cfg.sliding_window)
+    out = fa.mha(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                 kv_head=cfg.kv_index_map())
     return _output(p, out, cfg), (k, v)
 
 
@@ -95,9 +79,8 @@ def attention_decode(p, x, cache, cfg):
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
     cache["slot_pos"][slot] = pos
-    ke, ve = _kv_for_kernel(cache["k"], cache["v"], cfg)
-    out = fa.decode(q, ke, ve, cache["slot_pos"], pos,
-                    window=cfg.sliding_window)
+    out = fa.decode(q, cache["k"], cache["v"], cache["slot_pos"], pos,
+                    window=cfg.sliding_window, kv_head=cfg.kv_index_map())
     return _output(p, out, cfg), cache
 
 
