@@ -12,7 +12,14 @@ Phases, in order; any failed check exits non-zero:
    arguments and hold the result bit-equal against its plain PyTorch
    version run on the CPU (tolerance 0: every value is an integer), time
    both on the card with CUDA events, and compute the kernel's bound.
-   The Calvin round (a second, read-lock build) is checked the same way;
+   The Calvin round (a second, read-lock build) is checked the same way.
+   index_merge is held at both recorded shapes (partitioned and
+   single-master), in shared memory and in global scratch, and on
+   crafted batches (ties, double deletes, overflow, empty segments, empty
+   batches, ragged caps, a large sort); both shapes are timed beside the
+   stable argsort and gathers the card path ran before it until the
+   kernel sorted its own inserts, and torch.profiler counts the kernels
+   one call launches (at most two);
 3. engine parity: the full-mix configuration of
    benchmarks/fig11_throughput.py (P=4, 4,000 items, 100 customers a
    district, order ring 128, 512 transactions an epoch) for 3 epochs on
@@ -33,7 +40,9 @@ Phases, in order; any failed check exits non-zero:
    windowed and bidirectional masks, regular and padded head maps, rings
    with empty slots, fully masked rows); then rmsnorm (bf16), flash
    attention (bf16, prefill and decode, unexpanded K/V with the head map)
-   and the SSD scan (f32) are held against their plain versions on the
+   and the SSD scan (f32; first on a sweep of small shapes at 1e-4: P,
+   N, chunk, heads, ragged lengths, weak and strong decay, Mamba2-130M's
+   widths) are held against their plain versions on the
    recorded card inputs, each within the tolerance stated at its check,
    and timed beside one PyTorch call that computes the same function where
    there is one (SDPA needs K/V expanded to every query head: that
@@ -45,7 +54,8 @@ Phases, in order; any failed check exits non-zero:
 7. serve path: ``ServeEngine.generate`` on the full model, 8 x 2,048
    prompt tokens and 64 decode steps, after an untimed one: 3 timed runs
    (the median by total time is reported, all three beside it), the LM
-   kernels' launch counts from the first; then a prefill, and a prefill
+   kernels' launch counts from the first (rmsnorm's also where its
+   prefill ends); then a prefill, and a prefill
    with 8 decode steps, under ``torch.profiler`` for where the time goes.
 
 Kernel times are device times: CUDA events around a call enqueued while
@@ -54,7 +64,17 @@ counted; the median of 20 calls (5 for the slow plain versions of the LM
 kernels).  Bounds are the larger of bytes over 3.35 TB/s (each input read
 once, each output written once, counting what this run's inputs need)
 and operations over the card's peak rate for their type: int32 16.7 T/s,
-float32 67 TFLOP/s outside the tensor cores, bf16 989 TFLOP/s.
+float32 67 TFLOP/s outside the tensor cores, TF32 495 TFLOP/s (the SSD
+scan's 3xTF32 products count three times), bf16 989 TFLOP/s.
+
+``python3 chip_smoke.py --ab PARENT`` compares two checkouts on one card
+in one call instead: PARENT is a directory holding another checkout's
+``src/repro_torch`` (the parent commit unpacked with ``git archive``, for
+example).  It runs phase 4's measured epochs and profiled epoch, phase
+7's prefill and the SSD kernel on its recorded prefill arguments, with
+each tree's kernels, in four processes: parent, this tree, this tree,
+parent.  It prints the card's name and power limit, then one ``AB {...}``
+JSON line a process.
 
 It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels, one of main-path figures, one of serve-path figures
@@ -77,6 +97,7 @@ MAIN = dict(n_partitions=16, n_items=100_000, cust_per_district=3_000,
 MAIN_TXNS, MAIN_EPOCHS, MAX_ROUNDS = 2048, 4, 16
 H100_BF16_FLOPS = 989e12         # dense tensor cores (data sheet)
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12         # dense tensor cores (data sheet)
 SERVE_ARCH = "hymba-1.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 PARITY_LAYERS, PARITY_DECODE, PROFILE_STEPS = 2, 8, 8
@@ -85,6 +106,7 @@ TOL_BF16_NORM = 1e-2             # reasons beside each check
 TOL_BF16_FLASH = 2e-2
 TOL_F32_FLASH = 1e-5
 TOL_SSD = 1e-3
+TOL_SSD_SWEEP = 1e-4             # tests/test_kernels.py's SSD bound
 TOL_SERVE = 1e-3
 FIG11 = dict(n_partitions=4, n_items=4000, cust_per_district=100,
              order_ring=128, mix="full", delivery_gen_lag=512)
@@ -288,12 +310,135 @@ def record_warm_epoch(eng, batch):
     return m, rec.calls
 
 
+def sort_gather(ik, ip, it):
+    """What the card path ran before each index_merge launch until the
+    kernel sorted its own inserts: a stable argsort and three gathers."""
+    import torch
+    o = torch.argsort(ik, dim=1, stable=True)
+    return ik.gather(1, o), ip.gather(1, o), it.gather(1, o)
+
+
+def kernels_in(fn):
+    """Kernels the card ran for one ``fn()``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def index_merge_cases(dev):
+    """index_merge on crafted batches, bit-equal to the plain version on
+    the CPU, each through the shared-memory and the global-scratch path
+    (``smem_limit=0``) and through the public wrapper: insert keys tied
+    with distinct payloads (stability), inserts equal to existing keys,
+    double deletes, overflow, empty and all-SENTINEL segments, Kd or Ki 0
+    or 1, caps that are not a multiple of the 512-slot tile, negative
+    keys, and a sort of 4,500 live inserts.  Returns the case names."""
+    import torch
+    from repro_torch.kernels.index_merge.ops import (index_merge,
+                                                     index_merge_cuda)
+    from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
+    from repro_torch.storage.index import SENTINEL as S
+    gen = torch.Generator().manual_seed(21)
+    i32 = torch.int32
+
+    def rnd(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=i32)
+
+    def segs(fill, cap, space, lo=0):
+        """sorted segments of distinct keys in [lo, lo + space), fill[p]
+        live keys in segment p, the rest canonical free slots"""
+        key = torch.full((len(fill), cap), S, dtype=i32)
+        for p, n in enumerate(fill):
+            ks = torch.randperm(space, generator=gen)[:n].sort().values
+            key[p, :n] = (ks + lo).to(i32)
+        live = key != S
+        prow = torch.where(live, rnd(0, 1 << 20, key.shape), 0)
+        tid = torch.where(live, torch.randint(0, 1 << 32, key.shape,
+                                              generator=gen), 0)
+        return key, prow, tid
+
+    def batch(ik, dk):
+        """payloads for inserts ik: prow = a distinct number a column"""
+        P, Ki = ik.shape
+        ip = torch.arange(P * Ki, dtype=i32).reshape(P, Ki) + 7
+        it = torch.randint(0, 1 << 32, (P, Ki), generator=gen)
+        live = ik != S
+        return dk, ik, torch.where(live, ip, 0), torch.where(live, it, 0)
+
+    def masked(x, frac):
+        return torch.where(torch.rand(x.shape, generator=gen) < frac, x, S)
+
+    cases = {}
+    # ties: 64 inserts a segment over 6 keys, some of them existing
+    k, p, t = segs([100, 150, 40], 300, 400)
+    cases["ties"] = (k, p, t, *batch(rnd(0, 6, (3, 64)),
+                                     masked(rnd(0, 400, (3, 20)), 0.5)))
+    # inserts equal to existing keys (side="right": existing first)
+    k, p, t = segs([120, 200, 60], 300, 1000)
+    ik = k.gather(1, rnd(0, 60, (3, 48)).long())
+    cases["equal_existing"] = (k, p, t, *batch(masked(ik, 0.8),
+                                               rnd(0, 1000, (3, 10))))
+    # double deletes: existing keys deleted twice, absent keys, masked
+    k, p, t = segs([250, 90, 299], 300, 2000)
+    dk = k.gather(1, rnd(0, 90, (3, 40)).long())
+    dk = torch.cat([dk, dk[:, :15], rnd(0, 2000, (3, 10))], 1)
+    cases["double_deletes"] = (k, p, t, *batch(
+        masked(rnd(0, 2000, (3, 30)), 0.5), masked(dk, 0.9)))
+    # overflow: n_live + n_ins > cap
+    k, p, t = segs([295, 300, 10], 300, 5000)
+    cases["overflow"] = (k, p, t, *batch(rnd(0, 5000, (3, 60)),
+                                         masked(rnd(0, 5000, (3, 8)), 0.5)))
+    # an empty segment, all-SENTINEL inserts, all-SENTINEL deletes
+    k, p, t = segs([0, 80, 80], 300, 500)
+    ik = rnd(0, 500, (3, 32))
+    ik[1] = S
+    dk = k.gather(1, rnd(0, 80, (3, 12)).long())
+    dk[2] = S
+    cases["empty_and_sentinel"] = (k, p, t, *batch(ik, dk))
+    # Kd or Ki 0 and 1 (the reference pads those itself)
+    k, p, t = segs([30, 5], 40, 100)
+    for nd, ni in ((0, 9), (7, 0), (1, 1), (0, 0)):
+        dk = k.gather(1, rnd(0, 5, (2, nd)).long())
+        cases[f"kd{nd}_ki{ni}"] = (k, p, t, *batch(rnd(0, 100, (2, ni)),
+                                                   dk))
+    # caps around the tile: 5, 256, 513 slots
+    for cap in (5, 256, 513):
+        k, p, t = segs([cap // 2, cap - 1], cap, 4 * cap)
+        cases[f"cap{cap}"] = (k, p, t, *batch(
+            masked(rnd(0, 4 * cap, (2, 24)), 0.7),
+            k.gather(1, rnd(0, cap // 2 + 1, (2, 6)).long())))
+    # negative keys and a large sort (4,500 live inserts of 5,000)
+    k, p, t = segs([2000, 3500], 8000, 1 << 20, lo=-(1 << 19))
+    cases["large_sort"] = (k, p, t, *batch(
+        masked(rnd(-(1 << 19), 1 << 19, (2, 5000)), 0.9),
+        k.gather(1, rnd(0, 2000, (2, 300)).long())))
+    for name, case in cases.items():
+        want = index_merge_unsorted_plain(*case)
+        a = to(case, dev)
+        for lim in (None, 0):
+            kw = {} if lim is None else {"smem_limit": lim}
+            check(equal(index_merge_cuda(*a, **kw), want),
+                  f"index_merge case {name} (smem_limit={lim}) differs "
+                  f"from its plain version")
+        check(equal(index_merge(*a), want),
+              f"index_merge case {name}: the wrapper differs")
+    print(f"index_merge: {len(cases)} crafted cases bit-equal, in shared "
+          f"memory and in global scratch")
+    return list(cases)
+
+
 def kernel_checks(calls, dev):
     """Parity, timing and bound of every kernel on its recorded arguments.
     Returns {name: report} (launches filled in later)."""
     import torch
+    from repro_torch.kernels.index_merge import ops as im_ops
     from repro_torch.kernels.index_merge.ops import index_merge_cuda
-    from repro_torch.kernels.index_merge.ref import index_merge_plain
+    from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
     from repro_torch.kernels.occ import ops as occ_ops
     from repro_torch.kernels.occ import ref as occ_ref
     from repro_torch.kernels.thomas_merge.ops import thomas_merge
@@ -392,25 +537,40 @@ def kernel_checks(calls, dev):
     want = occ_ops.occ_round(*to(args, cpu), **to(kw, cpu))
     check(equal(got, want), "occ_round (Calvin) differs")
 
-    # -- index_merge at both phases' shapes (SM phase timed and reported)
+    # -- index_merge at both phases' shapes, inserts unsorted as the
+    # executors hand them over; the scratch path on the same arguments
+    im = {}
     for key in ("index_merge/part", "index_merge/sm"):
         args, kw = calls[key]
-        if key == "index_merge/part":
-            check(equal(index_merge_cuda(*to(args, dev)),
-                        index_merge_plain(*to(args, cpu))),
-                  "index_merge (partitioned shape) differs")
-            continue
+        want = index_merge_unsorted_plain(*to(args, cpu))
+        check(equal(index_merge_cuda(*to(args, dev)), want),
+              f"{key} differs from its plain version")
+        check(equal(index_merge_cuda(*to(args, dev), smem_limit=0), want),
+              f"{key} (global scratch) differs from its plain version")
         P, cap = args[0].shape
         Kd, Ki = args[3].shape[1], args[4].shape[1]
-        # the global-scratch branch (taken when a segment's flags do not
-        # fit in shared memory) on the same arguments
-        check(equal(index_merge_cuda(*to(args, dev), smem_limit=0),
-                    index_merge_plain(*to(args, cpu))),
-              "index_merge (global scratch) differs")
         lg = max(cap, Ki).bit_length()
-        report("index_merge", index_merge_cuda, index_merge_plain, args, kw,
-               nbytes=P * cap * 16 * 2 + P * (Kd * 4 + Ki * 16 + 4),
-               nops=P * (Kd + Ki + 2 * cap) * lg * 3)
+        im[key] = dict(args=args, nbytes=P * cap * 16 * 2
+                       + P * (Kd * 4 + Ki * 16 + 4),
+                       nops=P * (Kd + Ki + 2 * cap) * lg * 3,
+                       shape=[P, cap, Kd, Ki])
+    sm = im["index_merge/sm"]
+    report("index_merge", index_merge_cuda, index_merge_unsorted_plain,
+           sm["args"], {}, nbytes=sm["nbytes"], nops=sm["nops"])
+    row = out["index_merge"]
+    for key, r in im.items():
+        a = to(r["args"], dev)
+        ms = cuda_ms(lambda: index_merge_cuda(*a))
+        sg = cuda_ms(lambda: sort_gather(*a[4:]))
+        b = max(r["nbytes"] / H100_BYTES_PER_S,
+                r["nops"] / H100_INT32_OPS_PER_S) * 1e3
+        n = kernels_in(lambda: im_ops.index_merge(*a))
+        check(n <= 2, f"{key}: one call launched {n} kernels")
+        row[key.split("/")[1]] = {"shape_P_cap_Kd_Ki": r["shape"], "ms": ms,
+                                  "bound_ms": b, "sort_gather_ms": sg,
+                                  "kernels_per_call": n}
+    row["kernels_per_call"] = row["sm"]["kernels_per_call"]
+    row["crafted_cases"] = index_merge_cases(dev)
 
     # -- thomas_merge on the epoch's single-master value stream
     args, kw = calls["thomas_merge"]
@@ -574,6 +734,63 @@ def flash_sweep(fa_ops, attention_ref, dev):
     return worst
 
 
+def ssd_sweep(ssd, ssd_ref, dev):
+    """The SSD kernel against its plain version on small shapes at
+    TOL_SSD_SWEEP: P in {16, 32, 64} x N in {8, 16, 128} x chunk in
+    {16, 64, 256} x heads in {1, 3}, each with S = chunk + 37 (not a
+    multiple of the chunk) and logd near 0 (-|n|/100), as in
+    tests/test_kernels.py (-|n|/5) and strongly negative (-4|n| - 1), so
+    every block width (P 16, 32, 64) and both forms of C's fragments (N up
+    to 32 in registers, N 128 from shared memory); an unaligned shape
+    (P 6, N 5: the 4-byte copy path); N 256 (the one-stage load ring); and
+    Mamba2-130M's widths (P 64, N 128) at 2,048 tokens; a 16 x 512 state,
+    which no block holds, must be refused.  The
+    plain version runs in float64 on the same inputs: its float32
+    sequential recurrence drifts from float64 by more than the bound over
+    a few hundred weakly decaying steps, more than the kernel does, so in
+    float32 it could not tell a fault from its own rounding.  Returns the
+    largest difference."""
+    import torch
+    gen = torch.Generator().manual_seed(13)
+    decays = {"near0": (0.01, 0.0), "moderate": (0.2, 0.0),
+              "strong": (4.0, 1.0)}
+    cases = [(P, N, chunk, heads, d, chunk + 37)
+             for P in (16, 32, 64) for N in (8, 16, 128)
+             for chunk in (16, 64, 256) for heads in (1, 3) for d in decays]
+    cases += [(6, 5, 16, 1, "moderate", 77),
+              (32, 256, 64, 1, "moderate", 101),
+              (64, 128, 256, 1, "moderate", 2048)]
+    worst = 0.0
+    for P, N, chunk, heads, d, S in cases:
+        BH = 6
+        scale, shift = decays[d]
+        xdt = torch.randn((BH, S, P), generator=gen)
+        logd = -(torch.randn((BH, S), generator=gen).abs() * scale + shift)
+        Bv, Cv = (torch.randn((BH // heads, S, N), generator=gen)
+                  for _ in range(2))
+        args = [t.to(dev) for t in (xdt, logd, Bv, Cv)]
+        got = ssd(*args, chunk=chunk, heads=heads)
+        want = ssd_ref(*[t.double() for t in args], heads=heads)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(got, want, TOL_SSD_SWEEP)
+        check(ok, f"ssd sweep P={P} N={N} chunk={chunk} heads={heads} "
+              f"logd {d} S={S}: kernel differs from its plain "
+              f"version by {err} (tolerance {TOL_SSD_SWEEP})")
+        worst = max(worst, err)
+    big = [t.to(dev) for t in (torch.zeros((1, 8, 16)), torch.zeros((1, 8)),
+                               torch.zeros((1, 8, 512)),
+                               torch.zeros((1, 8, 512)))]
+    try:
+        ssd(*big, chunk=8)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "ssd: a 16 x 512 state, which no block holds, ran")
+    print(f"ssd sweep: {len(cases)} shapes, max abs err {worst:.3g} "
+          f"(tolerance atol = rtol = {TOL_SSD_SWEEP})")
+    return worst
+
+
 def lm_kernel_checks(calls):
     """Parity (against the plain version on the same card inputs), timing
     and bound of the three LM kernels on their recorded arguments."""
@@ -630,12 +847,22 @@ def lm_kernel_checks(calls):
         add_rms_norm_ms=cuda_ms(lambda: F.rms_norm(x + r, (D,), w, eps)))
     del s
     # the other two forms on the path: no residual (gate_norm, D=3,200)
-    # and the decode shape (T=8)
+    # and the decode shape (T=8), where most of its launches are: timed
+    # too, beside its bound and F.rms_norm
     for key in ("rmsnorm/gate", "rmsnorm/decode"):
         args, kw = calls[key]
         err, ok = allclose_err(rmsnorm(*args, **kw), rmsnorm_ref(*args, **kw),
                                TOL_BF16_NORM)
         check(ok, f"{key}: kernel differs from its plain version by {err}")
+    (x, w, r), kw = calls["rmsnorm/decode"]
+    T = x.numel() // x.shape[-1]
+    s = (x.float() + r.float()).to(x.dtype)
+    rows["rmsnorm"]["decode"] = {
+        "rows": T, "ms": cuda_ms(lambda: rmsnorm(x, w, r, **kw)),
+        "bound_ms": x.element_size() * (4 * T * D + D) / H100_BYTES_PER_S
+        * 1e3,
+        "rms_norm_ms": cuda_ms(lambda: F.rms_norm(s, (D,), w, eps)),
+        "add_rms_norm_ms": cuda_ms(lambda: F.rms_norm(x + r, (D,), w, eps))}
 
     # -- flash attention.  bf16 in, f32 scores and sums; the kernel rounds
     # the unnormalised probabilities to bf16 and the plain version the
@@ -676,20 +903,35 @@ def lm_kernel_checks(calls):
                             "bound_ms", "bound_by", "library_ms",
                             "expand_ms", "bytes", "flops")}
 
-    # -- ssd.  f32 throughout; the kernel's chunked sums against the
-    # sequential recurrence over 2,048 steps: tolerance 1e-3 (1e-4 at the
-    # 64-256-step shapes of tests/test_kernels.py).
+    # -- ssd.  f32 throughout; the kernel's chunked sums (3xTF32 products)
+    # against the sequential recurrence over 2,048 steps: tolerance 1e-3;
+    # first a sweep of small shapes at tests/test_kernels.py's 1e-4.
+    sweep = ssd_sweep(ssd, ssd_ref, calls["ssd"][0][0].device)
     (xdt, logd, Bv, Cv), kw = calls["ssd"]
     BH, S, P = xdt.shape
-    N, heads, Q = Bv.shape[-1], kw["heads"], kw["chunk"]
-    pairs = Q * (Q + 1) // 2
-    flops = BH * (S // Q) * (2 * pairs * (N + P) + 4 * Q * P * N)
+    N, heads = Bv.shape[-1], kw["heads"]
+
+    def ssd_flops(Q):
+        """flops of the chunked scan at chunk Q: the pairs on or below
+        each chunk's diagonal (C B^T and the product with X) and the
+        state's two products"""
+        pairs = Q * (Q + 1) // 2
+        return BH * (S // Q) * (2 * pairs * (N + P) + 4 * Q * P * N)
+    nbytes = 4 * (2 * BH * S * P + BH * S + 2 * (BH // heads) * S * N
+                  + BH * P * N)
+    # the kernel runs chunks of at most 64 tokens, each product as three
+    # TF32 products
+    flops = ssd_flops(min(kw["chunk"], 64))
     rows["mamba2_ssd"] = report(
         "mamba2_ssd", ssd, lambda *a, chunk, heads: ssd_ref(*a, heads=heads),
-        (xdt, logd, Bv, Cv), kw, TOL_SSD,
-        nbytes=4 * (2 * BH * S * P + BH * S + 2 * (BH // heads) * S * N
-                    + BH * P * N),
-        nflops=flops, rate=H100_F32_FLOPS)
+        (xdt, logd, Bv, Cv), kw, TOL_SSD, nbytes=nbytes, nflops=3 * flops,
+        rate=H100_TF32_FLOPS)
+    # the earlier float32-SIMT design's yardstick: the requested chunk's
+    # products in f32 FMAs
+    rows["mamba2_ssd"].update(
+        bound_f32_simt_ms=max(nbytes / H100_BYTES_PER_S,
+                              ssd_flops(kw["chunk"]) / H100_F32_FLOPS) * 1e3,
+        sweep_max_abs_err=sweep)
     return rows
 
 
@@ -803,7 +1045,18 @@ def serve_path(dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        if i == 0:
+            # the counts where this generate's prefill ends, at its first
+            # synchronise
+            sync, at_prefill = eng._sync, []
+
+            def marked_sync():
+                sync()
+                if not at_prefill:
+                    at_prefill.append(_build.launch_counts())
+            eng._sync = marked_sync
         out = eng.generate(prompts, SERVE_GEN)
+        vars(eng).pop("_sync", None)
         fa_ref.expand_kv = expand
         runs.append(dataclasses.replace(eng.stats))
         if i == 0:       # the counts and the checks of one generate
@@ -828,6 +1081,9 @@ def serve_path(dev):
               f"{counts.get(k, 0)} times, expected one a layer a step")
     check(not expansions, "serve: K/V were expanded on the serve path")
     rows["rmsnorm"]["launches"] = counts.get("rmsnorm", 0)
+    n_pre = at_prefill[0].get("rmsnorm", 0)
+    rows["rmsnorm"]["launches_prefill"] = n_pre
+    rows["rmsnorm"]["launches_decode"] = rows["rmsnorm"]["launches"] - n_pre
     rows["mamba2_ssd"]["launches"] = counts.get("mamba2_ssd", 0)
     fl = rows["flash_attention"]
     fl["decode"]["launches"] = counts.get("flash_attention.decode", 0)
@@ -874,18 +1130,37 @@ def serve_path(dev):
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
-def main():
-    import numpy as np
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     root = Path(__file__).resolve().parent
+    if argv[:1] == ["--ab-side"] and len(argv) == 2:
+        root = Path(argv[1]).resolve()
+    elif argv[:1] == ["--ab"] and len(argv) == 2:
+        pass
+    elif argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     if not (root / "src" / "repro_torch").is_dir():
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--ab"]:
+        return ab(root, Path(argv[1]).resolve())
     sys.path.insert(0, str(root / "src"))
+    if argv:
+        ab_side(root, torch.device("cuda", 0))
+        return 0
     return run(torch.device("cuda", 0))
 
 
@@ -902,10 +1177,7 @@ def run(dev):
     _build.build_all()
     print(f"build: {len(_build.SOURCES)} CUDA sources in "
           f"{time.perf_counter() - t0:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi)
 
     kernels, main_path = star_phases(dev)
@@ -926,9 +1198,7 @@ def run(dev):
 def star_phases(dev):
     """Phases 2-4 (the STAR epoch).  Returns (kernel rows, main-path
     figures)."""
-    import torch
     from repro_torch.db import tpcc
-    from repro_torch.kernels import _build
 
     # ---- 2. kernels at main-path shapes ---------------------------------
     t0 = time.perf_counter()
@@ -969,6 +1239,21 @@ def star_phases(dev):
     # ---- 4. the main path, measured ---------------------------------------
     for ep in range(MAIN_EPOCHS):
         batches.append(tpcc.make_batch(cfg, state, MAIN_TXNS, seed=ep))
+    counts, figures = measure_epochs(eng, cfg, state, batches[1:])
+    for k in kernels:
+        kernels[k]["launches"] = counts.get(k, 0)
+        check(kernels[k]["launches"] > 0, f"main path never launched {k}")
+    return kernels, figures
+
+
+def measure_epochs(eng, cfg, state, batches):
+    """Phase 4's measurement: ``batches`` run as epochs, with
+    ``replica_consistent()`` at every fence, then one more epoch under
+    torch.profiler.  Returns (the kernels' launch counts over the
+    measured epochs, main-path figures)."""
+    import torch
+    from repro_torch.db import tpcc
+    from repro_torch.kernels import _build
     torch.cuda.synchronize()
     base = {f: getattr(eng.stats, f) for f in
             ("committed_cross", "index_overflow", "consume_skips", "retries",
@@ -979,7 +1264,7 @@ def star_phases(dev):
         return getattr(eng.stats, f) - base[f]
     _build.reset_launch_counts()
     rows = []
-    for b in batches[1:]:
+    for b in batches:
         t0 = time.perf_counter()
         m = eng.run_epoch(b)
         wall = time.perf_counter() - t0
@@ -996,27 +1281,81 @@ def star_phases(dev):
     check(measured("committed_cross") > 0, "main path: no cross commit")
     totals = {f: measured(f) for f in base}
     prof = profile_epoch(eng, cfg, state)
-    for k in kernels:
-        kernels[k]["launches"] = counts.get(k, 0)
-        check(kernels[k]["launches"] > 0, f"main path never launched {k}")
     committed = sum(m["committed_single"] + m["committed_cross"]
                     for m, _, _ in rows)
     wall = sum(w for _, w, _ in rows)
-    t_part = sum(m["t_part_s"] for m, _, _ in rows)
-    t_sm = sum(m["t_sm_s"] for m, _, _ in rows)
-    t_f = totals["fence_time_s"]
-    return kernels, {
-        "epochs": MAIN_EPOCHS, "txns_per_epoch": MAIN_TXNS,
+    return counts, {
+        "epochs": len(batches), "txns_per_epoch": MAIN_TXNS,
         "committed": committed, "committed_txn_per_s": committed / wall,
-        "t_part_s": t_part, "t_sm_s": t_sm, "t_fence_s": t_f,
-        "wall_s": wall, "index_overflow": totals["index_overflow"],
+        "t_part_s": sum(m["t_part_s"] for m, _, _ in rows),
+        "t_sm_s": sum(m["t_sm_s"] for m, _, _ in rows),
+        "t_fence_s": totals["fence_time_s"], "wall_s": wall,
+        "epoch_walls": [w for _, w, _ in rows],
+        "index_overflow": totals["index_overflow"],
         "consume_skips": totals["consume_skips"],
         "retries": totals["retries"], "profiled_epoch": prof}
 
 
+# ---------------------------------------------------------------------------
+# --ab: two checkouts compared on one card in one call
+# ---------------------------------------------------------------------------
+def ab(root, parent):
+    """Runs ``--ab-side`` on the parent's tree and this one, parent,
+    change, change, parent, one process each, so that drift of the card
+    or the host during the call shows in the spread."""
+    print(nvidia_smi(), flush=True)
+    for tree in (parent, root, root, parent):
+        r = subprocess.run([sys.executable, __file__, "--ab-side",
+                            str(tree)])
+        if r.returncode:
+            return r.returncode
+    return 0
+
+
+def ab_side(tree, dev):
+    """One side of ``--ab``, with this script's phases and the kernels of
+    ``tree``'s ``src/repro_torch``: the STAR main path's measured epochs
+    and profiled epoch (phase 4, after one untimed epoch), the serve
+    path's prefill (``SERVE_RUNS`` timed after two untimed) and the SSD
+    kernel alone on the arguments that prefill gave it.  Prints one
+    ``AB {...}`` JSON line."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.db import tpcc
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba2_ssd.ops import ssd
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine, ServeStats
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    cfg, state, eng = mk_engine(MAIN, 0, dev)
+    b = tpcc.make_batch(cfg, state, MAIN_TXNS, seed=1000)
+    tpcc.apply_consume_feedback(state, b, eng.run_epoch(b))
+    batches = [tpcc.make_batch(cfg, state, MAIN_TXNS, seed=ep)
+               for ep in range(MAIN_EPOCHS)]
+    _, out = measure_epochs(eng, cfg, state, batches)
+    del eng, state
+    torch.cuda.empty_cache()
+    c = get_arch(SERVE_ARCH)
+    se = ServeEngine(c, LM(c, seed=0, device=dev), device=dev,
+                     max_len=SERVE_PROMPT + SERVE_GEN)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, c.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    args, kw = record_generate(se, prompts, 0)["ssd"]
+    se.generate(prompts, 0)
+    pre = []
+    for _ in range(SERVE_RUNS):
+        se.stats = ServeStats()
+        se.generate(prompts, 0)
+        pre.append(se.stats.prefill_s)
+    out.update(tree=str(tree), prefill_s=pre,
+               ssd_ms=cuda_ms(lambda: ssd(*args, **kw)))
+    print("AB " + json.dumps(out), flush=True)
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -1,4 +1,5 @@
-// ssd: the chunked Mamba-2 SSD scan (state-space duality).
+// ssd: the chunked Mamba-2 SSD scan (state-space duality), on the tensor
+// cores.
 //
 // Replaces: src/repro/kernels/mamba2_ssd/kernel.py, _ssd_kernel (:22) and
 // its wrapper ssd_pallas (:75).  Same function, per row bh of (BH, S):
@@ -8,196 +9,508 @@
 //   h'  = h exp(cs_last) + sum_j exp(cs_last - cs_j) xdt_j (x) B_j
 // and returns y (without the D skip) and the final state.  All float32.
 // B and C may be shared by `heads` consecutive rows (Mamba-2's ngroups =
-// 1): row bh reads B and C row bh / heads.
+// 1): row bh reads B and C row bh / heads.  The chunked form is exact for
+// any chunk length, so a chunk longer than 64 tokens runs as chunks of 64
+// (the tile below); only the order of the float sums changes.
 //
-// What bounds it on the H100: float32 operations without tensor cores
-// (TF32 would not keep float32), ~20 Gflop a call at Hymba's prefill
-// shapes (400 rows x 2,048 tokens, P = 64, N = 16, chunk 256) against
-// ~0.42 GB of xdt in and y out.
+// What bounds it on the H100: bytes.  At Hymba's prefill shapes (400 rows
+// x 2,048 tokens, P = 64, N = 16) it must read xdt and write y, 0.42 GB,
+// 0.127 ms at 3.35 TB/s; the products are ~7 Gflop at 64-token chunks, and
+// three TF32 products each (below) still take under 0.05 ms at 495
+// TFLOP/s.  The earlier design ran them as scalar float32 FMAs with two or
+// three shared-memory loads each, 17x over the bound.
 //
-// What the design does about it.  One block per row; a loop over the
-// chunks inside the block carries h in shared memory, in place of the
-// TPU's sequential grid axis.  The Pallas kernel holds a whole Q x Q tile
-// of (C B^T) * L in VMEM; at Q = 256 that is 256 KB of float32, more than
-// a block's 227 KB of shared memory, so the chunk is tiled: 64 query rows
-// against 64 key rows at a time, and only tiles on or below the diagonal
-// are computed.  Shared rows of B, C and h are padded to N + 1 words so
-// that lanes reading one column hit distinct banks.
+// What the design does about it.
+// - Every product runs on mma.sync.m16n8k8 TF32 with float32 accumulation:
+//   S = C B^T (k over N), Y += (S * L) X (k over the keys), the state's
+//   part Y += C h^T (k over N), and the state update h += (X * dec)^T B
+//   (k over the keys).  TF32 keeps 10 mantissa bits, too few for the
+//   float32 tolerances, so each operand is split, a = big + small with
+//   big = tf32(a) and small = tf32(a - big), and each product is
+//   big.big + big.small + small.big (3xTF32): the dropped small.small term
+//   is ~2^-22 relative.
+// - The decay mask lives in registers: L = exp2(R_i - R_j) (one
+//   subtraction and one MUFU ex2 an element, 0 above the
+//   diagonal, tested only on diagonal tiles), where R is the sum of logd
+//   (log2 units) from the first row of j's 8-key tile: a difference of two
+//   prefix sums from the chunk's start lost ~ulp(|cs|) of the exponent,
+//   1e-5 relative after strong decay, past the 1e-4 tolerance where
+//   terms cancel; likewise the state's weights exp(cs_last - cs_j) come
+//   from a suffix scan.  The masked S accumulator is then the A fragment
+//   of the next product with no shuffle: the key axis of that product is
+//   permuted so that logical column q holds key 2q and column q+4 key
+//   2q+1, which is where the accumulator layout of m16n8 already holds
+//   them (the same permutation is applied to X's rows).  Tiles above the
+//   diagonal are skipped.
+// - Loads: each 64-token chunk's X (64 x PB), B, C (64 x N) and logd come
+//   once, by cp.async: X, B and logd into a two-stage ring, the next
+//   chunk landing while this one computes, and C into one buffer, loaded
+//   once the outputs are done with it, behind the state update (which
+//   does not read C).  At Hymba's shapes a block then takes 57,088 bytes
+//   and 4 blocks fit an SM (at most 128 registers a thread): the 400 rows
+//   of a prefill all run at once, where with 3 an SM (396 at a time) the
+//   last 4 rows ran as a second wave alone, which in a trial run on the
+//   H100 made 400 rows far slower than 396.  A block whose two stages
+//   would not fit shared memory (N above ~200) runs with one.  Rows of X,
+//   B and C are padded by 4 words, so every fragment load of the products
+//   hits 32 distinct banks (the state's rows are not: its loads are few).
+// - One block of 4 warps per (row, block of PB <= 64 state rows p): the
+//   state (PB x N) stays in shared memory across the chunks.  The warps
+//   split the outputs into two column halves x two sets of query m-tiles,
+//   {0, 3} and {1, 2}: each warp then sees 10 of the 20 key tiles on or
+//   below the diagonal.  The two column halves each compute S themselves
+//   (cheaper than a shared-memory round trip at N = 16).  Up to N = 32 a
+//   warp keeps its m-tile's C fragments, split, in registers for S and
+//   the state's part; in the state update one A fragment of (X * dec)
+//   serves up to four n-tiles of N.  Both helped at Hymba's shapes in a
+//   trial run on the H100.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TQ = 64;          // query rows a tile
-constexpr int TK = 64;          // key rows a tile
-constexpr int THREADS = 256;
-constexpr int MAXH = 32;        // state entries a thread: P * N <= 8192
+constexpr int TQ = 64;            // tokens a chunk tile
+constexpr int THREADS = 128;      // 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int LDR = TQ / 8;       // row of R: one sum a key tile
+constexpr long long SMEM_LIMIT = 232448;  // shared memory a block (H100)
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, zero-filled past `bytes` (0..16)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// a = big + small, both TF32
+__device__ __forceinline__ void split(float a, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(a);
+  small = to_tf32(a - __uint_as_float(big));
+}
+// c (16x8) += a (16x8, row) * b (8x8, col), TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The A operand of one m16n8k8 product, split.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+// c += a * b in 3xTF32: the three products summed from zero on the
+// tensor cores (the small terms first), then added to c by ordinary
+// float32 adds, rounded to nearest, so the running sums (the state above
+// all) never pass through the tensor cores' own accumulation.  (Three
+// separate accumulators, to issue the products back to back, were
+// slower in a trial run on the H100, with register spills.)
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.lo, bh0, bh1);
+  mma_tf32(t, a.hi, bl0, bl1);
+  mma_tf32(t, a.hi, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// 2^x by the MUFU unit (relative error ~2^-22), denormal results flushed
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int KC = 4;   // k-steps of C kept in registers (N <= 32)
+
+// body(a, kb) for each 8-wide k-step kb of C's rows i0, i1 over N: the
+// fragments from registers (`ca`, loaded once an m-tile) when CACHED,
+// else loaded and split from shared memory each time
+template <bool CACHED, typename F>
+__device__ __forceinline__ void over_c(const FragA (&ca)[KC], const float* Cs,
+                                       int LDN, int N8, int i0, int i1, int q,
+                                       F&& body) {
+  if constexpr (CACHED) {
+#pragma unroll
+    for (int u = 0; u < KC; ++u)
+      if (8 * u < N8) body(ca[u], 8 * u);
+  } else {
+    for (int kb = 0; kb < N8; kb += 8) {
+      FragA a;
+      a.set(Cs[i0 * LDN + kb + q], Cs[i1 * LDN + kb + q],
+            Cs[i0 * LDN + kb + q + 4], Cs[i1 * LDN + kb + q + 4]);
+      body(a, kb);
+    }
+  }
+}
+
+// Copy a TQ-row tile: `width` words a row (a multiple of 4) into rows of
+// `ld` words; rows past `rows` and words past `cols` are zero.
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          long long ld_src, int rows, int cols,
+                                          int width, bool vec) {
+  if (vec) {
+    const int per = width >> 2;
+    for (int e = threadIdx.x; e < TQ * per; e += THREADS) {
+      const int r = e / per, c = (e - r * per) << 2;
+      const int nb = r < rows ? 4 * max(0, min(cols - c, 4)) : 0;
+      cp_async16(dst + r * ld + c, nb ? src + r * ld_src + c : src, nb);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TQ * width; e += THREADS) {
+      const int r = e / width, c = e - r * width;
+      const bool ok = r < rows && c < cols;
+      cp_async4(dst + r * ld + c, ok ? src + r * ld_src + c : src, ok);
+    }
+  }
+}
+
+// NT: n-tiles of 8 state rows p that one warp's column half holds (PB/16);
+// CACHED: N <= 8 KC, C's fragments stay in registers for an m-tile
+template <int NT, bool CACHED>
+__global__ void __launch_bounds__(THREADS, CACHED ? 4 : 1)
 ssd_kernel(const float* __restrict__ xdt, const float* __restrict__ logd,
            const float* __restrict__ Bv, const float* __restrict__ Cv,
            float* __restrict__ y, float* __restrict__ hfin, int S, int P,
-           int N, int chunk, int heads) {
-  extern __shared__ float sm[];
-  const int NP = N + 1;
-  float* h = sm;                         // P x NP
-  float* cs = h + P * NP;                // chunk
-  float* dec = cs + chunk;               // chunk: exp(cs_last - cs_j)
-  float* Ct = dec + chunk;               // TQ x NP
-  float* Bt = Ct + TQ * NP;              // TK x NP
-  float* Xt = Bt + TK * NP;              // TK x P
-  float* G = Xt + TK * P;                // TQ x (TK + 1)
-  float* Yt = G + TQ * (TK + 1);         // TQ x P
+           int N, int chunk, int heads, int stages, int vec) {
+  constexpr int PB = 16 * NT;
+  extern __shared__ __align__(16) float sm[];
+  const int N8 = (N + 7) & ~7, LDN = N8 + 4, LDX = PB + 4;
+  const int stage_f = TQ * (LDX + LDN) + TQ;   // X, B, logd
+  float* Cs = sm + stages * stage_f;     // TQ x LDN: C, one buffer
+  float* hs = Cs + TQ * LDN;             // PB x N8: the carried state
+  float* R = hs + PB * N8;               // TQ x LDR: sums of logd, below
+  float* dec = R + TQ * LDR;             // exp(cs_last - cs_j)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
   const long long bh = blockIdx.x, bc = bh / heads;
-  const float* x = xdt + bh * S * P;
+  const int pb0 = blockIdx.y * PB;
+  const int pcols = min(PB, P - pb0);
+  const float* x = xdt + bh * S * P + pb0;
   const float* ld = logd + bh * S;
   const float* Bp = Bv + bc * S * N;
   const float* Cp = Cv + bc * S * N;
   float* yo = y + bh * S * P;
-  const int PN = P * N;
+  const int Qc = min(chunk, TQ);
+  const int nch = (S + Qc - 1) / Qc;
 
-  for (int e = tid; e < P * NP; e += THREADS) h[e] = 0.f;
+  for (int e = tid; e < PB * N8; e += THREADS) hs[e] = 0.f;
 
-  for (int s0 = 0; s0 < S; s0 += chunk) {
-    const int Q = min(chunk, S - s0);
-    __syncthreads();
-    if (warp == 0) {                      // inclusive cumsum of logd
-      float carry = 0.f;
-      for (int base = 0; base < Q; base += 32) {
-        const int i = base + lane;
-        float v = i < Q ? ld[s0 + i] : 0.f;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float t = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += t;
-        }
-        v += carry;
-        if (i < Q) cs[i] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
+  // X, B and logd of chunk c into stage st; C into its one buffer when
+  // with_c (else the caller loads it once the buffer is free)
+  auto load_chunk = [&](int c, int st, bool with_c) {
+    const int s0 = c * Qc, Q = min(Qc, S - s0);
+    float* Xs = sm + st * stage_f;
+    float* Bs = Xs + TQ * LDX;
+    float* Ls = Bs + TQ * LDN;
+    load_tile(Xs, LDX, x + (long long)s0 * P, P, Q, pcols, PB, vec);
+    load_tile(Bs, LDN, Bp + (long long)s0 * N, N, Q, N, N8, vec);
+    if (with_c) load_tile(Cs, LDN, Cp + (long long)s0 * N, N, Q, N, N8, vec);
+    if (tid < TQ) cp_async4(Ls + tid, ld + s0 + (tid < Q ? tid : 0), tid < Q);
+    cp_async_commit();
+  };
+  if (stages == 2) load_chunk(0, 0, true);
+
+  const int ch = warp >> 1, ms = warp & 1;   // column half, m-tile set
+  const int cb = ch * (PB / 2);              // first local state row p
+
+  for (int c = 0; c < nch; ++c) {
+    const int s0 = c * Qc, Q = min(Qc, S - s0);
+    const int st = stages == 2 ? (c & 1) : 0;
+    __syncthreads();            // chunk c - 1 is done with h and its stage
+    if (stages == 1) {
+      load_chunk(c, 0, true);
+      cp_async_wait<0>();
+    } else if (c + 1 < nch) {   // all but this group: C(c) and X, B(c)
+      load_chunk(c + 1, (c + 1) & 1, false);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    const float cl = cs[Q - 1];
-    for (int i = tid; i < Q; i += THREADS) dec[i] = expf(cl - cs[i]);
+    const float* Xs = sm + st * stage_f;
+    const float* Bs = Xs + TQ * LDX;
+    const float* Ls = Bs + TQ * LDN;
 
-    // -- outputs, 64 query rows at a time
-    for (int qt = 0; qt < Q; qt += TQ) {
-      const int nq = min(TQ, Q - qt);
-      __syncthreads();
-      for (int e = tid; e < TQ * N; e += THREADS) {
-        const int i = e / N, n = e % N;
-        Ct[i * NP + n] = i < nq ? Cp[(long long)(s0 + qt + i) * N + n] : 0.f;
+    // Sums of logd (log2 units), none formed as a difference of two long
+    // sums: R[i][kt] = sum over rows 8kt..i (rows a lane: 2 lane, +1),
+    // one scan per key tile, two a warp; R[i][0] is the chunk's prefix.
+    // The decay of a pair is exp2(R[i][kt] - R[j][kt]) for the key tile
+    // kt holding j, and the state's weights take a suffix scan.
+    for (int u = 0; u < 2; ++u) {
+      const int kt = 2 * warp + u, r0 = 2 * lane;
+      const float v0 = r0 >= 8 * kt ? Ls[r0] : 0.f;
+      const float v1 = r0 + 1 >= 8 * kt ? Ls[r0 + 1] : 0.f;
+      const float pair = v0 + v1;
+      float sc = pair;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, sc, o);
+        if (lane >= o) sc += t;
       }
-      for (int e = tid; e < TQ * P; e += THREADS) Yt[e] = 0.f;
-      for (int kt = 0; kt < qt + nq; kt += TK) {
-        const int nk = min(TK, Q - kt);
-        __syncthreads();
-        for (int e = tid; e < TK * N; e += THREADS) {
-          const int j = e / N, n = e % N;
-          Bt[j * NP + n] = j < nk ? Bp[(long long)(s0 + kt + j) * N + n] : 0.f;
-        }
-        for (int e = tid; e < TK * P; e += THREADS) {
-          const int j = e / P;
-          Xt[e] = j < nk ? x[(long long)(s0 + kt) * P + e] : 0.f;
-        }
-        __syncthreads();
-        // G = (C B^T) * L on this tile, zero above the diagonal
-        for (int e = tid; e < TQ * TK; e += THREADS) {
-          const int i = e / TK, j = e % TK;
-          const int gi = qt + i, gj = kt + j;
-          float g = 0.f;
-          if (i < nq && j < nk && gj <= gi) {
-            float dot = 0.f;
-            for (int n = 0; n < N; ++n) dot += Ct[i * NP + n] * Bt[j * NP + n];
-            g = dot * expf(cs[gi] - cs[gj]);
+      float ex = __shfl_up_sync(0xffffffffu, sc, 1);
+      ex = lane ? ex : 0.f;
+      const float a0 = (ex + v0) * LOG2E, a1 = (ex + pair) * LOG2E;
+      R[r0 * LDR + kt] = a0;
+      R[(r0 + 1) * LDR + kt] = a1;
+    }
+    if (warp == 0) {            // dec_j = exp(sum of logd over rows > j)
+      const float w1 = Ls[2 * lane + 1];
+      float sc = Ls[2 * lane] + w1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_down_sync(0xffffffffu, sc, o);
+        if (lane + o < 32) sc += t;
+      }
+      float ex = __shfl_down_sync(0xffffffffu, sc, 1);
+      ex = lane < 31 ? ex : 0.f;
+      dec[2 * lane] = exp2f((ex + w1) * LOG2E);
+      dec[2 * lane + 1] = exp2f(ex * LOG2E);
+    }
+    __syncthreads();
+
+    // -- outputs: m-tiles ms and 3 - ms, this warp's column half
+    for (int mm = 0; mm < 2; ++mm) {
+      const int mt = mm == 0 ? ms : 3 - ms;
+      if (16 * mt >= Q) continue;
+      const int i0 = 16 * mt + g, i1 = i0 + 8;
+      float acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      FragA ca[KC];
+      if constexpr (CACHED) {
+#pragma unroll
+        for (int u = 0; u < KC; ++u)
+          if (8 * u < N8)
+            ca[u].set(Cs[i0 * LDN + 8 * u + q], Cs[i1 * LDN + 8 * u + q],
+                      Cs[i0 * LDN + 8 * u + q + 4],
+                      Cs[i1 * LDN + 8 * u + q + 4]);
+      }
+      if (c > 0) {              // the state's part: C h^T, k over N
+        over_c<CACHED>(ca, Cs, LDN, N8, i0, i1, q,
+                       [&](const FragA& a, int kb) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float* hr = hs + (cb + 8 * nt + g) * N8 + kb + q;
+            mma3(acc[nt], a, hr[0], hr[4]);
           }
-          G[i * (TK + 1) + j] = g;
-        }
-        __syncthreads();
-        for (int e = tid; e < TQ * P; e += THREADS) {
-          const int i = e / P, p = e % P;
-          float acc = 0.f;
-          for (int j = 0; j < nk; ++j) acc += G[i * (TK + 1) + j] * Xt[j * P + p];
-          Yt[e] += acc;
+        });
+        const float e0 = exp2f(R[i0 * LDR]), e1 = exp2f(R[i1 * LDR]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          acc[nt][0] *= e0;
+          acc[nt][1] *= e0;
+          acc[nt][2] *= e1;
+          acc[nt][3] *= e1;
         }
       }
-      __syncthreads();
-      // + the carried state's part, then out
-      for (int e = tid; e < nq * P; e += THREADS) {
-        const int i = e / P, p = e % P;
-        float acc = 0.f;
-        for (int n = 0; n < N; ++n) acc += Ct[i * NP + n] * h[p * NP + n];
-        yo[(long long)(s0 + qt) * P + e] = Yt[e] + expf(cs[qt + i]) * acc;
+      const int kend = min(2 * mt + 2, (Q + 7) >> 3);
+      for (int kt = 0; kt < kend; ++kt) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f};   // S = C B^T on keys 8kt..+7
+        over_c<CACHED>(ca, Cs, LDN, N8, i0, i1, q,
+                       [&](const FragA& a, int kb) {
+          const float* br = Bs + (8 * kt + g) * LDN + kb + q;
+          mma3(s, a, br[0], br[4]);
+        });
+        // s[0] (i0, j0), s[1] (i0, j1), s[2] (i1, j0), s[3] (i1, j1)
+        const int j0 = 8 * kt + 2 * q, j1 = j0 + 1;
+        const float c0 = R[i0 * LDR + kt], c1 = R[i1 * LDR + kt];
+        const float d0 = R[j0 * LDR + kt], d1 = R[j1 * LDR + kt];
+        const bool diag = kt >= 2 * mt;
+        s[0] *= (diag && j0 > i0) ? 0.f : ex2(c0 - d0);
+        s[1] *= (diag && j1 > i0) ? 0.f : ex2(c0 - d1);
+        s[2] *= (diag && j0 > i1) ? 0.f : ex2(c1 - d0);
+        s[3] *= (diag && j1 > i1) ? 0.f : ex2(c1 - d1);
+        FragA pa;                // keys permuted: column q <- j0, q+4 <- j1
+        pa.set(s[0], s[2], s[1], s[3]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = cb + 8 * nt + g;
+          mma3(acc[nt], pa, Xs[j0 * LDX + col], Xs[j1 * LDX + col]);
+        }
       }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int pc = cb + 8 * nt + 2 * q;   // local state row of acc[.][0]
+        float* r0 = yo + (long long)(s0 + i0) * P + pb0 + pc;
+        float* r1 = r0 + 8LL * P;
+        if (pc + 1 < pcols && (P & 1) == 0) {
+          if (i0 < Q) *reinterpret_cast<float2*>(r0) =
+              make_float2(acc[nt][0], acc[nt][1]);
+          if (i1 < Q) *reinterpret_cast<float2*>(r1) =
+              make_float2(acc[nt][2], acc[nt][3]);
+        } else {
+          if (i0 < Q && pc < pcols) r0[0] = acc[nt][0];
+          if (i0 < Q && pc + 1 < pcols) r0[1] = acc[nt][1];
+          if (i1 < Q && pc < pcols) r1[0] = acc[nt][2];
+          if (i1 < Q && pc + 1 < pcols) r1[1] = acc[nt][3];
+        }
+      }
+    }
+    __syncthreads();            // every read of the old h and of C is done
+    if (stages == 2 && c + 1 < nch) {   // C(c + 1), behind the state update
+      const int s1 = (c + 1) * Qc;
+      load_tile(Cs, LDN, Cp + (long long)s1 * N, N, min(Qc, S - s1), N, N8,
+                vec);
+      cp_async_commit();
     }
 
-    // -- state update: h = h exp(cs_last) + sum_j dec_j xdt_j (x) B_j
-    float acc[MAXH];
+    // -- state update: h = h exp(cs_last) + (X * dec)^T B, k over keys
+    const float dl = exp2f(R[(TQ - 1) * LDR]);
+    // warps split the m-tiles of p (wpm warps an m-tile); each takes its
+    // n-tiles of N four at a time, so one A fragment serves up to four
+    const int NN = N8 >> 3, ksteps = (Q + 7) >> 3;
+    const int wpm = 4 / NT, mp = warp / wpm;
+    const int pr0 = 16 * mp + g, pr1 = pr0 + 8;
+    for (int nb = warp % wpm; nb < NN; nb += 4 * wpm) {
+      float a4[4][4];
 #pragma unroll
-    for (int u = 0; u < MAXH; ++u) acc[u] = 0.f;
-    for (int kt = 0; kt < Q; kt += TK) {
-      const int nk = min(TK, Q - kt);
-      __syncthreads();
-      for (int e = tid; e < TK * N; e += THREADS) {
-        const int j = e / N, n = e % N;
-        Bt[j * NP + n] = j < nk ? Bp[(long long)(s0 + kt + j) * N + n] : 0.f;
-      }
-      for (int e = tid; e < TK * P; e += THREADS) {
-        const int j = e / P;
-        Xt[e] = j < nk ? x[(long long)(s0 + kt) * P + e] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < MAXH; ++u) {
-        const int e = tid + u * THREADS;
-        if (e < PN) {
-          const int p = e / N, n = e % N;
-          float a = 0.f;
-          for (int j = 0; j < nk; ++j)
-            a += dec[kt + j] * Xt[j * P + p] * Bt[j * NP + n];
-          acc[u] += a;
+      for (int v = 0; v < 4; ++v) {
+        const int nc = 8 * (nb + wpm * v) + 2 * q;
+        if (nb + wpm * v < NN) {
+          a4[v][0] = hs[pr0 * N8 + nc] * dl;
+          a4[v][1] = hs[pr0 * N8 + nc + 1] * dl;
+          a4[v][2] = hs[pr1 * N8 + nc] * dl;
+          a4[v][3] = hs[pr1 * N8 + nc + 1] * dl;
         }
       }
-    }
-    __syncthreads();                      // every read of the old h is done
-    const float dl = expf(cl);
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int j0 = 8 * ks + 2 * q, j1 = j0 + 1;
+        const float e0 = dec[j0], e1 = dec[j1];
+        FragA a;
+        a.set(e0 * Xs[j0 * LDX + pr0], e0 * Xs[j0 * LDX + pr1],
+              e1 * Xs[j1 * LDX + pr0], e1 * Xs[j1 * LDX + pr1]);
 #pragma unroll
-    for (int u = 0; u < MAXH; ++u) {
-      const int e = tid + u * THREADS;
-      if (e < PN) {
-        const int p = e / N, n = e % N;
-        h[p * NP + n] = h[p * NP + n] * dl + acc[u];
+        for (int v = 0; v < 4; ++v) {
+          const int nn = nb + wpm * v;
+          if (nn < NN)
+            mma3(a4[v], a, Bs[j0 * LDN + 8 * nn + g],
+                 Bs[j1 * LDN + 8 * nn + g]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int nc = 8 * (nb + wpm * v) + 2 * q;
+        if (nb + wpm * v < NN) {
+          hs[pr0 * N8 + nc] = a4[v][0];
+          hs[pr0 * N8 + nc + 1] = a4[v][1];
+          hs[pr1 * N8 + nc] = a4[v][2];
+          hs[pr1 * N8 + nc + 1] = a4[v][3];
+        }
       }
     }
   }
   __syncthreads();
-  float* hf = hfin + bh * PN;
-  for (int e = tid; e < PN; e += THREADS) hf[e] = h[(e / N) * NP + e % N];
+  float* hf = hfin + (bh * P + pb0) * N;
+  for (int e = tid; e < pcols * N; e += THREADS)
+    hf[e] = hs[(e / N) * N8 + e % N];
+}
+
+template <int NT, bool CACHED>
+int launch(const float* xdt, const float* logd, const float* B,
+           const float* C, float* y, float* hfin, int BH, int S, int P, int N,
+           int chunk, int heads, int stages, int vec, size_t smem,
+           cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssd_kernel<NT, CACHED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int PB = 16 * NT;
+  const dim3 grid(BH, (P + PB - 1) / PB);
+  ssd_kernel<NT, CACHED><<<grid, THREADS, smem, stream>>>(
+      xdt, logd, B, C, y, hfin, S, P, N, chunk, heads, stages, vec);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one block: `stages` chunk tiles (X, B,
+// logd), one of C, the state, the decay sums and weights.
+long long smem_bytes(int p_block, int N, int stages) {
+  const long long N8 = (N + 7) & ~7, LDN = N8 + 4, LDX = p_block + 4;
+  const long long stage_f = TQ * (LDX + LDN) + TQ;
+  return 4 * (stages * stage_f + TQ * LDN + p_block * N8 + (LDR + 1) * TQ);
 }
 
 }  // namespace
 
 // xdt (BH, S, P), logd (BH, S), B and C (BH / heads, S, N), y (BH, S, P),
-// hfin (BH, P, N); all float32, contiguous.  Shared memory a block:
-// 4 * (P (N+1) + 2 chunk + 2 * 64 (N+1) + 64 P + 64 * 65 + 64 P) bytes.
+// hfin (BH, P, N); all float32, contiguous.  A block takes the widest of
+// 64, 32 and 16 state rows not wider than P rounded up to 16, with two
+// chunk tiles in the load ring where they fit in shared memory, else one;
+// a state that no block holds is refused (cudaErrorInvalidValue).
 extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
                        const void* C, void* y, void* hfin, int BH, int S,
                        int P, int N, int chunk, int heads, void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaGetLastError();
-  if (P <= 0 || N <= 0 || P * N > THREADS * MAXH || chunk <= 0 ||
-      heads <= 0 || BH % heads)
+  if (P <= 0 || N <= 0 || chunk <= 0 || heads <= 0 || BH % heads)
     return (int)cudaErrorInvalidValue;
-  const int c = chunk < S ? chunk : S;
-  const size_t smem = sizeof(float) *
-      ((size_t)P * (N + 1) + 2 * (size_t)c + 2 * (size_t)TQ * (N + 1) +
-       (size_t)TK * P + (size_t)TQ * (TK + 1) + (size_t)TQ * P);
-  const cudaError_t e = cudaFuncSetAttribute(
-      ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ssd_kernel<<<BH, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)xdt, (const float*)logd, (const float*)B,
-      (const float*)C, (float*)y, (float*)hfin, S, P, N, c, heads);
-  return (int)cudaGetLastError();
+  int p_block = 0, stages = 0;
+  for (int pb = 64; pb >= 16 && !p_block; pb /= 2)
+    if (pb <= (P + 15) / 16 * 16)
+      for (int st = 2; st >= 1 && !p_block; --st)
+        if (smem_bytes(pb, N, st) <= SMEM_LIMIT) p_block = pb, stages = st;
+  if (!p_block) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_bytes(p_block, N, stages);
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = P % 4 == 0 && N % 4 == 0 && al(xdt) && al(B) && al(C);
+  const float *x = (const float*)xdt, *l = (const float*)logd,
+              *b = (const float*)B, *c = (const float*)C;
+  float *yy = (float*)y, *h = (float*)hfin;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool cached = ((N + 7) & ~7) <= 8 * KC;
+#define SSD_LAUNCH(NT)                                                     \
+  return cached ? launch<NT, true>(x, l, b, c, yy, h, BH, S, P, N, chunk,  \
+                                   heads, stages, vec, smem, s)           \
+                : launch<NT, false>(x, l, b, c, yy, h, BH, S, P, N, chunk, \
+                                    heads, stages, vec, smem, s)
+  switch (p_block) {
+    case 16:
+      SSD_LAUNCH(1);
+    case 32:
+      SSD_LAUNCH(2);
+    case 64:
+      SSD_LAUNCH(4);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SSD_LAUNCH
 }

@@ -108,13 +108,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+def bind(name: str, fn: str, argtypes,
+         restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``fn`` of library ``name`` with its signature set
     (``ctypes.c_void_p`` for every pointer and the stream)."""
     f = getattr(library(name), fn)
     if f.argtypes is None:
         f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
+        f.restype = restype
     return f
 
 

@@ -70,3 +70,25 @@ def index_merge_plain(key, prow, tid, del_key, ik, ip, it):
                                        tid.gather(1, i_src)), 0)
     overflow = (n_merged - cap).clamp(min=0).to(i32)
     return k2.to(key.dtype), p2.to(prow.dtype), t2.to(tid.dtype), overflow
+
+
+def index_merge_unsorted_plain(key, prow, tid, del_key, ins_key, ins_prow,
+                               ins_tid):
+    """The plain version of the whole merge as the card path takes it:
+    inserts in any order, Kd and Ki may be 0.  Pads an empty batch with
+    one inert SENTINEL column, sorts each row's inserts stably by key
+    (the reference's per-segment argsort) and runs
+    :func:`index_merge_plain`."""
+    P = key.shape[0]
+    dev = key.device
+    if del_key.shape[1] == 0:          # inert: SENTINEL dels never hit
+        del_key = torch.full((P, 1), SENTINEL, dtype=torch.int32, device=dev)
+    if ins_key.shape[1] == 0:          # the reference's Ki == 0 pad
+        ins_key = torch.full((P, 1), SENTINEL, dtype=torch.int32, device=dev)
+        ins_prow = torch.zeros((P, 1), dtype=prow.dtype, device=dev)
+        ins_tid = torch.zeros((P, 1), dtype=tid.dtype, device=dev)
+    iorder = torch.argsort(ins_key, dim=1, stable=True)
+    return index_merge_plain(key, prow, tid, del_key,
+                             ins_key.gather(1, iorder),
+                             ins_prow.gather(1, iorder).to(prow.dtype),
+                             ins_tid.gather(1, iorder).to(tid.dtype))

@@ -11,15 +11,7 @@ from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
 from repro_torch.obs.trace import kernel_launch
 
 KERNEL = "mamba2_ssd"
-TILE, THREADS, MAX_STATE = 64, 256, 8192   # as in csrc/ssd.cu
-SMEM_LIMIT = 232_448                       # bytes a block may use (H100)
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
-def smem_bytes(chunk, P, N):
-    """Dynamic shared memory of one block of ``csrc/ssd.cu``."""
-    return 4 * (P * (N + 1) + 2 * chunk + 2 * TILE * (N + 1) + TILE * P
-                + TILE * (TILE + 1) + TILE * P)
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
@@ -27,7 +19,8 @@ def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
     (BH // heads, S, N), all float32: B and C are shared by ``heads``
     consecutive rows of xdt (Mamba-2's ngroups = 1), so the caller need
     not copy them per head.  Returns y (BH, S, P) without the D skip, and
-    the final state (BH, P, N)."""
+    the final state (BH, P, N).  On the card a chunk runs as chunks of at
+    most 64 tokens (the same function; see ``csrc/ssd.cu``)."""
     BH, S, P = xdt.shape
     N = Bv.shape[-1]
     chunk = min(chunk, S)
@@ -36,9 +29,6 @@ def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
         return ssd_ref(xdt, logd, Bv, Cv, heads=heads)
     if BH % heads:
         raise ValueError(f"ssd: {BH} rows are not groups of {heads} heads")
-    if P * N > MAX_STATE or smem_bytes(chunk, P, N) > SMEM_LIMIT:
-        raise ValueError(f"ssd: state {P}x{N} at chunk {chunk} does not fit "
-                         f"one block")
     dev = xdt.device
     f32 = torch.float32
     chk = _build.checked

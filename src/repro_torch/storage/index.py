@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.device import resolve_device
+
 SENTINEL = 0x7FFFFFFF
 PART_SHIFT = 24                    # full key = partition << 24 | local key
 SCAN_L = 8                         # result slots per scan op (+1 next-key)
@@ -33,8 +35,11 @@ class IndexSpec:
     capacity: int                  # slots per partition (fixed)
 
 
-def make_index(spec: IndexSpec, n_partitions: int, device="cpu"):
+def make_index(spec: IndexSpec, n_partitions: int, device=None):
+    """An empty index: every slot free (SENTINEL, 0, 0).  ``device=None``
+    means ``cuda`` (``device.resolve_device``)."""
     P, cap = n_partitions, spec.capacity
+    device = resolve_device(device)
     return {"key": torch.full((P, cap), SENTINEL, dtype=torch.int32,
                               device=device),
             "prow": torch.zeros((P, cap), dtype=torch.int32, device=device),

@@ -163,6 +163,19 @@ def test_import_hygiene():
     assert r.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("argv", [[], ["--ab", "."]])
+def test_chip_smoke_fails_without_a_card(argv):
+    """chip_smoke.py, whatever it is asked, exits non-zero and prints no
+    result where there is no CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), *argv],
+                       capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert r.returncode != 0
+    assert r.stdout == ""
+    assert "no CUDA device" in r.stderr
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")

@@ -17,7 +17,7 @@ from repro.storage.index import segment_scan as jscan
 from repro_torch.kernels.index_merge.ops import index_merge
 from repro_torch.storage.engine import StorageEngine as TStore
 from repro_torch.storage.index import IndexSpec as TSpec
-from repro_torch.storage.index import SENTINEL
+from repro_torch.storage.index import SENTINEL, make_index
 from repro_torch.storage.index import apply_index_ops as tapply
 from repro_torch.storage.index import segment_scan as tscan
 
@@ -58,13 +58,19 @@ def _merge_case(seed, kind):
     ik = np.where(rng.random((P, Ki)) < 0.7,
                   rng.integers(0, 60, (P, Ki)), S).astype(np.int32)
     ip = np.where(ik != S, rng.integers(0, 1000, (P, Ki)), 0).astype(np.int32)
+    if kind == "ties":        # 3 keys, several of them existing, unsorted,
+        ik = np.where(ik != S, rng.choice(live[:3] if live.size >= 3
+                                          else [1, 2, 3], (P, Ki)),
+                      S).astype(np.int32)
+        ip = np.where(ik != S, np.arange(P * Ki).reshape(P, Ki) + 1000,
+                      0).astype(np.int32)  # its own payload, above prow
     it = np.where(ik != S, rng.integers(0, 1 << 32, (P, Ki), dtype=np.uint64),
                   0).astype(np.uint32)
     return key, prow, tid, dk, ik, ip, it
 
 
 @pytest.mark.parametrize("kind", ["mixed", "full", "empty_del",
-                                  "empty_ins"])
+                                  "empty_ins", "ties"])
 @pytest.mark.parametrize("seed", range(6))
 def test_index_merge_plain_matches_segment_merge_ref(seed, kind):
     key, prow, tid, dk, ik, ip, it = _merge_case(seed, kind)
@@ -77,6 +83,12 @@ def test_index_merge_plain_matches_segment_merge_ref(seed, kind):
     assert_tree_equal(tuple(ref), got)
     if kind == "full":        # every live insert overflows a full segment
         assert int(got[3].sum()) == int((ik != S).sum()) > 0
+    if kind == "ties":        # tied inserts keep their column order
+        k2, p2 = got[0].numpy(), got[1].numpy()
+        for p in range(P):
+            for k in np.unique(ik[p][ik[p] != S]):
+                placed = p2[p][(k2[p] == k) & (p2[p] >= 1000)]
+                assert list(placed) == list(ip[p][ik[p] == k][:len(placed)])
 
 
 def _index_op_batch(rng, P, B, K, C=10):
@@ -126,6 +138,21 @@ def test_segment_scan_matches_jax(seed):
                       n_slots)
             b = tscan(to_torch(key[0]), lo, hi, n_slots)
             assert_tree_equal(tuple(a), b)
+
+
+def test_make_index_defaults_to_cuda():
+    """``make_index`` without a device asks for ``cuda``, as every entry
+    point of the port does: here, with no card, it raises."""
+    spec = TSpec("a", 8)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_index(spec, 2)
+    ix = make_index(spec, 2, device="cpu")
+    assert ix["key"].device.type == "cpu"
+    assert (ix["key"] == S).all() and not ix["prow"].any() \
+        and not ix["tid"].any()
+    assert ix["tid"].dtype == torch.int64
 
 
 def test_storage_engine_range_scan_and_snapshots():

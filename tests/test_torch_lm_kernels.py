@@ -16,6 +16,7 @@ import torch
 from repro.kernels.flash_attention import ops as jfa
 from repro.kernels.flash_attention.ref import flash_attention_ref as jfa_ref
 from repro.kernels.mamba2_ssd.ops import ssd as jssd
+from repro.kernels.mamba2_ssd.ref import ssd_ref as jssd_ref
 from repro.kernels.rmsnorm.ops import rmsnorm as jrmsnorm
 from repro.models.attention import expand_kv as jexpand_kv
 from repro_torch.configs.base import get_arch
@@ -222,6 +223,95 @@ def test_ssd_matches_pallas(chunk, heads):
                   heads=heads)
     _close(ty, jy, 1e-4)
     _close(th, jh, 1e-4)
+
+
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to the nearest
+    value with 10 mantissa bits, ties away from zero, by bit operations on
+    the float32 words."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b as the tensor cores compute it from TF32 operands, float32
+    sums: with ``split`` the 3xTF32 form big.big + big.small + small.big
+    of ``csrc/ssd.cu`` (big = tf32(v), small = tf32(v - big)), else one
+    TF32 product."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+def _ssd_kernel_arith(xdt, logd, Bv, Cv, chunk, split=True):
+    """The arithmetic of ``csrc/ssd.cu`` in plain PyTorch: chunks of at
+    most 64 tokens; the decay of pair (i, j) as exp2(R_i - R_j), R the sum
+    of logd (log2 units) from the first row of j's 8-key tile; the state's
+    weights from a suffix sum; every product (C B^T, (C B^T * L) X,
+    C h^T, (X * dec)^T B) on TF32 operands."""
+    BH, S, P = xdt.shape
+    Q = min(chunk, 64)
+    log2e = 1.4426950408889634
+    h = torch.zeros((BH, P, Bv.shape[-1]))
+    ys = []
+    for s0 in range(0, S, Q):
+        x, B, C = (t[:, s0:s0 + Q] for t in (xdt, Bv, Cv))
+        ld = logd[:, s0:s0 + Q]
+        n = x.shape[1]
+        r = torch.arange(n)
+        R = torch.stack([torch.cumsum(ld * (r >= 8 * kt), 1)
+                         for kt in range(-(-n // 8))], 2) * log2e
+        Ri = R[:, :, r // 8]                         # (BH, i, j)
+        Rj = R[:, r, r // 8]                         # (BH, j)
+        L = torch.where(torch.tril(torch.ones(n, n, dtype=torch.bool)),
+                        torch.exp2(Ri - Rj[:, None, :]), 0.0)
+        y = _mm_tf32(_mm_tf32(C, B.transpose(1, 2), split) * L, x, split)
+        y = y + _mm_tf32(C, h.transpose(1, 2), split) * torch.exp2(
+            R[:, :, 0])[:, :, None]
+        suf = torch.flip(torch.cumsum(torch.flip(ld, [1]), 1), [1])
+        suf = torch.cat([suf[:, 1:], torch.zeros((BH, 1))], 1)
+        dec = torch.exp2(suf * log2e)
+        h = h * torch.exp2(R[:, -1, 0])[:, None, None] + _mm_tf32(
+            (x * dec[:, :, None]).transpose(1, 2), B, split)
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("heads", [1, 3])
+def test_ssd_3xtf32_arithmetic_matches_jax(chunk, heads):
+    """The CUDA kernel's numerical design, emulated on the CPU on the
+    shapes of ``test_ssd_matches_pallas``: 3xTF32 products hold the JAX
+    oracle ``ssd_ref`` at 1e-4 (tests/test_kernels.py's bound), where one
+    TF32 product each does not."""
+    rng = np.random.default_rng(chunk + heads)
+    BH, S, P, N = 6, 64, 8, 16
+    xdt = rng.standard_normal((BH, S, P)).astype(F32)
+    logd = (-np.abs(rng.standard_normal((BH, S))) * 0.2).astype(F32)
+    Bv = rng.standard_normal((BH // heads, S, N)).astype(F32)
+    Cv = rng.standard_normal((BH // heads, S, N)).astype(F32)
+    Be, Ce = (np.repeat(v, heads, 0) for v in (Bv, Cv))
+    jy, jh = jssd_ref(*map(jnp.asarray, (xdt, logd, Be, Ce)))
+    args = [torch.tensor(a) for a in (xdt, logd, Be, Ce)]
+    ty, th = _ssd_kernel_arith(*args, chunk)
+    _close(ty, jy, 1e-4)
+    _close(th, jh, 1e-4)
+    one_y, _ = _ssd_kernel_arith(*args, chunk, split=False)
+    assert np.abs(one_y.numpy() - np.asarray(jy)).max() > 1e-3
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    """``_tf32`` rounds to nearest, ties away from zero, on both signs."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one, one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0e-3], dtype=torch.float32)
+    got = _tf32(x)
+    assert got.tolist()[:5] == [one, one + ulp, -(one + ulp), one,
+                                one + ulp]
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
 
 
 # ---------------------------------------------------------------------------
