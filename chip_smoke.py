@@ -12,8 +12,17 @@ Phases, in order; any failed check exits non-zero:
    arguments and hold the result bit-equal against its plain PyTorch
    version run on the CPU (tolerance 0: every value is an integer), time
    both on the card with CUDA events, and compute the kernel's bound.
-   The Calvin round (a second, read-lock build) is checked the same way.
-   index_merge is held at both recorded shapes (partitioned and
+   The index probe is held in its three launch configurations: single-
+   master (``locate_index_ops``) and partitioned (``step_index_ops``) on
+   their recorded calls, bare (``scan_window``) at both shapes, then on
+   crafted indexes (every slot SENTINEL, full segments, ragged caps) and
+   ops (keys past every key, partitions and IX_ID out of range, strided
+   op slices).  The OCC round is held in Silo mode, in Calvin mode (with
+   a read-lock array), without claims and without an index, its lock
+   arrays all B after each call.  torch.profiler counts one kernel a call
+   of every probe configuration and of the round, and each call's aten
+   operators and host time are reported.  index_merge is held at both
+   recorded shapes (partitioned and
    single-master), in shared memory and in global scratch, and on
    crafted batches (ties, double deletes, overflow, empty segments, empty
    batches, ragged caps, a large sort); both shapes are timed beside the
@@ -29,8 +38,10 @@ Phases, in order; any failed check exits non-zero:
    customers a district, 10 districts; order ring 256, the most the
    orders_by_cust key layout holds), the full mix, 2,048 transactions an
    epoch, 16 OCC rounds: 4 measured epochs after the warm one, with
-   ``replica_consistent()`` at every fence and every kernel launched;
-   then one more epoch under ``torch.profiler`` for the card's busy time;
+   ``replica_consistent()`` at every fence, every kernel launched (the
+   probe in both phases) and every lock array the executor handed to the
+   round all B after the epochs; then one more epoch under
+   ``torch.profiler`` for the card's busy time;
 5. LM kernel parity: Hymba-1.5B at its published widths and depth in
    bf16, random weights from a seed, serves 8 requests of 2,048 tokens
    plus 2 new ones through ``ServeEngine.generate`` while the first call
@@ -58,6 +69,9 @@ Phases, in order; any failed check exits non-zero:
    prefill ends); then a prefill, and a prefill
    with 8 decode steps, under ``torch.profiler`` for where the time goes.
 
+Before phase 2 it times the least kernel, a one-element ``fill_``, by
+torch.profiler (the launch floor).
+
 Kernel times are device times: CUDA events around a call enqueued while
 a spin kernel keeps the card busy, so the wrapper's host time is not
 counted; the median of 20 calls (5 for the slow plain versions of the LM
@@ -73,8 +87,11 @@ in one call instead: PARENT is a directory holding another checkout's
 example).  It runs phase 4's measured epochs and profiled epoch, phase
 7's prefill and the SSD kernel on its recorded prefill arguments, with
 each tree's kernels, in four processes: parent, this tree, this tree,
-parent.  It prints the card's name and power limit, then one ``AB {...}``
-JSON line a process.
+parent.  Each process also times the probe (both phases) and the OCC
+round through the executors' wrappers on the arguments its warm epoch
+recorded: device time by CUDA events and by torch.profiler, kernels, aten
+operators and host time a call.  It prints the card's name and power
+limit, then one ``AB {...}`` JSON line a process.
 
 It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels, one of main-path figures, one of serve-path figures
@@ -114,9 +131,7 @@ FIG11_TXNS, FIG11_EPOCHS = 512, 3
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
-    "occ_round.lock_build": "src/repro/kernels/occ/kernel.py:174",
-    "occ_round.validate": "src/repro/kernels/occ/kernel.py:421",
-    "occ_round.install": "src/repro/kernels/occ/kernel.py:301",
+    "occ_round": "src/repro/kernels/occ/kernel.py:421",
     "index_merge": "src/repro/kernels/index_merge/kernel.py:170",
     "thomas_merge": "src/repro/kernels/thomas_merge/kernel.py:77",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
@@ -125,15 +140,20 @@ REPLACES = {
 }
 SOURCE = {
     "scan_window": "src/repro_torch/csrc/scan_window.cu",
-    "occ_round.lock_build": "src/repro_torch/csrc/occ_round.cu",
-    "occ_round.validate": "src/repro_torch/csrc/occ_round.cu",
-    "occ_round.install": "src/repro_torch/csrc/occ_round.cu",
+    "occ_round": "src/repro_torch/csrc/occ_round.cu",
     "index_merge": "src/repro_torch/csrc/index_merge.cu",
     "thomas_merge": "src/repro_torch/csrc/thomas_merge.cu",
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "mamba2_ssd": "src/repro_torch/csrc/ssd.cu",
 }
+
+
+# occ_round_pallas's three pallas_call sites (lock build, install,
+# validate), all replaced by the one cooperative kernel
+REPLACES_ROUND = ["src/repro/kernels/occ/kernel.py:174",
+                  "src/repro/kernels/occ/kernel.py:301",
+                  "src/repro/kernels/occ/kernel.py:421"]
 
 
 class Failure(Exception):
@@ -243,7 +263,9 @@ class Recorder:
         def wrapper(*args, **kw):
             key = key_of(*args, **kw)
             if key is not None and key not in self.calls:
-                self.calls[key] = to((args, kw), args[0].device)
+                dev = next(t.device for t in tree_leaves(args)
+                           if hasattr(t, "device"))
+                self.calls[key] = to((args, kw), dev)
             return orig(*args, **kw)
 
         setattr(module, name, wrapper)
@@ -282,19 +304,23 @@ def same_store(a, b):
 # ---------------------------------------------------------------------------
 # phase 2: kernels at main-path shapes
 # ---------------------------------------------------------------------------
+def wrap_occ(rec):
+    """Record the first call of the probe in each phase and of the OCC
+    round, where the executors call them."""
+    from repro_torch.core import partitioned, single_master
+    rec.wrap(partitioned, "step_index_ops", lambda *a, **k: "step_index_ops")
+    rec.wrap(single_master, "locate_index_ops",
+             lambda *a, **k: "locate_index_ops")
+    rec.wrap(single_master, "occ_round", lambda *a, **k: "occ_round")
+
+
 def record_warm_epoch(eng, batch):
     """Run ``batch`` through ``eng`` with the kernel wrappers recorded."""
-    from repro_torch.core import replication, single_master
+    from repro_torch.core import replication
     from repro_torch.core.ops import IDX_OPS
     from repro_torch.kernels.index_merge import ops as im_ops
-    from repro_torch.kernels.occ import ops as occ_ops
     rec = Recorder()
-    rec.wrap(occ_ops, "scan_window",
-             lambda *a, n_slots, **k: f"scan_window/{n_slots}")
-    rec.wrap(single_master, "occ_round", lambda *a, **k: "occ_round")
-    rec.wrap(occ_ops, "lock_build", lambda *a, **k: "lock_build")
-    rec.wrap(occ_ops, "occ_validate", lambda *a, **k: "validate")
-    rec.wrap(occ_ops, "occ_install", lambda *a, **k: "install")
+    wrap_occ(rec)
     P = eng.P
     # the first merge of each shape: (P, P*K) in the partitioned phase,
     # (P, B*K) in the single-master one
@@ -318,16 +344,390 @@ def sort_gather(ik, ip, it):
     return ik.gather(1, o), ip.gather(1, o), it.gather(1, o)
 
 
-def kernels_in(fn):
-    """Kernels the card ran for one ``fn()``, from torch.profiler."""
+def device_kernels(body):
+    """torch.profiler's kernels for ``body()``: {name: (device µs, count)}.
+    Spin kernels run before the body (a 20 ms one, then 32 short ones)
+    and after it (32 short ones) inside the profiled window and are left
+    out: the profiler can miss a few kernels of a window (in some
+    processes it counted 0 for the one kernel of a wrapper call, and 46
+    of 50 calls, most often after a long profiled window)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def spins(n):
+        for _ in range(n):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        torch.cuda._sleep(int(0.02 * H100_MAX_CLOCK_HZ))
+        spins(32)
+        body()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        spins(32)
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            out[e.key] = (us, e.count)
+    return out
+
+
+def kernels_in(fn):
+    """Kernels the card ran for one ``fn()``, from torch.profiler."""
+    return sum(n for _, n in device_kernels(fn).values())
+
+
+def prof_ms(fn, reps=50, setup=None):
+    """torch.profiler over ``reps`` calls of ``fn()`` after a warm one,
+    each call synchronised: (the card's kernel time a call in ms, kernels
+    a call).  Unlike :func:`cuda_ms` it leaves out the gaps between
+    launches.  ``setup()`` runs before each call; the kernels it launches
+    (found by profiling it alone) are left out."""
+    import torch
+    skip = set(device_kernels(setup)) if setup is not None else set()
+    if setup is not None:
+        setup()
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+            torch.cuda.synchronize()
+    per = device_kernels(calls)
+    us = sum(t for k, (t, _) in per.items() if k not in skip)
+    n = sum(c for k, (_, c) in per.items() if k not in skip)
+    return us / reps / 1e3, n / reps
+
+
+def aten_calls(fn):
+    """The aten operators one ``fn()`` dispatches on the host, outermost
+    ones only (torch.profiler, CPU activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.name.startswith("aten::") and e.cpu_parent is None)
+
+
+def host_us(fn, reps=200):
+    """Host time of one ``fn()`` in µs, the mean of ``reps`` calls enqueued
+    back to back (the card runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def call_figures(fn, setup=None):
+    """Device time (CUDA events and profiler), kernels, aten operators and
+    host time of one call of a kernel wrapper."""
+    pm, n = prof_ms(fn, setup=setup)
+    return {"ms": cuda_ms(fn, setup=setup), "prof_ms": pm,
+            "prof_kernels_per_call": n, "kernels_per_call": kernels_in(fn),
+            "aten_calls": aten_calls(fn), "host_us": host_us(fn)}
+
+
+def probe_cases(dev):
+    """The probe's three configurations on crafted indexes and ops, each
+    bit-equal to its plain version on the CPU: an index whose every slot
+    is SENTINEL, full segments (no SENTINEL), ragged caps (2,880, 1, 33)
+    with empty and full partitions; queries at live keys, one below and
+    one past a partition's keys, SENTINEL, the lowest int32, partitions
+    outside [0, P), IX_ID outside the index list, every kind; and the
+    executors' strided op slices.  Returns the case names."""
+    import torch
+    from repro_torch.core.ops import IX_EXPECT, IX_HI, IX_ID, IX_LO
+    from repro_torch.kernels.occ import ops as occ_ops
+    from repro_torch.kernels.occ import ref as occ_ref
+    from repro_torch.storage.index import SCAN_L
+    from repro_torch.storage.index import SENTINEL as S
+    gen = torch.Generator().manual_seed(23)
+    P, B, K, C = 4, 64, 12, 10
+    i32 = torch.int32
+
+    def rint(lo, hi):
+        return int(torch.randint(lo, hi, (1,), generator=gen))
+
+    def table(cap, fills):
+        key = torch.full((P, cap), S, dtype=i32)
+        tid = torch.zeros((P, cap), dtype=torch.int64)
+        for p, n in enumerate(fills):
+            local = torch.randperm(1 << 16, generator=gen)[:n].sort().values
+            key[p, :n] = ((p << 24) | local).to(i32)
+            tid[p, :n] = torch.randint(0, 1 << 32, (n,), generator=gen)
+        return {"key": key, "prow": torch.zeros((P, cap), dtype=i32),
+                "tid": tid}
+
+    def ops(index, rows):
+        kinds = torch.randint(0, 10, (rows, K), generator=gen, dtype=i32)
+        delta = torch.randint(-50, 50, (rows, K, C), generator=gen,
+                              dtype=i32)
+        n = len(index)
+        for r in range(rows):
+            for k in range(K):
+                i, part = rint(-2, n + 2), rint(-1, P + 2)
+                seg = index[i if 0 <= i < n else 0]["key"][
+                    min(max(part, 0), P - 1)]
+                live = seg[seg != S]
+                c = rint(0, 7)
+                if c == 0 and live.numel():
+                    v = int(live[rint(0, live.numel())])
+                elif c == 1 and live.numel():
+                    v = int(live[-1]) + 1
+                elif c == 2 and live.numel():
+                    v = int(live[0]) - 1
+                elif c == 3:
+                    v = S
+                elif c == 4:
+                    v = -(1 << 31)
+                elif c == 5:
+                    v = part << 24
+                else:
+                    v = rint(-(1 << 30), 1 << 30)
+                pos = int(torch.searchsorted(seg, torch.tensor(v, dtype=i32)))
+                nxt = int(seg[pos]) if pos < seg.numel() else v
+                delta[r, k, IX_LO] = v
+                delta[r, k, IX_HI] = max(min(v + rint(-2, 1 << 12), S),
+                                         -(1 << 31))
+                delta[r, k, IX_EXPECT] = nxt if rint(0, 2) else v
+                delta[r, k, IX_ID] = i
+        return kinds, delta
+
+    def strided(kinds, delta):
+        """the same ops as slices of wider op arrays, on the card"""
+        wk = torch.cat([kinds, kinds[:, :5]], 1).to(dev)
+        wd = torch.cat([delta, delta[:, :5]], 1).to(dev)
+        return wk[:, :K], wd[:, :K]
+
+    indexes = {
+        "ragged": [table(2880, [0, 1, 1500, 2880]), table(1, [0, 1, 1, 0]),
+                   table(33, [33, 0, 32, 33])],
+        "empty": [table(2880, [0] * P), table(1, [0] * P),
+                  table(33, [0] * P)],
+        "full": [table(33, [33] * P), table(2880, [2880] * P)],
+    }
+    names = []
+    for name, index in indexes.items():
+        di = to(index, dev)
+        kinds, delta = ops(index, B)
+        want = occ_ref.locate_index_ops_plain(index, kinds, delta, 1000)
+        check(equal(occ_ops.locate_index_ops(di, *to((kinds, delta), dev),
+                                             1000), want),
+              f"probe case {name}: single-master differs")
+        check(equal(occ_ops.locate_index_ops(di, *strided(kinds, delta),
+                                             1000), want),
+              f"probe case {name}: single-master on strided ops differs")
+        pk, pd = kinds[:P], delta[:P]
+        want = occ_ref.step_index_ops_plain(index, pk, pd)
+        check(equal(occ_ops.step_index_ops(di, *to((pk, pd), dev)), want),
+              f"probe case {name}: partitioned differs")
+        check(equal(occ_ops.step_index_ops(di, *strided(pk, pd)), want),
+              f"probe case {name}: partitioned on strided ops differs")
+        for cfg, build, a, ns in (
+                ("sm", occ_ref.sm_probe_args, (kinds, delta), SCAN_L + 1),
+                ("part", occ_ref.part_probe_args, (pk, pd), 1)):
+            *flat, _, n_iters = build(index, *a)
+            want = occ_ref.scan_window_plain(*flat, n_slots=ns,
+                                             n_iters=n_iters)
+            got = occ_ops.scan_window(*to(flat, dev), n_slots=ns,
+                                      n_iters=n_iters)
+            check(equal(got, want), f"probe case {name}: bare ({cfg}) "
+                  f"differs")
+        names += [f"{name}/{c}" for c in ("single_master",
+                                           "single_master_strided",
+                                           "partitioned",
+                                           "partitioned_strided",
+                                           "bare_sm", "bare_part")]
+    torch.cuda.synchronize()
+    print(f"probe: {len(names)} crafted cases bit-equal")
+    return names
+
+
+def probe_checks(calls, dev, report):
+    """The probe's three launch configurations on the main path's recorded
+    arguments: single-master (the row's figures), partitioned and bare at
+    both phases' shapes, each bit-equal to its plain version on the CPU
+    and one kernel a call; then the crafted cases."""
+    import torch
+    from repro_torch.core.ops import IX_ID, is_index_kind
+    from repro_torch.kernels.occ import ops as occ_ops
+    from repro_torch.kernels.occ import ref as occ_ref
+    from repro_torch.storage.index import SCAN_L
+    cpu = torch.device("cpu")
+    L1 = SCAN_L + 1
+
+    def work(index, kinds, delta, sel, n_slots, out_bytes):
+        """bytes and operations: each op's kind and 4 delta words read and
+        its outputs written; a selected op's search (the keys of a binary
+        search) and window (keys and TIDs)"""
+        Q = kinds.numel()
+        n_sel = int(sel.sum())
+        lg = max(ix["key"].shape[1] for ix in index).bit_length()
+        return (Q * (4 + 16 + out_bytes) + n_sel * (4 * lg + 12 * n_slots),
+                Q * 4 + n_sel * (lg + 8 * n_slots))
+
+    (index, kinds, delta, n_rows), _ = calls["locate_index_ops"]
+    iid = delta[..., IX_ID].cpu()
+    sel_sm = (is_index_kind(kinds.cpu()) & (iid >= 0)
+              & (iid < len(index)))
+    nb, no = work(index, kinds, delta, sel_sm, L1, 4 + 8 + 1 + L1 * 13)
+    row = report("scan_window", occ_ops.locate_index_ops,
+                 occ_ref.locate_index_ops_plain,
+                 (index, kinds, delta, n_rows), {}, nbytes=nb, nops=no)
+    a = to((index, kinds, delta, n_rows), dev)
+    row["single_master"] = dict(
+        call_figures(lambda: occ_ops.locate_index_ops(*a)),
+        queries=kinds.numel(), selected=int(sel_sm.sum()))
+    sm_args = (index, kinds, delta)
+
+    (pindex, pk, pd), _ = calls["step_index_ops"]
+    got = occ_ops.step_index_ops(*to((pindex, pk, pd), dev))
+    want = occ_ref.step_index_ops_plain(*to((pindex, pk, pd), cpu))
+    check(equal(got, want), "probe (partitioned) differs from its plain "
+          "version")
+    piid = pd[..., IX_ID].cpu()
+    sel_p = (piid >= 0) & (piid < len(pindex))
+    nb, no = work(pindex, pk, pd, sel_p, 1, 1 + 8)
+    a = to((pindex, pk, pd), dev)
+    row["partitioned"] = dict(
+        call_figures(lambda: occ_ops.step_index_ops(*a)),
+        queries=pk.numel(), selected=int(sel_p.sum()),
+        max_abs_err=max_abs_err(got, want),
+        plain_ms=cuda_ms(lambda: occ_ref.step_index_ops_plain(*a)),
+        bound_ms=max(nb / H100_BYTES_PER_S, no / H100_INT32_OPS_PER_S) * 1e3)
+
+    # the bare configuration (segment_scan's) on both phases' probes: the
+    # queries of every op, flat segments built by the plain glue
+    row["bare"] = {}
+    for cfg, build, args, ns in (
+            ("single_master", occ_ref.sm_probe_args, sm_args, L1),
+            ("partitioned", occ_ref.part_probe_args, (pindex, pk, pd), 1)):
+        *flat, _, n_iters = build(*to(args, cpu))
+        want = occ_ref.scan_window_plain(*flat, n_slots=ns, n_iters=n_iters)
+        fd = to(flat, dev)
+        got = occ_ops.scan_window(*fd, n_slots=ns, n_iters=n_iters)
+        check(equal(got, want), f"probe (bare, {cfg} shape) differs from "
+              f"its plain version")
+        row["bare"][cfg] = dict(
+            call_figures(lambda: occ_ops.scan_window(
+                *fd, n_slots=ns, n_iters=n_iters)),
+            queries=int(flat[2].numel()), n_slots=ns)
+    for cfg, fig in [("single_master", row["single_master"]),
+                     ("partitioned", row["partitioned"])] + [
+            (f"bare {c}", f) for c, f in row["bare"].items()]:
+        check(fig["kernels_per_call"] == 1, f"probe ({cfg}): "
+              f"{fig['kernels_per_call']} kernels a call")
+    row["kernels_per_call"] = 1
+    row["crafted_cases"] = probe_cases(dev)
+
+
+def round_checks(calls, dev, report):
+    """The OCC round on the main path's recorded arguments, Silo (the
+    row's figures) and Calvin, bit-equal to its plain version on the CPU
+    with the lock arrays all B after it, one kernel a call; then rounds
+    with no claims and without an index, in both modes."""
+    import torch
+    from repro_torch.kernels.occ import ops as occ_ops
+    from repro_torch.kernels.occ import ref as occ_ref
+    cpu = torch.device("cpu")
+
+    def plain(*a, ix=None, has_claim=None, deterministic=False, lock=None,
+              rlock=None):
+        out = occ_ref.occ_round_plain(*a, lock,
+                                      rlock if deterministic else None,
+                                      ix=ix, has_claim=has_claim)
+        return (a[0], a[1], *out)
+
+    def with_locks(fn):
+        """fn's outputs, then its lock arrays as they are after it"""
+        return lambda *a, **k: (*fn(*a, **k), k.get("lock"), k.get("rlock"))
+
+    def checked_round(what, args, kw):
+        got = with_locks(occ_ops.occ_round)(*to(args, dev), **to(kw, dev))
+        torch.cuda.synchronize()
+        want = with_locks(plain)(*to(args, cpu), **to(kw, cpu))
+        check(equal(got, want), f"occ_round ({what}) differs from its plain "
+              f"version")
+        B = args[2].shape[0]
+        for t in got[-2:]:
+            check(t is None or bool((t == B).all()),
+                  f"occ_round ({what}): a lock entry is not B after it")
+
+    args, kw = calls["occ_round"]
+    val, tidw, rows, kind, delta_v, wmask, amask, active = args[:8]
+    ix, has_claim = kw["ix"], kw["has_claim"]
+    B, M = rows.shape
+    N, C = val.shape
+    K, L = ix["scan_addr"].shape[1], ix["scan_addr"].shape[2]
+    v0, t0 = val.to(dev), tidw.to(dev)
+
+    def reset(a):
+        """Restore the tables the round installs into."""
+        a[0].copy_(v0)
+        a[1].copy_(t0)
+    n_claim = int(has_claim.sum())
+    n_scan = int(ix["scan_valid"].sum())
+    n_w = int(wmask.sum())
+    # claims: masks read, an atomic and a release a claim; validate: the
+    # ops, masks, rows' values, TIDs and locks, the index claims and scan
+    # slots (a flag each, address, lock word and TID where it is set),
+    # the outputs; install: the winners' values and TIDs written
+    nbytes = (B * M * 2 + B * K + (n_w + n_claim) * 8
+              + B * M * (4 + 4 + 4 * C) + B * (1 + 8)
+              + B * M * (4 * C + 8 + 4) + n_claim * (4 + 8 + 4)
+              + B * K * L + n_scan * (4 + 8 + 4)
+              + B * (1 + 8) + B * M * (4 * C + 1)
+              + n_w * (4 * C + 8))
+    nops = B * M * (2 * C + 8) + (n_claim + n_scan) * 4 + (n_w + n_claim) * 2
+    row = report("occ_round", with_locks(occ_ops.occ_round),
+                 with_locks(plain), args, kw, nbytes=nbytes, nops=nops,
+                 reset=reset)
+    row["replaces_sites"] = REPLACES_ROUND
+    a, k = to(args, dev), to(kw, dev)
+    row["silo"] = call_figures(lambda: occ_ops.occ_round(*a, **k),
+                               setup=lambda: reset(a))
+    kc = dict(kw, deterministic=True, rlock=torch.full_like(kw["lock"], B))
+    checked_round("Calvin", args, kc)
+    kcd = to(kc, dev)
+    row["calvin"] = call_figures(lambda: occ_ops.occ_round(*a, **kcd),
+                                 setup=lambda: reset(a))
+    for mode in ("silo", "calvin"):
+        n = row[mode]["kernels_per_call"]
+        check(n == 1, f"occ_round ({mode}): {n} kernels a call")
+    row["kernels_per_call"] = 1
+
+    # crafted: a round with no claims; a round without an index
+    cases = []
+    off = torch.zeros_like(wmask)
+    quiet = (*args[:5], off, off, torch.zeros_like(active), *args[8:])
+    for det in (False, True):
+        mode = "calvin" if det else "silo"
+        kq = dict(kw, has_claim=torch.zeros_like(has_claim),
+                  deterministic=det, rlock=torch.full_like(kw["lock"], B))
+        checked_round(f"{mode}, no claims", quiet, kq)
+        lk = torch.full((N + 1,), B, dtype=torch.int32)
+        kn = dict(kw, ix=None, has_claim=None, deterministic=det, lock=lk,
+                  rlock=lk.clone())
+        checked_round(f"{mode}, no index", args, kn)
+        cases += [f"{mode}/no_claims", f"{mode}/no_index"]
+    row["crafted_cases"] = cases
+    print(f"occ_round: Silo and Calvin bit-equal, lock arrays all B, "
+          f"{len(cases)} crafted rounds")
 
 
 def index_merge_cases(dev):
@@ -439,8 +839,6 @@ def kernel_checks(calls, dev):
     from repro_torch.kernels.index_merge import ops as im_ops
     from repro_torch.kernels.index_merge.ops import index_merge_cuda
     from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
-    from repro_torch.kernels.occ import ops as occ_ops
-    from repro_torch.kernels.occ import ref as occ_ref
     from repro_torch.kernels.thomas_merge.ops import thomas_merge
     from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
     cpu = torch.device("cpu")
@@ -466,76 +864,24 @@ def kernel_checks(calls, dev):
         plain_ms = cuda_ms(lambda: plain(*pa, **kd),
                            setup=reset and (lambda: reset(pa)))
         lib_ms = plain_ms if plain_is_library else None
+        pm = prof_ms(lambda: kernel(*ka, **kd),
+                     setup=reset and (lambda: reset(ka)))[0]
         bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
         bound_ops = nops / H100_INT32_OPS_PER_S * 1e3
         out[name] = {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "prof_ms": pm, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations",
             "library_ms": lib_ms, "bytes": int(nbytes), "ops": int(nops)}
+        return out[name]
 
-    # -- scan_window at both callers' shapes (SM phase timed and reported)
-    for key in ("scan_window/1", "scan_window/9"):
-        (fk, ft, q, base, cap), kw = calls[key]
-        Q, ns, ni = q.shape[0], kw["n_slots"], kw["n_iters"]
-        if key == "scan_window/1":
-            got = occ_ops.scan_window(fk, ft, q, base, cap, **kw)
-            want = occ_ref.scan_window_plain(*to((fk, ft, q, base, cap),
-                                                 cpu), **kw)
-            check(equal(got, want), "scan_window (n_slots=1) differs")
-            continue
-        report("scan_window", occ_ops.scan_window, occ_ref.scan_window_plain,
-               (fk, ft, q, base, cap), kw,
-               nbytes=Q * (12 + 4 * ni + 12 * ns) + Q * (4 + 12 * ns),
-               nops=Q * (4 * ni + 2 * ns))
-
-    # -- occ_round, launch by launch (Silo, as on the main path)
-    (addr, lane), kw = calls["lock_build"]
-    NT1 = kw["NT"] + 1
-    Kc = addr.shape[0]
-    # the plain version is full + scatter_reduce_(amin), the library call
-    report("occ_round.lock_build", occ_ops.lock_build,
-           occ_ref.lock_build_plain, (addr, lane), kw,
-           nbytes=Kc * 8 + NT1 * 4, nops=Kc, plain_is_library=True)
-    args, kw = calls["validate"]
-    val, tidw, lock, rlock, rows, kind, delta = args[:7]
-    ix = kw.get("ix")
-    B, M = rows.shape
-    C = val.shape[1]
-    K, L = ix["scan_addr"].shape[1], ix["scan_addr"].shape[2]
-    # claim and scan slots: a flag each, address, lock word and TID only
-    # where the flag is set
-    n_claim = int(kw["has_claim"].sum())
-    n_scan = int(ix["scan_valid"].sum())
-    report("occ_round.validate", occ_ops.occ_validate,
-           occ_ref.validate_plain, args, kw,
-           nbytes=(B * M * (4 + 4 + 4 * C + 2) + B * (1 + 8)
-                   + B * M * (4 * C + 8 + 4) + B * K + n_claim * (4 + 8 + 4)
-                   + B * K * L + n_scan * (4 + 8 + 4)
-                   + B * (1 + 8) + B * M * (4 * C + 1)),
-           nops=B * M * (2 * C + 8) + (n_claim + n_scan) * 4)
-    args, kw = calls["install"]
-    n_w = int(args[4].sum())
-
-    def tables(fn):
-        """An in-place install, returning the tables it updated."""
-        return lambda *a, **k: (fn(*a, **k), a[0], a[1])[1:]
-    # repeated installs write the same values: no reset needed
-    report("occ_round.install", tables(occ_ops.occ_install),
-           tables(occ_ref.install_plain), args, kw,
-           nbytes=B * M * 5 + B * 8 + n_w * (4 * C + 4 * C + 8),
-           nops=B * M * 2)
-
-    # -- a whole round in Calvin mode (second, read-lock build)
-    args, kw = calls["occ_round"]
-    kw = dict(kw, deterministic=True)
-    got = occ_ops.occ_round(*to(args, dev), **to(kw, dev))
-    torch.cuda.synchronize()
-    want = occ_ops.occ_round(*to(args, cpu), **to(kw, cpu))
-    check(equal(got, want), "occ_round (Calvin) differs")
+    # -- the probe and the round: every configuration on its recorded
+    # arguments, the crafted cases, one kernel a call
+    probe_checks(calls, dev, report)
+    round_checks(calls, dev, report)
 
     # -- index_merge at both phases' shapes, inserts unsorted as the
     # executors hand them over; the scratch path on the same arguments
@@ -575,7 +921,7 @@ def kernel_checks(calls, dev):
     # -- thomas_merge on the epoch's single-master value stream
     args, kw = calls["thomas_merge"]
     val, tidw, wrows, wvals, wtids = args
-    Kw = wrows.shape[0]
+    Kw, C = wrows.shape[0], val.shape[1]
     a_dev = to(args, dev)
     thomas_merge(*a_dev)
     n_win = int((a_dev[1] != tidw).sum())
@@ -859,6 +1205,7 @@ def lm_kernel_checks(calls):
     s = (x.float() + r.float()).to(x.dtype)
     rows["rmsnorm"]["decode"] = {
         "rows": T, "ms": cuda_ms(lambda: rmsnorm(x, w, r, **kw)),
+        "prof_ms": prof_ms(lambda: rmsnorm(x, w, r, **kw), reps=200)[0],
         "bound_ms": x.element_size() * (4 * T * D + D) / H100_BYTES_PER_S
         * 1e3,
         "rms_norm_ms": cuda_ms(lambda: F.rms_norm(s, (D,), w, eps)),
@@ -1164,6 +1511,18 @@ def main(argv):
     return run(torch.device("cuda", 0))
 
 
+def launch_floor(dev):
+    """The card's time for the least kernel, a one-element ``fill_``: (ms
+    a launch by torch.profiler, ms by CUDA events as :func:`cuda_ms`
+    times every kernel here)."""
+    import torch
+    x = torch.zeros(1, device=dev)
+
+    def fill():
+        x.fill_(1.0)
+    return prof_ms(fill, reps=200)[0], cuda_ms(fill)
+
+
 def run(dev):
     import torch
     from repro_torch.kernels import _build
@@ -1180,10 +1539,16 @@ def run(dev):
     smi = nvidia_smi()
     print(smi)
 
+    floor, floor_ev = launch_floor(dev)
+    print(f"launch floor: a one-element fill_ kernel takes {floor:.6f} ms "
+          f"(torch.profiler), {floor_ev:.6f} ms (CUDA events)")
     kernels, main_path = star_phases(dev)
-    main_path.update(device=name, nvidia_smi=smi)
+    main_path.update(device=name, nvidia_smi=smi, launch_floor_prof_ms=floor,
+                     launch_floor_events_ms=floor_ev)
     torch.cuda.empty_cache()
     lm_rows, serve = serve_path(dev)
+    lm_rows["rmsnorm"]["decode"].update(launch_floor_prof_ms=floor,
+                                        launch_floor_events_ms=floor_ev)
     kernels.update(lm_rows)
     serve.update(device=name, nvidia_smi=smi)
     print(json.dumps({"kernels": list(kernels.values())}))
@@ -1240,18 +1605,30 @@ def star_phases(dev):
     for ep in range(MAIN_EPOCHS):
         batches.append(tpcc.make_batch(cfg, state, MAIN_TXNS, seed=ep))
     counts, figures = measure_epochs(eng, cfg, state, batches[1:])
-    for k in kernels:
-        kernels[k]["launches"] = counts.get(k, 0)
-        check(kernels[k]["launches"] > 0, f"main path never launched {k}")
+    check(figures["lock_arrays_checked"] > 0, "main path: no lock array "
+          "reached occ_round")
+    for k, row in kernels.items():
+        # a kernel's launch configurations count as "<name>.<config>"
+        row["launches"] = sum(n for c, n in counts.items()
+                              if c == k or c.startswith(k + "."))
+        check(row["launches"] > 0, f"main path never launched {k}")
+    sw = kernels["scan_window"]
+    sw["launches_by_config"] = {c: counts.get(c, 0) for c in (
+        "scan_window.partitioned", "scan_window.single_master",
+        "scan_window")}
+    for c in ("scan_window.partitioned", "scan_window.single_master"):
+        check(counts.get(c, 0) > 0, f"main path never launched {c}")
     return kernels, figures
 
 
 def measure_epochs(eng, cfg, state, batches):
     """Phase 4's measurement: ``batches`` run as epochs, with
-    ``replica_consistent()`` at every fence, then one more epoch under
-    torch.profiler.  Returns (the kernels' launch counts over the
+    ``replica_consistent()`` at every fence and every lock array the
+    executor hands to ``occ_round`` all B after them, then one more epoch
+    under torch.profiler.  Returns (the kernels' launch counts over the
     measured epochs, main-path figures)."""
     import torch
+    from repro_torch.core import single_master
     from repro_torch.db import tpcc
     from repro_torch.kernels import _build
     torch.cuda.synchronize()
@@ -1262,22 +1639,41 @@ def measure_epochs(eng, cfg, state, batches):
     def measured(f):
         """A stats counter over the measured epochs only."""
         return getattr(eng.stats, f) - base[f]
+    # keep the lock arrays the executor hands to occ_round (a tree whose
+    # round takes none hands none): each must be all B after the epochs
+    held = {}
+    orig = single_master.occ_round
+
+    def keep(*a, **k):
+        for t in (k.get("lock"), k.get("rlock")):
+            if t is not None:
+                held[t.data_ptr()] = (t, a[2].shape[0])
+        return orig(*a, **k)
+    single_master.occ_round = keep
     _build.reset_launch_counts()
     rows = []
-    for b in batches:
-        t0 = time.perf_counter()
-        m = eng.run_epoch(b)
-        wall = time.perf_counter() - t0
-        ok = eng.replica_consistent()
-        tpcc.apply_consume_feedback(state, b, m)
-        rows.append((m, wall, ok))
-        print(f"epoch {eng.epoch - 1}: committed {m['committed_single']}+"
-              f"{m['committed_cross']} t_part={m['t_part_s']:.4f}s "
-              f"t_sm={m['t_sm_s']:.4f}s wall={wall:.4f}s "
-              f"index_overflow={m['index_overflow']} "
-              f"consume_skips={measured('consume_skips')} replica={ok}")
-        check(ok, "main path: replica diverged at a fence")
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            m = eng.run_epoch(b)
+            wall = time.perf_counter() - t0
+            ok = eng.replica_consistent()
+            tpcc.apply_consume_feedback(state, b, m)
+            rows.append((m, wall, ok))
+            print(f"epoch {eng.epoch - 1}: committed "
+                  f"{m['committed_single']}+{m['committed_cross']} "
+                  f"t_part={m['t_part_s']:.4f}s t_sm={m['t_sm_s']:.4f}s "
+                  f"wall={wall:.4f}s index_overflow={m['index_overflow']} "
+                  f"consume_skips={measured('consume_skips')} replica={ok}")
+            check(ok, "main path: replica diverged at a fence")
+    finally:
+        single_master.occ_round = orig
     counts = _build.launch_counts()
+    n_locks = len(held)
+    for t, B in held.values():
+        check(bool((t == B).all()), "main path: a lock array is not all B "
+              "after the measured epochs")
+    del held
     check(measured("committed_cross") > 0, "main path: no cross commit")
     totals = {f: measured(f) for f in base}
     prof = profile_epoch(eng, cfg, state)
@@ -1293,7 +1689,8 @@ def measure_epochs(eng, cfg, state, batches):
         "epoch_walls": [w for _, w, _ in rows],
         "index_overflow": totals["index_overflow"],
         "consume_skips": totals["consume_skips"],
-        "retries": totals["retries"], "profiled_epoch": prof}
+        "retries": totals["retries"], "profiled_epoch": prof,
+        "lock_arrays_checked": n_locks}
 
 
 # ---------------------------------------------------------------------------
@@ -1312,13 +1709,29 @@ def ab(root, parent):
     return 0
 
 
+def occ_calls(calls, dev):
+    """The probe (both phases) and the OCC round through the executors'
+    wrappers on their recorded arguments, whatever kernels each tree's
+    wrapper launches: device time, kernels, aten operators, host time."""
+    from repro_torch.core import partitioned, single_master
+    out = {}
+    for key, fn in (("step_index_ops", partitioned.step_index_ops),
+                    ("locate_index_ops", single_master.locate_index_ops),
+                    ("occ_round", single_master.occ_round)):
+        args, kw = calls[key]
+        a, k = to(args, dev), to(kw, dev)
+        out[key] = call_figures(lambda: fn(*a, **k))
+    return out
+
+
 def ab_side(tree, dev):
     """One side of ``--ab``, with this script's phases and the kernels of
     ``tree``'s ``src/repro_torch``: the STAR main path's measured epochs
-    and profiled epoch (phase 4, after one untimed epoch), the serve
-    path's prefill (``SERVE_RUNS`` timed after two untimed) and the SSD
-    kernel alone on the arguments that prefill gave it.  Prints one
-    ``AB {...}`` JSON line."""
+    and profiled epoch (phase 4, after one untimed epoch whose probe and
+    round calls are recorded), the probe and the round on those calls
+    (:func:`occ_calls`), the serve path's prefill (``SERVE_RUNS`` timed
+    after two untimed) and the SSD kernel alone on the arguments that
+    prefill gave it.  Prints one ``AB {...}`` JSON line."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.db import tpcc
@@ -1330,11 +1743,19 @@ def ab_side(tree, dev):
     _build.build_all()
     cfg, state, eng = mk_engine(MAIN, 0, dev)
     b = tpcc.make_batch(cfg, state, MAIN_TXNS, seed=1000)
-    tpcc.apply_consume_feedback(state, b, eng.run_epoch(b))
+    rec = Recorder()
+    wrap_occ(rec)
+    try:
+        m = eng.run_epoch(b)
+    finally:
+        rec.restore()
+    tpcc.apply_consume_feedback(state, b, m)
     batches = [tpcc.make_batch(cfg, state, MAIN_TXNS, seed=ep)
                for ep in range(MAIN_EPOCHS)]
     _, out = measure_epochs(eng, cfg, state, batches)
     del eng, state
+    out.update(occ_calls(rec.calls, dev))
+    del rec
     torch.cuda.empty_cache()
     c = get_arch(SERVE_ARCH)
     se = ServeEngine(c, LM(c, seed=0, device=dev), device=dev,

@@ -3,7 +3,8 @@
 
 A batch of B transactions runs as B parallel lanes.  Each round (a Python
 loop over ``max_rounds``) reads, locks, validates and installs through the
-``occ_round`` kernel (lock build → validate + TID → install); index ops are
+``occ_round`` kernel (claim → validate + TID → install + release, one
+launch a round, on lock arrays allocated once per call); index ops are
 located through the ``scan_window`` kernel (``locate_index_ops``) and
 committed index maintenance merges through the ``index_merge`` kernel.
 Lanes abort and retry the next round if an earlier lane claims anything
@@ -19,7 +20,8 @@ import torch
 from repro_torch.core.ops import (IDX_OPS, SCAN_CONSUME, is_index_kind,
                                   resolve_op_guards, writes_index,
                                   writes_primary)
-from repro_torch.kernels.occ.ops import locate_index_ops, occ_round
+from repro_torch.kernels.occ.ops import (lock_arrays, locate_index_ops,
+                                         occ_round)
 from repro_torch.storage.index import apply_index_ops
 
 
@@ -63,6 +65,10 @@ def run_single_master(val, tidw, txns, epoch, max_rounds: int = 16,
 
     committed = torch.zeros(B, dtype=torch.bool, device=dev)
     committed_round = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    # the round's lock space: rows, then every index slot, then a dump
+    # slot; every entry is the sentinel lane B between rounds
+    NT = N + (0 if index is None else sum(ix["key"].numel() for ix in index))
+    lock, rlock = lock_arrays(NT + 1, B, deterministic, dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     retries, skipped, overflow = zero, zero, zero
     logs = []
@@ -81,7 +87,7 @@ def run_single_master(val, tidw, txns, epoch, max_rounds: int = 16,
         val, tidw, commit_now, new_tid, new, w = occ_round(
             val, tidw, rows, kind, delta_v, wmask, amask, active, epoch,
             last_tid, ix=ix, has_claim=has_claim,
-            deterministic=deterministic)
+            deterministic=deterministic, lock=lock, rlock=rlock)
 
         log = {"row": torch.where(w, rows, -1), "val": new,
                "tid": new_tid[:, None].expand(B, M), "write": w}

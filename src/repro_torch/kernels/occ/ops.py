@@ -1,45 +1,62 @@
 """Dispatch for the OCC kernels, port of ``repro.kernels.occ.ops``.
 
-``scan_window`` and ``occ_round`` launch the CUDA kernels of
-``csrc/scan_window.cu`` and ``csrc/occ_round.cu`` for CUDA tensors and run
-their plain versions (``ref.py``) for CPU tensors.  ``locate_index_ops``
-(single-master phase) and ``step_index_ops`` (partitioned phase) build the
-per-op segment arguments of the probe around ``scan_window``, as the JAX
-package's fused path does.
+The ordered-index probe (``csrc/scan_window.cu``) has three launch
+configurations, one launch a call each, all reading the index tables in
+place:
+
+* :func:`scan_window` — the bare probe over a flat key array with a
+  segment per query (``storage.index.segment_scan``);
+* :func:`step_index_ops` — a partitioned queue slot's index ops, writing
+  the executor's ``consume_ok`` and ``slot_tid`` itself;
+* :func:`locate_index_ops` — a single-master round's index ops, writing
+  the claim, scan-window and consume outputs in the flat row + index-slot
+  address space itself.
+
+:func:`occ_round` runs one OCC round as one cooperative launch of
+``csrc/occ_round.cu`` (claim, validate + TID, install + release) on lock
+arrays the caller holds (:func:`lock_arrays`).
+
+Each launches its CUDA kernel for CUDA tensors, and runs its plain
+version (``ref.py``) for CPU tensors; a CUDA tensor the kernel does not
+take raises.
 """
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from repro_torch.core.ops import (IX_EXPECT, IX_HI, IX_ID, IX_LO,
-                                  SCAN_CONSUME, is_index_kind, reads_index,
-                                  writes_index)
+from repro_torch.core.ops import IX_ID
 from repro_torch.kernels import _build
-from repro_torch.kernels.occ.ref import (install_plain, lock_build_plain,
-                                         scan_window_plain, validate_plain)
+from repro_torch.kernels.occ.ref import (locate_index_ops_plain,
+                                         occ_round_plain, scan_window_plain,
+                                         step_index_ops_plain)
 from repro_torch.obs.trace import kernel_launch
-from repro_torch.storage.index import SCAN_L, SENTINEL, key_partition
+from repro_torch.storage.index import SCAN_L
 
 VP = ctypes.c_void_p
 I32 = ctypes.c_int
-_SCAN_ARGS = [VP] * 5 + [I32] * 3 + [VP] * 4
-_LOCK_ARGS = [VP, VP, I32, VP, ctypes.c_longlong, I32, VP]
-_VALIDATE_ARGS = [VP] * 21 + [I32] * 5 + [ctypes.c_uint, VP]
-_INSTALL_ARGS = [VP] * 6 + [I32] * 3 + [VP]
+I64 = ctypes.c_longlong
+MAX_INDEXES = 8             # csrc/scan_window.cu MAX_INDEXES
+_SCAN_ARGS = [VP] * 5 + [I32] * 2 + [VP] * 4
+_SEG_ARGS = [VP, VP, VP, I32, I32]
+_OPS_ARGS = [VP, I64, VP, I64, I64]
+_PART_ARGS = _SEG_ARGS + _OPS_ARGS + [I32] + [VP] * 3
+_SM_ARGS = _SEG_ARGS + _OPS_ARGS + [I32] * 5 + [VP] * 7
+_ROUND_ARGS = [VP] * 21 + [I32] * 5 + [ctypes.c_uint, VP]
 
 
 # ---------------------------------------------------------------------------
-# scan_window: lower-bound search + bounded window gather
+# the probe, bare: lower-bound search + bounded window gather
 # ---------------------------------------------------------------------------
 def scan_window(flat_key, flat_tid, q, seg_base, seg_cap, *, n_slots: int,
                 n_iters: int):
     """flat_key (S,) int32 / flat_tid (S,) int64 concatenated sorted
     segments; q/seg_base/seg_cap (Q,) int32 per-query key, segment start
-    and length.  Returns (pos0 (Q,) int32, keys (Q, n_slots) int32,
-    tids (Q, n_slots) int64)."""
+    and length (>= 1).  Returns (pos0 (Q,) int32, keys (Q, n_slots) int32,
+    tids (Q, n_slots) int64).  The kernel searches each segment to the
+    end; ``n_iters``, the plain version's halvings, must cover the longest
+    segment (bit_length(cap) of them do) for the two to agree."""
     kernel_launch("scan_window", backend=flat_key.device.type,
                   queries=int(q.shape[0]))
     if flat_key.device.type == "cpu":
@@ -47,8 +64,6 @@ def scan_window(flat_key, flat_tid, q, seg_base, seg_cap, *, n_slots: int,
                                  n_slots=n_slots, n_iters=n_iters)
     dev = flat_key.device
     S, Q = flat_key.shape[0], q.shape[0]
-    q, seg_base, seg_cap = (q.contiguous(), seg_base.contiguous(),
-                            seg_cap.contiguous())
     ins = [_build.checked("flat_key", flat_key, torch.int32, (S,), dev),
            _build.checked("flat_tid", flat_tid, torch.int64, (S,), dev),
            _build.checked("q", q, torch.int32, (Q,), dev),
@@ -59,47 +74,85 @@ def scan_window(flat_key, flat_tid, q, seg_base, seg_cap, *, n_slots: int,
     tids = torch.empty((Q, n_slots), dtype=torch.int64, device=dev)
     f = _build.bind("scan_window", "scan_window", _SCAN_ARGS)
     _build.launch("scan_window", f, *[t.data_ptr() for t in ins], Q,
-                  n_slots, n_iters, pos.data_ptr(), keys.data_ptr(),
+                  n_slots, pos.data_ptr(), keys.data_ptr(),
                   tids.data_ptr(), _build.stream_ptr(dev))
     return pos, keys, tids
 
 
-def _flat_segments(index):
-    """Static layout of the concatenated index segments: per-index flat
-    offsets, caps, total slots, and the search-iteration bound."""
+def _segments(index, dev):
+    """The C entry's view of the index tables: (keys, tids, caps) host
+    arrays, the table count and P.  Every table lies on ``dev``, is
+    contiguous and (P, cap_i) with cap_i >= 1."""
+    n = len(index)
+    if not 1 <= n <= MAX_INDEXES:
+        raise ValueError(f"{n} indexes: the probe takes 1 to {MAX_INDEXES}")
     P = index[0]["key"].shape[0]
-    caps = [idx["key"].shape[1] for idx in index]
-    offs = np.cumsum([0] + [P * c for c in caps])
-    n_iters = int(max(caps)).bit_length() + 1
-    return P, caps, [int(o) for o in offs], int(offs[-1]), n_iters
+    caps = [ix["key"].shape[1] for ix in index]
+    if min(caps) < 1 or P * sum(caps) >= 2 ** 31:
+        raise ValueError(f"index caps {caps} at P={P}: each must be >= 1 "
+                         f"and the flat slot space below 2^31")
+    keys = [_build.checked(f"index[{i}].key", ix["key"], torch.int32,
+                           (P, c), dev) for i, (ix, c) in
+            enumerate(zip(index, caps))]
+    tids = [_build.checked(f"index[{i}].tid", ix["tid"], torch.int64,
+                           (P, c), dev) for i, (ix, c) in
+            enumerate(zip(index, caps))]
+    return ((VP * n)(*[t.data_ptr() for t in keys]),
+            (VP * n)(*[t.data_ptr() for t in tids]),
+            (I32 * n)(*caps), n, P)
 
 
-def _seg_select(caps, offs, sel, iid, part):
-    """Per-op segment base/length in the concatenated key space.  Ops not
-    matching any index resolve against segment 0 and are masked out by the
-    caller."""
-    seg_base = torch.zeros(iid.shape, dtype=torch.int32, device=iid.device)
-    seg_cap = torch.full(iid.shape, caps[0], dtype=torch.int32,
-                         device=iid.device)
-    for i, c in enumerate(caps):
-        mine = sel & (iid == i)
-        seg_base = torch.where(mine, offs[i] + part * c, seg_base)
-        seg_cap = torch.where(mine, c, seg_cap)
-    return seg_base.to(torch.int32), seg_cap
-
-
-def _flat_index(index):
-    return (torch.cat([ix["key"].reshape(-1) for ix in index]),
-            torch.cat([ix["tid"].reshape(-1) for ix in index]))
-
-
-def _clip(x, hi):
-    """jnp.clip(x, 0, hi) with a tensor upper bound."""
-    return torch.minimum(x.clamp(min=0), hi)
+def _ops_in(kinds, delta, rows, K, dev):
+    """kinds (rows, K) int32 and delta (rows, K, >= 4) int32 on ``dev``,
+    read in place through their strides (the executors pass slices of the
+    whole op arrays): (pointer, row stride, pointer, row and op
+    strides)."""
+    if kinds.device != dev or delta.device != dev:
+        raise ValueError(f"kinds on {kinds.device}, delta on "
+                         f"{delta.device}: the kernel needs {dev}")
+    if kinds.dtype != torch.int32 or delta.dtype != torch.int32:
+        raise ValueError("kinds and delta must be int32")
+    if (tuple(kinds.shape) != (rows, K) or delta.dim() != 3
+            or tuple(delta.shape[:2]) != (rows, K)
+            or delta.shape[2] <= IX_ID):
+        raise ValueError(f"kinds {tuple(kinds.shape)} / delta "
+                         f"{tuple(delta.shape)}: expected ({rows}, {K}) and "
+                         f"({rows}, {K}, > {IX_ID})")
+    if kinds.stride(1) != 1 or delta.stride(2) != 1:
+        raise ValueError("kinds and delta need unit stride in their last "
+                         "dimension")
+    return (kinds.data_ptr(), kinds.stride(0), delta.data_ptr(),
+            delta.stride(0), delta.stride(1))
 
 
 # ---------------------------------------------------------------------------
-# index-op location (single-master): probe + SCAN_L window
+# the probe, partitioned: one queue slot's index ops
+# ---------------------------------------------------------------------------
+def step_index_ops(index, kinds, delta):
+    """Resolve one partitioned queue slot's index ops: (consume_ok (P, K)
+    bool, slot_tid (P, K) int64).  Each partition probes its OWN
+    segment."""
+    Pq, K = kinds.shape
+    dev = kinds.device
+    kernel_launch("scan_window.partitioned", backend=dev.type,
+                  queries=Pq * K)
+    if dev.type == "cpu":
+        return step_index_ops_plain(index, kinds, delta)
+    seg = _segments(index, dev)
+    if seg[4] != Pq:
+        raise ValueError(f"{Pq} queue rows against {seg[4]} partitions")
+    ops_in = _ops_in(kinds, delta, Pq, K, dev)
+    consume_ok = torch.empty((Pq, K), dtype=torch.bool, device=dev)
+    slot_tid = torch.empty((Pq, K), dtype=torch.int64, device=dev)
+    f = _build.bind("scan_window", "probe_partitioned", _PART_ARGS)
+    _build.launch("scan_window.partitioned", f, *seg, *ops_in, K,
+                  consume_ok.data_ptr(), slot_tid.data_ptr(),
+                  _build.stream_ptr(dev))
+    return consume_ok, slot_tid
+
+
+# ---------------------------------------------------------------------------
+# the probe, single-master: one round's index ops + SCAN_L window
 # ---------------------------------------------------------------------------
 def locate_index_ops(index, kinds, delta, n_rows):
     """Resolve one round's index/scan ops against the current index state.
@@ -109,132 +162,74 @@ def locate_index_ops(index, kinds, delta, n_rows):
     all in the flat row+index address space [0, n_rows + S) with
     ``no_addr`` = the dump slot (see repro's ``locate_index_ops_ref``)."""
     B, K = kinds.shape
-    P, caps, offs, S, n_iters = _flat_segments(index)
-    no_addr = n_rows + S
     dev = kinds.device
-
-    lo = delta[..., IX_LO]                                     # (B, K)
-    hi = delta[..., IX_HI]
-    iid = delta[..., IX_ID]
-    p_of = key_partition(lo).clamp(0, P - 1)
-    sel = is_index_kind(kinds) & (iid >= 0) & (iid < len(index))
-    seg_base, seg_cap = _seg_select(caps, offs, sel, iid, p_of)
-
-    flat_key, flat_tid = _flat_index(index)
-    pos0, keys_at, tids_at = scan_window(
-        flat_key, flat_tid, lo.reshape(-1), seg_base.reshape(-1),
-        seg_cap.reshape(-1), n_slots=SCAN_L + 1, n_iters=n_iters)
-    pos0 = pos0.reshape(B, K)
-    keys_at = keys_at.reshape(B, K, SCAN_L + 1)
-    tids_at = tids_at.reshape(B, K, SCAN_L + 1)
-
-    window = pos0[..., None] + torch.arange(SCAN_L + 1, dtype=torch.int32,
-                                            device=dev)
-    slots = _clip(window, seg_cap[..., None] - 1)
-    cmask = sel & writes_index(kinds)
-    claim_addr = torch.where(cmask, n_rows + seg_base
-                             + _clip(pos0, seg_cap - 1),
-                             no_addr).to(torch.int32)
-    claim_tid = torch.where(cmask, tids_at[..., 0], 0)
-    smask = sel & reads_index(kinds)
-    in_or_boundary = torch.cat(
-        [torch.ones((B, K, 1), dtype=torch.bool, device=dev),
-         keys_at[..., :-1] < hi[..., None]], dim=-1) \
-        & (window < seg_cap[..., None])
-    sv = smask[..., None] & in_or_boundary
-    scan_addr = torch.where(sv, n_rows + seg_base[..., None] + slots,
-                            no_addr).to(torch.int32)
-    scan_tid = torch.where(sv, tids_at, 0)
-    first_key = torch.where(sel, keys_at[..., 0], SENTINEL)
-    consume_ok = (first_key == delta[..., IX_EXPECT]) & (first_key < hi) \
-        & (first_key != SENTINEL)
-    return {"claim_addr": claim_addr, "claim_tid": claim_tid,
-            "scan_addr": scan_addr, "scan_tid": scan_tid,
-            "scan_valid": sv, "consume_ok": consume_ok, "no_addr": no_addr}
+    kernel_launch("scan_window.single_master", backend=dev.type,
+                  queries=B * K)
+    if dev.type == "cpu":
+        return locate_index_ops_plain(index, kinds, delta, n_rows)
+    seg = _segments(index, dev)
+    no_addr = n_rows + seg[4] * sum(seg[2])
+    ops_in = _ops_in(kinds, delta, B, K, dev)
+    L1 = SCAN_L + 1
+    out = {"claim_addr": torch.empty((B, K), dtype=torch.int32, device=dev),
+           "claim_tid": torch.empty((B, K), dtype=torch.int64, device=dev),
+           "scan_addr": torch.empty((B, K, L1), dtype=torch.int32,
+                                    device=dev),
+           "scan_tid": torch.empty((B, K, L1), dtype=torch.int64,
+                                   device=dev),
+           "scan_valid": torch.empty((B, K, L1), dtype=torch.bool,
+                                     device=dev),
+           "consume_ok": torch.empty((B, K), dtype=torch.bool, device=dev)}
+    f = _build.bind("scan_window", "probe_single_master", _SM_ARGS)
+    _build.launch("scan_window.single_master", f, *seg, *ops_in, B, K,
+                  n_rows, no_addr, L1, *[t.data_ptr() for t in out.values()],
+                  _build.stream_ptr(dev))
+    out["no_addr"] = no_addr
+    return out
 
 
 # ---------------------------------------------------------------------------
-# one OCC round (single-master): lock build -> validate -> install
+# one OCC round (single-master): claim -> validate + TID -> install
 # ---------------------------------------------------------------------------
+def lock_arrays(n_lock: int, B: int, deterministic: bool, device):
+    """The lock arrays one ``run_single_master`` call hands to every
+    round: (lock, rlock or None), (n_lock,) int32 filled with the sentinel
+    lane ``B``; rlock (Calvin's read locks) only if ``deterministic``."""
+    def one():
+        return torch.full((n_lock,), B, dtype=torch.int32, device=device)
+    return one(), (one() if deterministic else None)
+
+
 def occ_round(val, tidw, rows, kind, delta_v, wmask, amask, active, epoch,
-              last_tid, ix=None, has_claim=None, deterministic=False):
+              last_tid, ix=None, has_claim=None, deterministic=False,
+              lock=None, rlock=None):
     """One OCC round: gather → lock → validate → TID → install, the
     function of the reference's ``occ_round_ref``.  ``val`` (N, C) int32
-    and ``tidw`` (N,) int64 are updated in place.  Returns
+    and ``tidw`` (N,) int64 are updated in place.
+
+    ``lock`` (and, with ``deterministic``, ``rlock``) are (NT+1,) int32
+    arrays every entry of which is the sentinel lane B (:func:`lock_arrays`;
+    NT = ``ix["no_addr"]``, or N without an index); the round leaves them
+    so.  Without ``lock`` the round builds fresh arrays.  Returns
     (val, tidw, commit_now, new_tid, new, w)."""
-    N = val.shape[0]
-    B = rows.shape[0]
-    NT = N if ix is None else int(ix["no_addr"])
-    lanes = torch.arange(B, dtype=torch.int32, device=val.device)[:, None]
-
-    def claims(pairs):
-        """(addr, lane) claim streams; masked claims -> (NT, B)."""
-        addr = torch.cat([torch.where(m, a, NT).reshape(-1)
-                          for a, m, _ in pairs]).to(torch.int32)
-        lane = torch.cat([torch.where(m, ln, B).reshape(-1)
-                          for _, m, ln in pairs]).to(torch.int32)
-        return addr, lane
-
-    wpairs = [(rows, wmask, lanes)]
-    if ix is not None:
-        wpairs.append((ix["claim_addr"], has_claim, lanes))
-    lock = lock_build(*claims(wpairs), NT=NT, B=B)
-    rlock = None
-    if deterministic:
-        # Calvin: every access, reads included, claims its address
-        rpairs = [(rows, amask, lanes)]
-        if ix is not None:
-            rpairs += [(ix["scan_addr"], ix["scan_valid"]
-                        & active[:, None, None], lanes[..., None]),
-                       (ix["claim_addr"], has_claim, lanes)]
-        rlock = lock_build(*claims(rpairs), NT=NT, B=B)
-    commit, new_tid, new, w = occ_validate(
-        val, tidw, lock, rlock, rows, kind, delta_v, wmask, amask, active,
-        last_tid, epoch, ix=ix, has_claim=has_claim)
-    occ_install(val, tidw, rows, new, w, new_tid)
-    return val, tidw, commit, new_tid, new, w
-
-
-def lock_build(addr, lane, *, NT: int, B: int):
-    """Launch 1 of the round: lock (NT+1,) int32 = B everywhere, then the
-    scatter-min of ``lane`` over ``addr`` (claims with lane B are inert)."""
-    dev = addr.device
-    kernel_launch("occ_round.lock_build", backend=dev.type,
-                  claims=int(addr.shape[0]))
-    if dev.type == "cpu":
-        return lock_build_plain(addr, lane, NT=NT, B=B)
-    Kc = addr.shape[0]
-    _build.checked("addr", addr, torch.int32, (Kc,), dev)
-    _build.checked("lane", lane, torch.int32, (Kc,), dev)
-    lock = torch.empty((NT + 1,), dtype=torch.int32, device=dev)
-    f = _build.bind("occ_round", "occ_lock_build", _LOCK_ARGS)
-    _build.launch("occ_round.lock_build", f, addr.data_ptr(),
-                  lane.data_ptr(), Kc, lock.data_ptr(), NT + 1, B,
-                  _build.stream_ptr(dev))
-    return lock
-
-
-def occ_validate(val, tidw, lock, rlock, rows, kind, delta_v, wmask, amask,
-                 active, last_tid, epoch, ix=None, has_claim=None):
-    """Launch 2 of the round: per-lane validate + TID (Calvin's rule when
-    ``rlock`` is given).  Returns (commit (B,) bool, new_tid (B,) int64,
-    new (B, M, C) int32, w (B, M) bool)."""
-    dev = val.device
-    kernel_launch("occ_round.validate", backend=dev.type,
-                  lanes=int(rows.shape[0]))
-    if dev.type == "cpu":
-        return validate_plain(val, tidw, lock, rlock, rows, kind, delta_v,
-                              wmask, amask, active, last_tid, epoch, ix=ix,
-                              has_claim=has_claim)
     N, C = val.shape
     B, M = rows.shape
-    NT1 = lock.shape[0]
+    dev = val.device
+    NT = N if ix is None else int(ix["no_addr"])
+    kernel_launch("occ_round", backend=dev.type, lanes=B)
+    if lock is None:
+        lock, rlock = lock_arrays(NT + 1, B, deterministic, dev)
+    elif deterministic and rlock is None:
+        raise ValueError("a Calvin round needs the read-lock array rlock")
+    rlock = rlock if deterministic else None
+    if dev.type == "cpu":
+        out = occ_round_plain(val, tidw, rows, kind, delta_v, wmask, amask,
+                              active, epoch, last_tid, lock, rlock, ix=ix,
+                              has_claim=has_claim)
+        return (val, tidw, *out)
     chk = _build.checked
     ins = [chk("val", val, torch.int32, (N, C), dev),
            chk("tidw", tidw, torch.int64, (N,), dev),
-           chk("lock", lock, torch.int32, (NT1,), dev),
-           None if rlock is None
-           else chk("rlock", rlock, torch.int32, (NT1,), dev),
            chk("rows", rows, torch.int32, (B, M), dev),
            chk("kind", kind, torch.int32, (B, M), dev),
            chk("delta", delta_v, torch.int32, (B, M, C), dev),
@@ -255,64 +250,17 @@ def occ_validate(val, tidw, lock, rlock, rows, kind, delta_v, wmask, amask,
                 chk("has_claim", has_claim, torch.bool, (B, K), dev)]
     else:
         ins += [None] * 6
+    ins += [chk("lock", lock, torch.int32, (NT + 1,), dev),
+            None if rlock is None
+            else chk("rlock", rlock, torch.int32, (NT + 1,), dev)]
     commit = torch.empty((B,), dtype=torch.bool, device=dev)
     new_tid = torch.empty((B,), dtype=torch.int64, device=dev)
     new = torch.empty((B, M, C), dtype=torch.int32, device=dev)
     w = torch.empty((B, M), dtype=torch.bool, device=dev)
-    f = _build.bind("occ_round", "occ_validate", _VALIDATE_ARGS)
-    _build.launch("occ_round.validate", f,
+    f = _build.bind("occ_round", "occ_round", _ROUND_ARGS)
+    _build.launch("occ_round", f,
                   *[None if t is None else t.data_ptr() for t in ins],
                   commit.data_ptr(), new_tid.data_ptr(), new.data_ptr(),
                   w.data_ptr(), B, M, C, K, L, int(epoch) & 0xFFFFFFFF,
                   _build.stream_ptr(dev))
-    return commit, new_tid, new, w
-
-
-def occ_install(val, tidw, rows, new, w, new_tid):
-    """Launch 3 of the round: winners' post-images and TIDs into val/tidw
-    in place (winner rows are unique)."""
-    dev = val.device
-    kernel_launch("occ_round.install", backend=dev.type,
-                  lanes=int(rows.shape[0]))
-    if dev.type == "cpu":
-        return install_plain(val, tidw, rows, new, w, new_tid)
-    N, C = val.shape
-    B, M = rows.shape
-    chk = _build.checked
-    ins = [chk("val", val, torch.int32, (N, C), dev),
-           chk("tidw", tidw, torch.int64, (N,), dev),
-           chk("rows", rows, torch.int32, (B, M), dev),
-           chk("new", new, torch.int32, (B, M, C), dev),
-           chk("w", w, torch.bool, (B, M), dev),
-           chk("new_tid", new_tid, torch.int64, (B,), dev)]
-    f = _build.bind("occ_round", "occ_install", _INSTALL_ARGS)
-    _build.launch("occ_round.install", f, *[t.data_ptr() for t in ins],
-                  B, M, C, _build.stream_ptr(dev))
-
-
-# ---------------------------------------------------------------------------
-# per-queue-slot consume validation (partitioned)
-# ---------------------------------------------------------------------------
-def step_index_ops(index, kinds, delta):
-    """Resolve one partitioned queue slot's index ops: (consume_ok (P, K),
-    slot_tid (P, K)).  Each partition probes its OWN segment."""
-    Pq, K = kinds.shape
-    P, caps, offs, S, n_iters = _flat_segments(index)
-    lo = delta[..., IX_LO]
-    hi = delta[..., IX_HI]
-    iid = delta[..., IX_ID]
-    part = torch.arange(Pq, dtype=torch.int32,
-                        device=kinds.device)[:, None].expand(Pq, K)
-    sel = (iid >= 0) & (iid < len(index))
-    seg_base, seg_cap = _seg_select(caps, offs, sel, iid, part)
-    flat_key, flat_tid = _flat_index(index)
-    pos0, keys_at, tids_at = scan_window(
-        flat_key, flat_tid, lo.reshape(-1), seg_base.reshape(-1),
-        seg_cap.reshape(-1), n_slots=1, n_iters=n_iters)
-    first_key = keys_at.reshape(Pq, K)
-    t_at = tids_at.reshape(Pq, K)
-    ok = (first_key == delta[..., IX_EXPECT]) & (first_key < hi) \
-        & (first_key != SENTINEL)
-    consume_ok = torch.where(sel & (kinds == SCAN_CONSUME), ok, True)
-    slot_tid = torch.where(sel, t_at, 0)
-    return consume_ok, slot_tid
+    return val, tidw, commit, new_tid, new, w
