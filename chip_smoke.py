@@ -28,7 +28,12 @@ Phases, in order; any failed check exits non-zero:
    batches, ragged caps, a large sort); both shapes are timed beside the
    stable argsort and gathers the card path ran before it until the
    kernel sorted its own inserts, and torch.profiler counts the kernels
-   one call launches (at most two);
+   one call launches (at most two).  thomas_merge is held on the epoch's
+   single-master log through ``thomas_apply_batch`` (the log's flattened
+   views, no copy), through the bare entry on the same stream, and on
+   crafted streams (K = 0, every row -1, one row under one TID, stale
+   TIDs, TIDs at 2^32 - 1, word copies, two calls back to back);
+   torch.profiler counts one kernel a call of ``thomas_apply_batch``;
 3. engine parity: the full-mix configuration of
    benchmarks/fig11_throughput.py (P=4, 4,000 items, 100 customers a
    district, order ring 128, 512 transactions an epoch) for 3 epochs on
@@ -49,7 +54,11 @@ Phases, in order; any failed check exits non-zero:
    configurations are first held against their plain version on a sweep
    of small shapes (f32 and bf16, every head dim, ragged lengths, causal,
    windowed and bidirectional masks, regular and padded head maps, rings
-   with empty slots, fully masked rows); then rmsnorm (bf16), flash
+   with empty slots, fully masked rows); rmsnorm first on a sweep
+   (1 to 16,384 rows, widths 1,600 to 12,288, bf16 and f32, with and
+   without a residual, both forms of the kernel), then timed at the decode
+   shape alone and in a chain that mirrors a decode block; then
+   rmsnorm (bf16), flash
    attention (bf16, prefill and decode, unexpanded K/V with the head map)
    and the SSD scan (f32; first on a sweep of small shapes at 1e-4: P,
    N, chunk, heads, ragged lengths, weak and strong decay, Mamba2-130M's
@@ -87,11 +96,14 @@ in one call instead: PARENT is a directory holding another checkout's
 example).  It runs phase 4's measured epochs and profiled epoch, phase
 7's prefill and the SSD kernel on its recorded prefill arguments, with
 each tree's kernels, in four processes: parent, this tree, this tree,
-parent.  Each process also times the probe (both phases) and the OCC
-round through the executors' wrappers on the arguments its warm epoch
-recorded: device time by CUDA events and by torch.profiler, kernels, aten
-operators and host time a call.  It prints the card's name and power
-limit, then one ``AB {...}`` JSON line a process.
+parent.  Each process also times the probe (both phases), the OCC round
+and ``thomas_apply_batch`` through the executors' wrappers on the
+arguments its warm epoch recorded, and rmsnorm at the decode shape:
+device time by CUDA events and by torch.profiler, kernels, aten
+operators and host time a call, and the decode chain of
+:func:`norm_chain`; and rmsnorm at the prefill shape and at the row
+counts of RMS_AB_ROWS (D = 1,600) by CUDA events.  It prints the card's
+name and power limit, then one ``AB {...}`` JSON line a process.
 
 It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels, one of main-path figures, one of serve-path figures
@@ -120,6 +132,14 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 PARITY_LAYERS, PARITY_DECODE, PROFILE_STEPS = 2, 8, 8
 SERVE_RUNS = 3                   # measured generates; the median is reported
 TOL_BF16_NORM = 1e-2             # reasons beside each check
+TOL_F32_NORM = 1e-6              # tests/test_kernels.py's rmsnorm bound
+RMS_CHAIN = 32                   # decode blocks in rmsnorm's timed chain
+# rmsnorm's sweep: rows (with csrc/rmsnorm.cu's REG_ROWS, the most rows
+# its register form takes, and one more) by widths: Hymba's d_model and
+# d_inner, one not a multiple of 8, the widest
+RMS_SWEEP_ROWS = (1, 8, 64, 65, 16384)
+RMS_SWEEP_WIDTHS = (1600, 3200, 1601, 12288)
+RMS_AB_ROWS = (8, 32, 64, 65, 128, 256, 1024, 4096, 16384)   # --ab timings
 TOL_BF16_FLASH = 2e-2
 TOL_F32_FLASH = 1e-5
 TOL_SSD = 1e-3
@@ -328,7 +348,8 @@ def record_warm_epoch(eng, batch):
              lambda key, prow, tid, dk, ik, ip, it:
              "index_merge/part" if ik.shape[1] <= P * IDX_OPS
              else "index_merge/sm")
-    rec.wrap(replication, "thomas_merge", lambda *a, **k: "thomas_merge")
+    rec.wrap(replication, "thomas_apply_batch",
+             lambda *a, **k: "thomas_apply_batch")
     try:
         m = eng.run_epoch(batch)
     finally:
@@ -839,8 +860,6 @@ def kernel_checks(calls, dev):
     from repro_torch.kernels.index_merge import ops as im_ops
     from repro_torch.kernels.index_merge.ops import index_merge_cuda
     from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
-    from repro_torch.kernels.thomas_merge.ops import thomas_merge
-    from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
     cpu = torch.device("cpu")
     out = {}
 
@@ -918,10 +937,91 @@ def kernel_checks(calls, dev):
     row["kernels_per_call"] = row["sm"]["kernels_per_call"]
     row["crafted_cases"] = index_merge_cases(dev)
 
-    # -- thomas_merge on the epoch's single-master value stream
-    args, kw = calls["thomas_merge"]
-    val, tidw, wrows, wvals, wtids = args
-    Kw, C = wrows.shape[0], val.shape[1]
+    # -- thomas_merge on the epoch's single-master value stream, read in
+    # place, then through the bare entry and on crafted streams
+    thomas_checks(calls, dev, report)
+    return out
+
+
+def thomas_cases(dev):
+    """thomas_merge on crafted streams, each bit-equal to its plain version
+    on the CPU: an empty stream (K = 0), every row -1, every write to one
+    row under one TID (the last wins), TIDs at or below the rows' (none
+    wins), TIDs at 2^32 - 1, an odd C and a C of 20 (word copies), and two
+    calls back to back on one table.  Returns the case names."""
+    import torch
+    from repro_torch.kernels.thomas_merge.ops import thomas_merge
+    from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
+    gen = torch.Generator().manual_seed(29)
+    N, C, K = 4096, 10, 3000
+    i32 = torch.int32
+    val = torch.randint(-99, 99, (N, C), generator=gen, dtype=i32)
+    tid = torch.randint(0, 1000, (N,), generator=gen)
+    tid[:8] = 2**32 - 2
+    vals = torch.randint(-2**31, 2**31 - 1, (K, C), generator=gen, dtype=i32)
+
+    def rows(hi, n=K):
+        return torch.randint(-1, hi, (n,), generator=gen, dtype=i32)
+
+    def tids(lo, hi, n=K):
+        return torch.randint(lo, hi, (n,), generator=gen)
+    top = tids(0, 2)
+    top = torch.where(top == 1, 2**32 - 1, 2**32 - 2)
+    cases = {
+        "empty": (val, tid, rows(N, 0), vals[:0], tids(0, 9, 0)),
+        "all skipped": (val, tid, torch.full((K,), -1, dtype=i32), vals,
+                        tids(0, 2000)),
+        "one row, one TID": (val, tid, torch.full((K,), 77, dtype=i32), vals,
+                             torch.full((K,), 5000)),
+        "stale": (val, tid, rows(N), vals, tids(0, 1)),
+        "top TID": (val, tid, rows(16), vals, top),
+        "odd C": (val[:, :3].contiguous(), tid, rows(64),
+                  vals[:, :3].contiguous(), tids(0, 1500)),
+        "many writes a row": (val, tid, rows(40), vals, tids(0, 1500)),
+        "wide C": (val.repeat(1, 2), tid, rows(N), vals.repeat(1, 2),
+                   tids(0, 1500)),
+    }
+    for what, (v, t, r, wv, wt) in cases.items():
+        want = thomas_merge_plain(v.clone(), t.clone(), r, wv, wt)
+        got = thomas_merge(*to((v, t, r, wv, wt), dev))
+        torch.cuda.synchronize()
+        check(equal(got, want), f"thomas_merge {what}: kernel differs from "
+              f"its plain version")
+    got = thomas_merge(*to(cases["one row, one TID"], dev))
+    check(got[0][77].tolist() == vals[-1].tolist() and int(got[1][77]) == 5000,
+          "thomas_merge: of equal TIDs the last write did not win")
+    # back to back on one table: the second call sees the first's table,
+    # not its scratch
+    a, b = cases["many writes a row"], cases["top TID"]
+    want = thomas_merge_plain(val.clone(), tid.clone(), *a[2:])
+    want = thomas_merge_plain(*want, *b[2:])
+    d = to((val, tid), dev)
+    thomas_merge(*d, *to(a[2:], dev))
+    got = thomas_merge(*d, *to(b[2:], dev))
+    torch.cuda.synchronize()
+    check(equal(got, want), "thomas_merge: two calls back to back differ "
+          "from the plain version")
+    return list(cases) + ["back to back"]
+
+
+def thomas_checks(calls, dev, report):
+    """thomas_merge on the warm epoch's single-master log as the engine
+    hands it to ``thomas_apply_batch`` (the log's flattened views), then
+    through the bare entry on the same stream, then on crafted streams;
+    one kernel a call under torch.profiler, and the aten operators and
+    host time of ``thomas_apply_batch``."""
+    import torch
+    from repro_torch.core import replication
+    from repro_torch.kernels.thomas_merge.ops import thomas_merge
+    from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
+    (val, tidw, lg), _ = calls["thomas_apply_batch"]
+    C = val.shape[1]
+    log = to({k: lg[k] for k in ("row", "val", "tid")}, dev)
+    # the stream the kernel reads: the log's flattened views
+    args = (val, tidw, lg["row"].reshape(-1), lg["val"].reshape(-1, C),
+            lg["tid"].reshape(-1))
+    wrows = args[2]
+    Kw = wrows.numel()
     a_dev = to(args, dev)
     thomas_merge(*a_dev)
     n_win = int((a_dev[1] != tidw).sum())
@@ -933,10 +1033,25 @@ def kernel_checks(calls, dev):
         a[1].copy_(tid0)
     # every row id; a live write's TID and its row's TID; a winner's
     # values read and written and its TID written
-    report("thomas_merge", thomas_merge, thomas_merge_plain, args, kw,
-           nbytes=Kw * 4 + n_live * (8 + 8) + n_win * (4 * C + 4 * C + 8),
-           nops=Kw + n_live * 3, reset=reset)
-    return out
+    row = report("thomas_merge", thomas_merge, thomas_merge_plain, args, {},
+                 nbytes=Kw * 4 + n_live * (8 + 8)
+                 + n_win * (4 * C + 4 * C + 8),
+                 nops=Kw + n_live * 3, reset=reset)
+    # the log as the engine hands it over, through thomas_apply_batch
+    check(equal(replication.thomas_apply_batch(*to((val, tidw), dev), log),
+                thomas_merge_plain(*to(args, torch.device("cpu")))),
+          "thomas_apply_batch differs from the plain version")
+    row["crafted_cases"] = thomas_cases(dev)
+    n = kernels_in(lambda: replication.thomas_apply_batch(a_dev[0], a_dev[1],
+                                                          log))
+    check(n == 1, f"thomas_apply_batch: one call launched {n} kernels")
+    fig = call_figures(
+        lambda: replication.thomas_apply_batch(a_dev[0], a_dev[1], log),
+        setup=lambda: reset(a_dev))
+    row.update(log_shape=list(lg["row"].shape), writes=Kw, live=n_live,
+               winners=n_win, kernels_per_call=n,
+               apply_batch={k: fig[k] for k in ("prof_kernels_per_call",
+                                                "aten_calls", "host_us")})
 
 
 def profile_epoch(eng, cfg, state):
@@ -1137,6 +1252,92 @@ def ssd_sweep(ssd, ssd_ref, dev):
     return worst
 
 
+def rmsnorm_sweep(dev):
+    """rmsnorm against its plain version on the same card inputs at T in
+    RMS_SWEEP_ROWS (1 to 16,384, with the kernel's threshold between its
+    two forms and one row past it) x D in RMS_SWEEP_WIDTHS, bf16
+    (TOL_BF16_NORM) and float32 (TOL_F32_NORM), with and without a
+    residual: both forms of the kernel, the register form at 1 to 4
+    vectors a thread and the shared-memory form in both vector widths
+    (D = 1,601 is not a multiple of 8) and past 48 KB of shared memory
+    (D = 12,288).  Returns the largest difference by dtype."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    gen = torch.Generator().manual_seed(17)
+    worst = {}
+    n = 0
+    for dtype, tol in ((torch.bfloat16, TOL_BF16_NORM),
+                       (torch.float32, TOL_F32_NORM)):
+        for T in RMS_SWEEP_ROWS:
+            for D in RMS_SWEEP_WIDTHS:
+                x, r = (torch.randn((T, D), generator=gen).to(dev, dtype)
+                        for _ in range(2))
+                w = torch.randn((D,), generator=gen).to(dev, dtype)
+                for res in (r, None):
+                    got = rmsnorm(x, w, res)
+                    want = rmsnorm_ref(x, w, res)
+                    torch.cuda.synchronize()
+                    err, ok = allclose_err(got, want, tol)
+                    check(ok, f"rmsnorm sweep {dtype} T={T} D={D} "
+                          f"residual={res is not None}: kernel differs from "
+                          f"its plain version by {err} (tolerance {tol})")
+                    key = str(dtype)[6:]
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+                del x, r, w, got, want
+    torch.cuda.empty_cache()
+    print(f"rmsnorm sweep: {n} cases, " + ", ".join(
+        f"{k} max abs err {e:.3g}" for k, e in worst.items()))
+    return worst
+
+
+def norm_chain(rmsnorm, y, s, w, W, eps):
+    """RMS_CHAIN Hymba decode blocks' worth of the norm, an (8 x D) x (D x
+    D) matmul and the norm again, each on the one before it; ``rmsnorm``
+    None: the matmuls alone."""
+    for _ in range(RMS_CHAIN):
+        if rmsnorm is not None:
+            y, s = rmsnorm(y, w, s, eps=eps)
+        y = y @ W
+        if rmsnorm is not None:
+            y, s = rmsnorm(y, w, s, eps=eps)
+    return y
+
+
+def rmsnorm_decode(call):
+    """rmsnorm at the decode shape (the recorded norm2 call: T = 8, D =
+    1,600, bf16, with a residual): device time by CUDA events and by
+    torch.profiler, and a chain that mirrors one Hymba decode block (the
+    norm, an (8 x 1,600) x (1,600 x 1,600) bf16 matmul, the norm again,
+    RMS_CHAIN times; beside it the same matmuls alone) by CUDA events; the
+    wrapper's kernels, aten operators and host time a call; beside the
+    bound and F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    (x, w, r), kw = call
+    T, D = x.numel() // x.shape[-1], x.shape[-1]
+    eps = kw.get("eps", 1e-5)
+    x2, r2 = x.reshape(T, D), r.reshape(T, D)
+    gen = torch.Generator(device=x.device).manual_seed(19)
+    W = (torch.randn((D, D), generator=gen, device=x.device)
+         / D ** 0.5).to(x.dtype)
+    out = {"rows": T, "width": D,
+           "bound_ms": x.element_size() * (4 * T * D + D)
+           / H100_BYTES_PER_S * 1e3,
+           "chain_ms": cuda_ms(lambda: norm_chain(rmsnorm, x2, r2, w, W,
+                                                  eps)),
+           "chain_matmuls_only_ms": cuda_ms(lambda: norm_chain(
+               None, x2, r2, w, W, eps))}
+    out.update(call_figures(lambda: rmsnorm(x, w, r, **kw)))
+    s = (x.float() + r.float()).to(x.dtype)
+    out.update(rms_norm_ms=cuda_ms(lambda: F.rms_norm(s, (D,), w, eps)),
+               add_rms_norm_ms=cuda_ms(lambda: F.rms_norm(x + r, (D,), w,
+                                                          eps)))
+    return out
+
+
 def lm_kernel_checks(calls):
     """Parity (against the plain version on the same card inputs), timing
     and bound of the three LM kernels on their recorded arguments."""
@@ -1193,24 +1394,14 @@ def lm_kernel_checks(calls):
         add_rms_norm_ms=cuda_ms(lambda: F.rms_norm(x + r, (D,), w, eps)))
     del s
     # the other two forms on the path: no residual (gate_norm, D=3,200)
-    # and the decode shape (T=8), where most of its launches are: timed
-    # too, beside its bound and F.rms_norm
+    # and the decode shape (T=8), where most of its launches are
     for key in ("rmsnorm/gate", "rmsnorm/decode"):
         args, kw = calls[key]
         err, ok = allclose_err(rmsnorm(*args, **kw), rmsnorm_ref(*args, **kw),
                                TOL_BF16_NORM)
         check(ok, f"{key}: kernel differs from its plain version by {err}")
-    (x, w, r), kw = calls["rmsnorm/decode"]
-    T = x.numel() // x.shape[-1]
-    s = (x.float() + r.float()).to(x.dtype)
-    rows["rmsnorm"]["decode"] = {
-        "rows": T, "ms": cuda_ms(lambda: rmsnorm(x, w, r, **kw)),
-        "prof_ms": prof_ms(lambda: rmsnorm(x, w, r, **kw), reps=200)[0],
-        "bound_ms": x.element_size() * (4 * T * D + D) / H100_BYTES_PER_S
-        * 1e3,
-        "rms_norm_ms": cuda_ms(lambda: F.rms_norm(s, (D,), w, eps)),
-        "add_rms_norm_ms": cuda_ms(lambda: F.rms_norm(x + r, (D,), w, eps))}
-
+    rows["rmsnorm"]["sweep_max_abs_err"] = rmsnorm_sweep(x.device)
+    rows["rmsnorm"]["decode"] = rmsnorm_decode(calls["rmsnorm/decode"])
     # -- flash attention.  bf16 in, f32 scores and sums; the kernel rounds
     # the unnormalised probabilities to bf16 and the plain version the
     # normalised ones: tolerance 2e-2, tests/test_kernels.py's bf16 bound.
@@ -1729,14 +1920,19 @@ def ab_side(tree, dev):
     ``tree``'s ``src/repro_torch``: the STAR main path's measured epochs
     and profiled epoch (phase 4, after one untimed epoch whose probe and
     round calls are recorded), the probe and the round on those calls
-    (:func:`occ_calls`), the serve path's prefill (``SERVE_RUNS`` timed
-    after two untimed) and the SSD kernel alone on the arguments that
-    prefill gave it.  Prints one ``AB {...}`` JSON line."""
+    (:func:`occ_calls`) and ``thomas_apply_batch`` on the warm epoch's
+    single-master log, the serve path's prefill (``SERVE_RUNS`` timed
+    after two untimed), the SSD kernel alone on the arguments that prefill
+    gave it, and rmsnorm on its recorded prefill and decode calls, in
+    the decode chain of :func:`norm_chain` and at RMS_AB_ROWS rows.
+    Prints one ``AB {...}`` JSON line."""
     import torch
     from repro_torch.configs.base import get_arch
+    from repro_torch.core import replication
     from repro_torch.db import tpcc
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba2_ssd.ops import ssd
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import ServeEngine, ServeStats
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1745,6 +1941,8 @@ def ab_side(tree, dev):
     b = tpcc.make_batch(cfg, state, MAIN_TXNS, seed=1000)
     rec = Recorder()
     wrap_occ(rec)
+    rec.wrap(replication, "thomas_apply_batch",
+             lambda *a, **k: "thomas_apply_batch")
     try:
         m = eng.run_epoch(b)
     finally:
@@ -1755,7 +1953,13 @@ def ab_side(tree, dev):
     _, out = measure_epochs(eng, cfg, state, batches)
     del eng, state
     out.update(occ_calls(rec.calls, dev))
-    del rec
+    args, _ = rec.calls["thomas_apply_batch"]
+    val, tidw, log = to(args, dev)
+    tid0 = tidw.clone()
+    out["thomas_apply_batch"] = call_figures(
+        lambda: replication.thomas_apply_batch(val, tidw, log),
+        setup=lambda: tidw.copy_(tid0))
+    del rec, val, tidw, log
     torch.cuda.empty_cache()
     c = get_arch(SERVE_ARCH)
     se = ServeEngine(c, LM(c, seed=0, device=dev), device=dev,
@@ -1763,7 +1967,26 @@ def ab_side(tree, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, c.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                             generator=gen, device=dev, dtype=torch.int32)
-    args, kw = record_generate(se, prompts, 0)["ssd"]
+    calls = record_generate(se, prompts, 2)
+    args, kw = calls["ssd"]
+    (x, w, r), nkw = calls["rmsnorm/decode"]
+    T, D = x.numel() // x.shape[-1], x.shape[-1]
+    W = (torch.randn((D, D), generator=gen, device=dev) / D ** 0.5).to(
+        x.dtype)
+    out["rmsnorm_decode"] = call_figures(lambda: rmsnorm(x, w, r, **nkw))
+    out["rmsnorm_decode"]["chain_ms"] = cuda_ms(lambda: norm_chain(
+        rmsnorm, x.reshape(T, D), r.reshape(T, D), w, W, nkw.get("eps",
+                                                                  1e-5)))
+    (x, w, r), nkw = calls["rmsnorm/prefill"]
+    out["rmsnorm_prefill_ms"] = cuda_ms(lambda: rmsnorm(x, w, r, **nkw))
+    # by row count at D = 1,600, where the kernel's forms meet
+    by_rows = {}
+    for n in RMS_AB_ROWS:
+        xs, rs = (torch.randn((n, D), generator=gen, device=dev).to(x.dtype)
+                  for _ in range(2))
+        by_rows[n] = cuda_ms(lambda: rmsnorm(xs, w, rs, **nkw))
+    out["rmsnorm_by_rows_ms"] = by_rows
+    del calls, x, w, r, xs, rs
     se.generate(prompts, 0)
     pre = []
     for _ in range(SERVE_RUNS):

@@ -2,9 +2,10 @@
 §5), port of ``repro.core.replication`` (the WAL stream splitters wait for
 the WAL port).
 
-* ``thomas_apply`` — out-of-order-safe value replication through the
-  ``thomas_merge`` kernel: apply a write iff its TID exceeds the record's
-  TID; among duplicate rows the max-TID write wins.
+* ``thomas_apply_batch`` — out-of-order-safe value replication of the
+  single-master log through the ``thomas_merge`` kernel: apply a write iff
+  its TID exceeds the record's TID; among duplicate rows the max-TID write
+  wins.
 * ``replay_partitioned`` — ordered operation replication of the
   partitioned phase's stream, all partitions at once, with its index
   maintenance per queue slot.
@@ -29,18 +30,14 @@ TID_BYTES = 8
 INDEX_OP_BYTES = KEY_BYTES + 4 + 8
 
 
-def thomas_apply(val, tidw, wrows, wvals, wtids):
-    """val: (N, C); tidw: (N,); wrows: (K,) int32 (-1 = skip); wvals: (K, C);
-    wtids: (K,).  ``val`` and ``tidw`` are updated in place and
-    returned."""
-    return thomas_merge(val, tidw, wrows, wvals, wtids)
-
-
 def thomas_apply_batch(val, tidw, log):
-    """Flatten a phase log {'row','val','tid','write'} into one merge."""
+    """One merge of a single-master log {'row','val','tid'}, each (rounds,
+    B, M, ...) and contiguous as the executor stacks it, in its (round,
+    lane, op) order.  The executor writes row -1 where a write did not
+    commit, so the flattened views are the stream: nothing is copied or
+    masked before the kernel."""
     C = val.shape[1]
-    rows = torch.where(log["write"], log["row"], -1).reshape(-1)
-    return thomas_apply(val, tidw, rows.to(torch.int32),
+    return thomas_merge(val, tidw, log["row"].reshape(-1),
                         log["val"].reshape(-1, C), log["tid"].reshape(-1))
 
 

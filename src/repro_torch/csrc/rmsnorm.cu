@@ -7,13 +7,36 @@
 //
 // What bounds it on the H100: bytes.  Per row it reads x, r and w and
 // writes y and s (2 * D bytes each in bf16) for about 4 flops an element,
-// far below the card's ~295 flops a byte.
+// far below the card's ~295 flops a byte.  At the decode shape (8 rows,
+// ~105 KB) the bytes take ~0.03 us and what is left is latency: the launch
+// and the chain of dependent loads, reductions and stores.
 //
-// What the design does about it: one block per row; each thread moves 16
-// bytes a load (8 bf16 or 4 float), neighbouring threads on neighbouring
-// addresses.  The float32 sum s is kept in shared memory (D floats) between
-// the sum-of-squares pass and the scaling pass, so x and r are read once;
-// the sum of squares is reduced in float32 with warp shuffles.
+// Two forms, chosen by the launcher from the shape, both a block of
+// THREADS threads a row:
+// - the register form, for at most REG_ROWS rows (where the two forms'
+//   times cross on an H100) of at most REG_MAX_VECS
+//   16-byte vectors a thread: each thread loads its vectors of x, r and w
+//   at once, none under a branch, and keeps them in registers; one warp-
+//   shuffle and shared-memory reduction of the sum of squares, one
+//   __syncthreads, then x + r is formed again in float32 for the scaling
+//   pass.  So w's load overlaps x's and r's, and no row goes through
+//   shared memory.  It is launched with cudaLaunchKernelEx and
+//   programmatic stream serialization (Hopper's programmatic dependent
+//   launch): the kernel then starts while the previous kernel
+//   on the stream drains, prefetches w into L2 (a prefetch returns no
+//   data, so it cannot see a w that kernel is still writing), and waits
+//   (griddepcontrol.wait) before its first load.  It lets its own
+//   dependents start at once (griddepcontrol.launch_dependents): they wait
+//   in turn before reading its outputs.
+// - the shared-memory form, for more rows (prefill) or wider rows: each
+//   thread moves 16 bytes a load (8 bf16 or 4 float), neighbouring
+//   threads on neighbouring addresses.  The float32 sum s is kept in
+//   shared memory (D floats) between the sum-of-squares pass and the
+//   scaling pass, so x and r are read once; the sum of squares is reduced
+//   in float32 with warp shuffles.
+// A warp a row, the row in a lane's registers, was tried and was slower
+// than either at every row count: 8 rows are 8 warps on the whole card,
+// and each lane runs ~50 elements' arithmetic in sequence.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,31 +111,151 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the register form: a block a row, the row in registers
+// ---------------------------------------------------------------------------
+constexpr int REG_MAX_VECS = 8;        // 16-byte vectors a thread holds at most
+// at most this many rows take the register form, more the shared-memory
+// form: on an H100 at D = 1,600 the register form is faster up to 64 rows
+// and slower from 128 (CUDA events)
+constexpr long long REG_ROWS = 64;
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(THREADS)
+rmsnorm_reg_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                   const T* __restrict__ w, T* __restrict__ y,
+                   T* __restrict__ res, int D, float eps) {
+  __shared__ float red[THREADS / 32];
+  using P = Pack<T, VEC>;
+  const int t = threadIdx.x;
+  // w into L2 before the wait: a 128-byte line a thread and step
+  const char* wb = reinterpret_cast<const char*>(w);
+  for (int o = t * 128; o < D * (int)sizeof(T); o += THREADS * 128)
+    asm volatile("prefetch.L2 [%0];" ::"l"(wb + o));
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const long long off = (long long)blockIdx.x * D;
+  // every load first, none of them under a branch, so that all 3 * NV are
+  // in flight at once: a thread past the row's end reads its last vector
+  // and stores nothing; without a residual, x stands in for r, unused
+  const bool has_r = r != nullptr;
+  const T* rr = has_r ? r : x;
+  P xv[NV], rv[NV], wv[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = min((j * THREADS + t) * VEC, D - VEC);
+    xv[j] = *reinterpret_cast<const P*>(x + off + i);
+    rv[j] = *reinterpret_cast<const P*>(rr + off + i);
+    wv[j] = *reinterpret_cast<const P*>(w + i);
+  }
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = (j * THREADS + t) * VEC;
+    P sv;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float a = to_f(xv[j].v[e]);
+      const float v = has_r ? a + to_f(rv[j].v[e]) : a;
+      if (i < D) sq += v * v;
+      sv.v[e] = from_f<T>(v);
+    }
+    if (res != nullptr && i < D) *reinterpret_cast<P*>(res + off + i) = sv;
+  }
+  sq = warp_sum(sq);
+  if ((t & 31) == 0) red[t >> 5] = sq;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int k = 0; k < THREADS / 32; ++k) tot += red[k];
+  const float inv = rsqrtf(tot / (float)D + eps);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = (j * THREADS + t) * VEC;
+    if (i >= D) continue;
+    P yv;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float a = to_f(xv[j].v[e]);
+      const float v = has_r ? a + to_f(rv[j].v[e]) : a;
+      yv.v[e] = from_f<T>(v * inv * to_f(wv[j].v[e]));
+    }
+    *reinterpret_cast<P*>(y + off + i) = yv;
+  }
+}
+
+template <typename T, int VEC, int NV>
+int launch_reg(const void* x, const void* r, const void* w, void* y,
+               void* res, long long T_, int D, float eps, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)T_);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, rmsnorm_reg_kernel<T, VEC, NV>, (const T*)x, (const T*)r,
+      (const T*)w, (T*)y, (T*)res, D, eps);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// the register form's kernel for nv vectors a thread (1 <= nv <=
+// REG_MAX_VECS)
+template <typename T, int VEC, int NV = 1>
+int dispatch_reg(int nv, const void* x, const void* r, const void* w,
+                 void* y, void* res, long long T_, int D, float eps,
+                 cudaStream_t st) {
+  if constexpr (NV < REG_MAX_VECS) {
+    if (nv > NV)
+      return dispatch_reg<T, VEC, NV + 1>(nv, x, r, w, y, res, T_, D, eps,
+                                          st);
+  }
+  return launch_reg<T, VEC, NV>(x, r, w, y, res, T_, D, eps, st);
+}
+
 template <typename T>
 int launch(const void* x, const void* r, const void* w, void* y, void* res,
            long long T_, int D, float eps, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
+  const int nv = (D + THREADS * VEC - 1) / (THREADS * VEC);
+  if (T_ <= REG_ROWS && D % VEC == 0 && nv <= REG_MAX_VECS)
+    return dispatch_reg<T, VEC>(nv, x, r, w, y, res, T_, D, eps, st);
   const size_t smem = (size_t)D * sizeof(float);
-  if (D % VEC == 0)
-    rmsnorm_kernel<T, VEC><<<(unsigned)T_, THREADS, smem, st>>>(
-        (const T*)x, (const T*)r, (const T*)w, (T*)y, (T*)res, D, eps);
-  else
-    rmsnorm_kernel<T, 1><<<(unsigned)T_, THREADS, smem, st>>>(
-        (const T*)x, (const T*)r, (const T*)w, (T*)y, (T*)res, D, eps);
+  void (*kernel)(const T*, const T*, const T*, T*, T*, int, float) =
+      D % VEC == 0 ? rmsnorm_kernel<T, VEC> : rmsnorm_kernel<T, 1>;
+  // with the static `red`, rows past 12,280 floats need more than the
+  // 48 KB a block gets unasked
+  if (smem + sizeof(float) * (THREADS / 32) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)T_, THREADS, smem, st>>>(
+      (const T*)x, (const T*)r, (const T*)w, (T*)y, (T*)res, D, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, w, y: (T, D) / (D,) / (T, D); r and res NULL or (T, D).  dtype 0 =
-// float32, 1 = bfloat16.  D * 4 bytes of shared memory a block (D <= 12288).
+// x, w, y: (T, D) / (D,) / (T, D); r and res NULL or (T, D); every pointer
+// on a 16-byte boundary where D is a multiple of 16 bytes.  dtype 0 =
+// float32, 1 = bfloat16.  At most REG_ROWS rows take the register form
+// (where the width allows), launched with programmatic stream
+// serialization; the rest take the shared-memory form, D * 4 bytes of
+// shared memory a block (D <= 12288).
 extern "C" int rmsnorm_fwd(const void* x, const void* r, const void* w,
                            void* y, void* res, long long T, int D, float eps,
                            int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (T <= 0) return (int)cudaGetLastError();
   if (D <= 0 || D > 12288) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float>(x, r, w, y, res, T, D, eps, st);
+  if (dtype == 0)
+    return launch<float>(x, r, w, y, res, T, D, eps, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, r, w, y, res, T, D, eps, st);
   return (int)cudaErrorInvalidValue;

@@ -34,18 +34,21 @@ def rmsnorm(x, w, residual=None, *, eps=1e-5):
         raise ValueError(f"rmsnorm: width {D}, the kernel takes <= {MAX_D}")
     dev = x.device
     chk = _build.checked
-    xs = chk("x", _build.aligned16(x.reshape(T, D)), x.dtype, (T, D), dev)
+    # no copy of inputs that are contiguous and 16-byte aligned already
+    xs = chk("x", _build.aligned16(x), x.dtype, x.shape, dev)
     ws = chk("w", _build.aligned16(w), x.dtype, (D,), dev)
-    y = torch.empty_like(xs)
-    r_ptr = res_ptr = res = None          # NULL: no residual to add
-    if residual is not None:
-        rs = chk("residual", _build.aligned16(residual.reshape(T, D)),
-                 x.dtype, (T, D), dev)
-        res = torch.empty_like(xs)
+    if residual is None:
+        y = torch.empty_like(xs)
+        r_ptr = res_ptr = None            # NULL: no residual to add
+    else:
+        rs = chk("residual", _build.aligned16(residual), x.dtype, x.shape,
+                 dev)
+        # y and x + residual in one allocation
+        y, res = torch.empty((2,) + xs.shape, dtype=x.dtype,
+                             device=dev).unbind(0)
         r_ptr, res_ptr = rs.data_ptr(), res.data_ptr()
     f = _build.bind("rmsnorm", "rmsnorm_fwd", _ARGS)
     _build.launch(KERNEL, f, xs.data_ptr(), r_ptr, ws.data_ptr(),
                   y.data_ptr(), res_ptr, T, D, float(eps), DTYPES[x.dtype],
                   _build.stream_ptr(dev))
-    return (y.reshape(x.shape),
-            x if res is None else res.reshape(x.shape))
+    return y, (x if residual is None else res)

@@ -18,8 +18,8 @@ _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
 def thomas_merge(val, tidw, wrows, wvals, wtids):
     """Replication-stream apply under the Thomas write rule.  val (N, C)
     int32, tidw (N,) int64, wrows (K,) int32 (-1 = skip), wvals (K, C)
-    int32, wtids (K,) int64.  ``val`` and ``tidw`` are updated in place
-    and returned."""
+    int32, wtids (K,) int64, all contiguous.  ``val`` and ``tidw`` are
+    updated in place and returned."""
     kernel_launch(KERNEL, backend=val.device.type, writes=int(wrows.shape[0]))
     if val.device.type == "cpu":
         return thomas_merge_plain(val, tidw, wrows, wvals, wtids)
@@ -27,15 +27,15 @@ def thomas_merge(val, tidw, wrows, wvals, wtids):
     K = wrows.shape[0]
     dev = val.device
     chk = _build.checked
-    ins = [chk("val", val, torch.int32, (N, C), dev),
-           chk("tidw", tidw, torch.int64, (N,), dev)]
+    chk("val", val, torch.int32, (N, C), dev)
+    chk("tidw", tidw, torch.int64, (N,), dev)
+    chk("wrows", wrows, torch.int32, (K,), dev)
+    chk("wvals", wvals, torch.int32, (K, C), dev)
+    chk("wtids", wtids, torch.int64, (K,), dev)
     # per-row (TID, stream index) argmax; only written rows are touched
     best = torch.empty((N,), dtype=torch.int64, device=dev)
-    ws = [chk("wrows", wrows.contiguous(), torch.int32, (K,), dev),
-          chk("wvals", wvals.contiguous(), torch.int32, (K, C), dev),
-          chk("wtids", wtids.contiguous(), torch.int64, (K,), dev)]
     f = _build.bind("thomas_merge", "thomas_merge", _ARGS)
-    _build.launch(KERNEL, f, ins[0].data_ptr(), ins[1].data_ptr(),
-                  best.data_ptr(), *[t.data_ptr() for t in ws], K, C,
+    _build.launch(KERNEL, f, val.data_ptr(), tidw.data_ptr(), best.data_ptr(),
+                  wrows.data_ptr(), wvals.data_ptr(), wtids.data_ptr(), K, C,
                   _build.stream_ptr(dev))
     return val, tidw

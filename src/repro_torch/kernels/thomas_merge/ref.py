@@ -21,7 +21,14 @@ def thomas_merge_plain(val, tidw, wrows, wvals, wtids):
     tid_pad = torch.cat([tidw, tidw.new_zeros(1)])
     merged = tid_pad.scatter_reduce(0, rows, wtids, "amax")
     win = (wtids == merged[rows]) & (wtids > tid_pad[rows]) & (wrows >= 0)
-    val[rows[win]] = wvals[win]            # CPU: sequential, last one wins
+    # the last winning write of each row, by stream index: index_put_ with
+    # repeated indices keeps no stated one of them
+    i = torch.arange(rows.shape[0], device=rows.device)
+    last = torch.full((N + 1,), -1, dtype=torch.int64, device=rows.device
+                      ).scatter_reduce(0, rows, torch.where(win, i, -1),
+                                       "amax")[:N]
+    hit = last >= 0
+    val[hit] = wvals[last[hit]]
     # merged is the new TID column: the winning TID where a write wins,
     # the row's own TID elsewhere
     tidw.copy_(merged[:N])

@@ -40,7 +40,10 @@ def _close(got, want, tol):
 # rmsnorm
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("with_residual", [True, False])
-@pytest.mark.parametrize("T,D", [(64, 128), (32, 200)])
+# the last four: the decode shapes (8 requests of one token, or one) at
+# Hymba's widths (d_model 1,600; gate_norm over d_inner 3,200)
+@pytest.mark.parametrize("T,D", [(64, 128), (32, 200), (1, 1600), (8, 1600),
+                                 (1, 3200), (8, 3200)])
 def test_rmsnorm_matches_pallas(T, D, with_residual):
     rng = np.random.default_rng(T + D)
     x = rng.standard_normal((T, D)).astype(F32)
