@@ -47,6 +47,28 @@ Phases, in order; any failed check exits non-zero:
    probe in both phases) and every lock array the executor handed to the
    round all B after the epochs; then one more epoch under
    ``torch.profiler`` for the card's busy time;
+8. the service path (run after phase 4): ``TxnService`` over a
+   ``StarEngine`` on the card, in the three scenarios of
+   examples/serve_txn.py on YCSB at the paper's scale (16 partitions x
+   200,000 records, 10 int32 columns, 10 ops, 90/10 read/write, 10 %
+   cross-partition), 2.0 s each with 32 slots a partition and 32 master
+   lanes: steady Poisson at 1,500 txn/s with the WAL on (4 workers, a
+   checkpoint every 4 epochs), then ``recover_full`` on the card
+   bit-equal to the committed state; bursty over Zipf(0.9) at 1,000
+   txn/s; overload at 30,000 txn/s with queue caps 64/128, shedding,
+   its queues within the caps.  ``replica_consistent()`` at every fence,
+   ``occ_round`` and ``thomas_merge`` launched in each.  The steady
+   scenario's epochs up to its 8th non-empty batch are replayed through a
+   fresh engine on the card and one on the CPU: master and replica
+   bit-equal and the commit masks equal (to the service run's too).
+   Then TPC-C's full mix at phase 4's scale through the service for 3.0 s
+   with the consume feedback, all four STAR kernels launched and the
+   probe in both phases, and its epochs up to the 4th non-empty batch
+   replayed the same way, indexes included (so the probe, index_merge,
+   occ_round and thomas_merge are held against their plain versions at
+   the service's shapes); and the fig11 configuration for 5 epochs with
+   the WAL,
+   ``recover_full`` on the card bit-equal, indexes included;
 5. LM kernel parity: Hymba-1.5B at its published widths and depth in
    bf16, random weights from a seed, serves 8 requests of 2,048 tokens
    plus 2 new ones through ``ServeEngine.generate`` while the first call
@@ -106,8 +128,9 @@ counts of RMS_AB_ROWS (D = 1,600) by CUDA events.  It prints the card's
 name and power limit, then one ``AB {...}`` JSON line a process.
 
 It prints the build time, the ``nvidia-smi`` name and power limit, one
-JSON line of kernels, one of main-path figures, one of serve-path figures
-and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
+JSON line of kernels (with each STAR kernel's launches in every service
+run), one of main-path figures, one of service-path figures, one of
+serve-path figures and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
 """
@@ -148,6 +171,14 @@ TOL_SERVE = 1e-3
 FIG11 = dict(n_partitions=4, n_items=4000, cust_per_district=100,
              order_ring=128, mix="full", delivery_gen_lag=512)
 FIG11_TXNS, FIG11_EPOCHS = 512, 3
+# phase 8: the service path (examples/serve_txn.py's scenarios)
+YCSB_P = 16                      # x 200,000 records (the module's default)
+SERVICE_S, SERVICE_TPCC_S = 2.0, 3.0
+SERVICE_SLOTS, SERVICE_LANES = 32, 32
+SERVICE_TPCC_RATE = 1500.0
+SERVICE_REPLAY = 8               # steady batches replayed card vs CPU
+SERVICE_TPCC_REPLAY = 4          # tpcc_full batches replayed card vs CPU
+SERVICE_WAL_EPOCHS = 5           # fig11 epochs logged for index recovery
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -297,7 +328,7 @@ class Recorder:
         self._undo = []
 
 
-def mk_engine(cfg_kw, seed, device):
+def mk_engine(cfg_kw, seed, device, **kw):
     import numpy as np
     from repro_torch.core.engine import StarEngine
     from repro_torch.db import tpcc
@@ -306,11 +337,12 @@ def mk_engine(cfg_kw, seed, device):
     init = tpcc.init_values(cfg, np.random.default_rng(seed), state=state)
     eng = StarEngine(cfg.n_partitions, cfg.rows_per_partition, init_val=init,
                      indexes=tpcc.index_specs(cfg), max_rounds=MAX_ROUNDS,
-                     device=device)
+                     device=device, **kw)
     return cfg, state, eng
 
 
 def same_store(a, b):
+    """Two stores (or state dicts) bit-equal, records and indexes."""
     from repro_torch.convert import to_numpy_state
     import numpy as np
     x, y = to_numpy_state(a), to_numpy_state(b)
@@ -463,6 +495,11 @@ def call_figures(fn, setup=None):
             "aten_calls": aten_calls(fn), "host_us": host_us(fn)}
 
 
+def max_cap(index):
+    """The longest segment of an index list (the bare probe's bound)."""
+    return max(ix["key"].shape[1] for ix in index)
+
+
 def probe_cases(dev):
     """The probe's three configurations on crafted indexes and ops, each
     bit-equal to its plain version on the CPU: an index whose every slot
@@ -566,7 +603,7 @@ def probe_cases(dev):
             want = occ_ref.scan_window_plain(*flat, n_slots=ns,
                                              n_iters=n_iters)
             got = occ_ops.scan_window(*to(flat, dev), n_slots=ns,
-                                      n_iters=n_iters)
+                                      max_cap=max_cap(index))
             check(equal(got, want), f"probe case {name}: bare ({cfg}) "
                   f"differs")
         names += [f"{name}/{c}" for c in ("single_master",
@@ -641,12 +678,13 @@ def probe_checks(calls, dev, report):
         *flat, _, n_iters = build(*to(args, cpu))
         want = occ_ref.scan_window_plain(*flat, n_slots=ns, n_iters=n_iters)
         fd = to(flat, dev)
-        got = occ_ops.scan_window(*fd, n_slots=ns, n_iters=n_iters)
+        mc = max_cap(args[0])
+        got = occ_ops.scan_window(*fd, n_slots=ns, max_cap=mc)
         check(equal(got, want), f"probe (bare, {cfg} shape) differs from "
               f"its plain version")
         row["bare"][cfg] = dict(
             call_figures(lambda: occ_ops.scan_window(
-                *fd, n_slots=ns, n_iters=n_iters)),
+                *fd, n_slots=ns, max_cap=mc)),
             queries=int(flat[2].numel()), n_slots=ns)
     for cfg, fig in [("single_master", row["single_master"]),
                      ("partitioned", row["partitioned"])] + [
@@ -1088,6 +1126,276 @@ def profile_epoch(eng, cfg, state):
     return {"wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
             "top_kernels": [[k[:80], us / 1e3, n] for us, k, n in rows[:10]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the online transaction service on the card
+# ---------------------------------------------------------------------------
+STAR_KERNELS = ("scan_window", "occ_round", "index_merge", "thomas_merge")
+
+
+def by_kernel(counts):
+    """Launch counts summed per kernel over its launch configurations
+    (``<name>.<config>``)."""
+    return {k: sum(n for c, n in counts.items()
+                   if c == k or c.startswith(k + ".")) for k in STAR_KERNELS}
+
+
+def serve_checked(svc, duration_s, feedback_state=None):
+    """``svc.run(duration_s)`` with ``replica_consistent()`` checked at
+    every fence and every batch run recorded (a copy, with the epoch's
+    commit masks), the kernels' launch counts set to 0 just before and
+    read just after.  Returns (summary with the engine's epoch split over
+    the run added, records, launches by configuration,
+    kernel_launch_counts() over the run)."""
+    import copy
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.obs.trace import kernel_launch_counts
+    eng = svc.engine
+    run_epoch = eng.run_epoch
+    records = []
+
+    def checked(batch, ingest=None):
+        b = copy.deepcopy(batch)
+        m = run_epoch(batch, ingest=ingest)
+        check(eng.replica_consistent(), f"service: replica diverged at "
+              f"fence {eng.committed_epoch}")
+        records.append((b, {k: m[k].copy() for k in ("p_committed",
+                                                     "c_committed")}))
+        return m
+    eng.run_epoch = checked
+    split = ("part_time_s", "sm_time_s", "fence_time_s", "epochs")
+    stats0 = {f: getattr(eng.stats, f) for f in split}
+    torch.cuda.synchronize()
+    before = kernel_launch_counts()
+    _build.reset_launch_counts()
+    try:
+        out = svc.run(duration_s=duration_s)
+    finally:
+        eng.run_epoch = run_epoch
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    after = kernel_launch_counts()
+    wrapper = {k: after[k] - before.get(k, 0) for k in after
+               if after[k] != before.get(k, 0)}
+    for c in svc.clients:
+        if hasattr(c, "shutdown"):
+            c.shutdown()
+    # the engine's split of the run's epochs (warm-up included: its
+    # epochs run inside svc.run before the clock starts)
+    out["engine_split"] = {f: getattr(eng.stats, f) - stats0[f]
+                           for f in split}
+    return out, records, launches, wrapper
+
+
+def service_figures(out, launches, wrapper, wall):
+    keys = ("throughput_txn_s", "p50_ms", "p99_ms", "p999_ms", "mean_ms",
+            "committed", "user_aborted", "epochs", "offered", "admitted",
+            "shed", "backpressured", "rerouted", "starved_requeues",
+            "max_part_depth", "max_master_depth", "ingest_overlap_s",
+            "epoch_time_s", "engine_split")
+    fig = {k: out[k] for k in keys}
+    fig.update(wall_s=wall, launches=launches,
+               launches_by_kernel=by_kernel(launches),
+               kernel_launch_counts=wrapper)
+    return fig
+
+
+def replay_card_vs_cpu(records, make, n, what, dev):
+    """A service run's batches, the warm-up's empty ones included, up to
+    its ``n``-th non-empty one, replayed through a fresh engine on the card
+    and one on the CPU (``make(device)`` builds each): master and replica
+    bit-equal after every epoch, indexes included, the commit masks equal
+    to each other and to the service run's."""
+    import copy
+    import numpy as np
+    live = np.cumsum([b["n_single"] + b["n_cross"] > 0 for b, _ in records])
+    check(live.size and live[-1] >= n, f"{what}: the service formed only "
+          f"{int(live[-1]) if live.size else 0} non-empty batches")
+    upto = int(np.searchsorted(live, n)) + 1
+    sides = [make(d) for d in (dev, "cpu")]
+    for i, (b, want) in enumerate(records[:upto]):
+        ms = [e.run_epoch(copy.deepcopy(b)) for e in sides]
+        g, h = sides
+        check(same_store(g.store, h.store)
+              and same_store(g.replica_store, h.replica_store),
+              f"{what} replay: card and CPU differ after epoch {i}")
+        for k in ("p_committed", "c_committed"):
+            check(np.array_equal(ms[0][k], ms[1][k])
+                  and np.array_equal(ms[0][k], want[k]),
+                  f"{what} replay: {k} differs at epoch {i}")
+    print(f"service replay: {what}'s first {upto} epochs ({n} non-empty) "
+          f"bit-equal on the card and the CPU")
+    return n
+
+
+def service_path(dev):
+    """Phase 8: ``TxnService`` on the card — the three scenarios of
+    examples/serve_txn.py on YCSB at the paper's scale (the steady one
+    with durability, then ``recover_full`` on the card), and TPC-C's full
+    mix at the main path's scale, each of the steady and TPC-C runs'
+    batches replayed card against CPU.  Returns (figures, {kernel:
+    launches by run})."""
+    import tempfile
+    from pathlib import Path as _P
+    import torch
+    from repro_torch.core.engine import StarEngine
+    from repro_torch.db import tpcc, ycsb
+    from repro_torch.db.wal import Durability, recover_full
+    from repro_torch.service import (AdmissionConfig, OpenLoopClient,
+                                     TPCCSource, TxnService, YCSBSource)
+    base = ycsb.YCSBConfig(n_partitions=YCSB_P)
+    skew = ycsb.YCSBConfig(n_partitions=YCSB_P, zipf_theta=0.9)
+    print(f"service path: YCSB P={base.n_partitions} x "
+          f"{base.records_per_partition} records, {ycsb.C} int32 columns, "
+          f"{ycsb.M} ops, cross {base.cross_ratio}; slots "
+          f"{SERVICE_SLOTS}, lanes {SERVICE_LANES}")
+    figures, launches = {}, {}
+    wal = {}
+    for name, cfg, rate, process, caps in (
+            ("steady", base, 1500.0, "poisson", (256, 512)),
+            ("burst_zipf", skew, 1000.0, "bursty", (256, 512)),
+            ("overload", base, 30_000.0, "poisson", (64, 128))):
+        tmp = tempfile.TemporaryDirectory() if name == "steady" else None
+        dur = (Durability(tmp.name, n_workers=4, checkpoint_every=4)
+               if tmp else None)
+        eng = StarEngine(cfg.n_partitions, cfg.records_per_partition,
+                         durability=dur, device=dev)
+        client = OpenLoopClient(YCSBSource(cfg, seed=1), rate_txn_s=rate,
+                                process=process, seed=7)
+        svc = TxnService(eng, [client], AdmissionConfig(*caps, "shed"),
+                         slots_per_partition=SERVICE_SLOTS,
+                         master_lanes=SERVICE_LANES)
+        t0 = time.perf_counter()
+        out, records, ln, wr = serve_checked(svc, SERVICE_S)
+        fig = service_figures(out, ln, wr, time.perf_counter() - t0)
+        fig.update(offered_rate_txn_s=rate, process=process,
+                   part_cap=caps[0], master_cap=caps[1])
+        figures[name] = fig
+        launches[f"ycsb_{name}"] = fig["launches_by_kernel"]
+        print(f"service {name}: {out['throughput_txn_s']:.1f} txn/s, p50 "
+              f"{out['p50_ms']:.2f} p99 {out['p99_ms']:.2f} ms, "
+              f"{out['committed']} committed in {out['epochs']} epochs, "
+              f"shed {out['shed']}, launches {fig['launches_by_kernel']}")
+        check(out["committed"] > 0, f"service {name}: nothing committed")
+        for k in ("occ_round", "thomas_merge"):
+            check(fig["launches_by_kernel"][k] > 0,
+                  f"service {name}: {k} never launched")
+        if name == "overload":
+            check(out["shed"] > 0, "overload: nothing shed")
+            check(out["max_part_depth"] <= caps[0]
+                  and out["max_master_depth"] <= caps[1],
+                  "overload: a queue grew past its cap")
+        if dur is not None:
+            d = _P(tmp.name)
+            dur.close()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rv, rt, rix, e_c = recover_full(d, device=dev)
+            torch.cuda.synchronize()
+            t_rec = time.perf_counter() - t0
+            snap = eng.store.snapshot
+            check(rix is None and torch.equal(rv, snap["val"])
+                  and torch.equal(rt, snap["tid"]),
+                  "recover_full on the card differs from the committed "
+                  "state")
+            wal = {"entries": dur.entries_logged,
+                   "checkpoints": dur.checkpoints,
+                   "wal_bytes": sum(f.stat().st_size
+                                    for f in d.glob("wal_*.log")),
+                   "checkpoint_bytes": sum(f.stat().st_size
+                                           for f in d.glob("ckpt_*")),
+                   "recovered_from_epoch": e_c,
+                   "committed_epoch": eng.committed_epoch,
+                   "recover_full_s": t_rec}
+            print(f"durability: {wal['entries']} entries, "
+                  f"{wal['wal_bytes']} log bytes, {wal['checkpoints']} "
+                  f"checkpoints; recover_full on the card in {t_rec:.3f} s "
+                  f"bit-equal to the committed state")
+            tmp.cleanup()
+            steady = records
+        del eng, svc, records
+        torch.cuda.empty_cache()
+    replayed = {"ycsb_steady": replay_card_vs_cpu(
+        steady, lambda d: StarEngine(base.n_partitions,
+                                     base.records_per_partition, device=d),
+        SERVICE_REPLAY, "steady", dev)}
+    del steady
+
+    # TPC-C's full mix through the service at the main path's scale
+    cfg, state, eng = mk_engine(MAIN, 0, dev)
+    client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                            rate_txn_s=SERVICE_TPCC_RATE)
+    svc = TxnService(eng, [client], AdmissionConfig(256, 512, "shed"),
+                     slots_per_partition=SERVICE_SLOTS,
+                     master_lanes=SERVICE_LANES,
+                     feedback=lambda b, m: tpcc.apply_consume_feedback(
+                         state, b, m))
+    t0 = time.perf_counter()
+    out, records, ln, wr = serve_checked(svc, SERVICE_TPCC_S)
+    fig = service_figures(out, ln, wr, time.perf_counter() - t0)
+    fig.update(offered_rate_txn_s=SERVICE_TPCC_RATE,
+               index_overflow=eng.stats.index_overflow,
+               consume_skips=eng.stats.consume_skips)
+    figures["tpcc_full"] = fig
+    launches["tpcc_full"] = fig["launches_by_kernel"]
+    print(f"service tpcc_full: {out['throughput_txn_s']:.1f} txn/s, p50 "
+          f"{out['p50_ms']:.2f} p99 {out['p99_ms']:.2f} ms, "
+          f"{out['committed']} committed in {out['epochs']} epochs, "
+          f"launches {fig['launches_by_kernel']}")
+    check(out["committed"] > 0, "service tpcc_full: nothing committed")
+    for k in STAR_KERNELS:
+        check(fig["launches_by_kernel"][k] > 0,
+              f"service tpcc_full: {k} never launched")
+    for c in ("scan_window.partitioned", "scan_window.single_master"):
+        check(ln.get(c, 0) > 0 and wr.get(c, 0) > 0,
+              f"service tpcc_full: {c} never launched")
+    del eng, svc
+    torch.cuda.empty_cache()
+    # the TPC-C batches replayed card against CPU: the probe in both
+    # phases, index_merge, occ_round with the index and thomas_merge held
+    # against their plain versions at the service's shapes
+    replayed["tpcc_full"] = replay_card_vs_cpu(
+        records, lambda d: mk_engine(MAIN, 0, d)[2], SERVICE_TPCC_REPLAY,
+        "tpcc_full", dev)
+    del records
+    torch.cuda.empty_cache()
+
+    # the WAL with the ordered indexes: recover_full replays the index
+    # chunks on the card through index_merge
+    with tempfile.TemporaryDirectory() as d:
+        dur = Durability(d, n_workers=2, checkpoint_every=3)
+        cfg, state, eng = mk_engine(FIG11, 0, dev, durability=dur)
+        for ep in range(SERVICE_WAL_EPOCHS):
+            b = tpcc.make_batch(cfg, state, FIG11_TXNS, seed=ep)
+            tpcc.apply_consume_feedback(state, b, eng.run_epoch(b))
+        dur.close()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rv, rt, rix, e_c = recover_full(d, device=dev)
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t0
+        check(same_store({"val": rv, "tid": rt, "indexes": rix},
+                         eng.store.snapshot),
+              "recover_full (TPC-C, indexes) on the card differs from the "
+              "committed state")
+        wal["tpcc_indexes"] = {"epochs": SERVICE_WAL_EPOCHS,
+                               "recovered_from_epoch": e_c,
+                               "entries": dur.entries_logged,
+                               "recover_full_s": t_rec}
+        print(f"durability with indexes: {SERVICE_WAL_EPOCHS} fig11 "
+              f"epochs, recover_full on the card from epoch {e_c} in "
+              f"{t_rec:.3f} s bit-equal, indexes included")
+        del eng
+    return {"ycsb": {"n_partitions": base.n_partitions,
+                     "records_per_partition": base.records_per_partition,
+                     "cols": ycsb.C, "ops": ycsb.M,
+                     "cross_ratio": base.cross_ratio},
+            "slots_per_partition": SERVICE_SLOTS,
+            "master_lanes": SERVICE_LANES, "duration_s": SERVICE_S,
+            "tpcc_duration_s": SERVICE_TPCC_S, "scenarios": figures,
+            "wal": wal, "replayed_card_vs_cpu": replayed}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1737,6 +2045,10 @@ def run(dev):
     main_path.update(device=name, nvidia_smi=smi, launch_floor_prof_ms=floor,
                      launch_floor_events_ms=floor_ev)
     torch.cuda.empty_cache()
+    service, svc_launches = service_path(dev)
+    service.update(device=name, nvidia_smi=smi)
+    for k, row in kernels.items():
+        row["service_launches"] = {r: n[k] for r, n in svc_launches.items()}
     lm_rows, serve = serve_path(dev)
     lm_rows["rmsnorm"]["decode"].update(launch_floor_prof_ms=floor,
                                         launch_floor_events_ms=floor_ev)
@@ -1744,6 +2056,7 @@ def run(dev):
     serve.update(device=name, nvidia_smi=smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": main_path}))
+    print(json.dumps({"service_path": service}))
     print(json.dumps({"serve_path": serve}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,18 +1,21 @@
 """STAR engine: phase-switched epochs over the storage subsystem (§3-§5),
-port of ``repro.core.engine`` (the WAL durability hook waits for the WAL
-port).
+port of ``repro.core.engine``.
 
 One engine instance models the cluster: the master view plus an operation
 replica kept consistent purely through the replication streams — ordered
 operation replication from the partitioned phase and Thomas-rule value
 replication from the single-master phase, both published once on the
 ``ChangeLog`` and applied by the replica subscriber.  ``replica_consistent``
-checks bit-equality of records and indexes.
+checks bit-equality of records and indexes.  With ``durability=`` a
+``db.wal.WalSink`` subscribes after the replica and appends every committed
+epoch to per-worker write-ahead logs inside the commit fence.
 
 Every kernel of the epoch runs on the engine's device: on ``cuda`` the
 hand-written kernels of ``csrc/`` (scan_window, occ_round, index_merge,
 thomas_merge), on ``cpu`` their plain PyTorch versions.  Phase times
-synchronise the device before the host clock is read.
+synchronise the device before the host clock is read.  ``run_epoch``'s
+``ingest`` hook runs on the host while the card works through the
+partitioned phase's enqueued launches (no thread, no second stream).
 """
 from __future__ import annotations
 
@@ -32,10 +35,6 @@ from repro_torch.core.single_master import run_single_master
 from repro_torch.obs import trace as obs
 from repro_torch.storage.engine import StorageEngine
 from repro_torch.storage.index import IndexSpec
-
-# §5 op-stream slabs an epoch's partitioned stream ships in (the first
-# N_SLABS-1 overlap execution; the fence waits on the tail)
-N_SLABS = 4
 
 
 @dataclass
@@ -100,18 +99,32 @@ class _ReplicaReplay:
 
 
 class StarEngine:
-    """The single-host STAR engine with hybrid replication (operation
-    stream from the partitioned phase, value stream from the single-master
-    phase) — the reference's default configuration."""
+    """The single-host STAR engine: operation stream from the partitioned
+    phase, value stream from the single-master phase."""
 
     def __init__(self, n_partitions: int, rows_per_partition: int,
-                 n_cols: int = 10, init_val=None, max_rounds=16,
+                 n_cols: int = 10, init_val=None, hybrid_replication=True,
+                 max_rounds=16, cluster: ClusterConfig | None = None,
+                 iteration_ms: float = 10.0,
                  indexes: list[IndexSpec] | None = None,
-                 strict_index: bool = False, device=None):
+                 net: Network | None = None, adaptive_epoch: bool = False,
+                 strict_index: bool = False, durability=None,
+                 n_slabs: int = 4, device=None):
         """device: ``None``/``"cuda"`` (the hand-written kernels; raises
         without a card) or ``"cpu"`` (their plain versions).
+        hybrid_replication: False charges the fence with the value bytes
+        the partitioned phase would ship without operation replication
+        (byte accounting only: the replica receives the same streams).
         strict_index: raise instead of counting when an ordered-index
-        segment overflows its capacity."""
+        segment overflows its capacity.
+        durability: optional ``db.wal.Durability`` — committed epochs
+        append their value streams, and with indexes their ordered
+        index-op streams, to per-worker write-ahead logs flushed inside the
+        commit fence, with checkpoints on a cadence; ``db.wal.recover_full``
+        rebuilds the committed state from disk (§4.5.1).
+        n_slabs: the §5 op-stream overlap model — the partitioned stream
+        ships in ``n_slabs`` chunks, the first ``n_slabs - 1`` overlapped
+        with execution, only the tail exposed at the fence."""
         P, R, C = n_partitions, rows_per_partition, n_cols
         self.P, self.R, self.C = P, R, C
         self.store = StorageEngine(P, R, C, init_val=init_val,
@@ -125,15 +138,45 @@ class StarEngine:
         self.epoch = 1
         self.committed_epoch = 0
         self.part_seq = torch.zeros(P, dtype=torch.int64, device=self.device)
+        self.hybrid = hybrid_replication
         self.max_rounds = max_rounds
-        self.cluster = ClusterConfig(f=1, k=max(P, 1), n_partitions=P)
-        self.controller = PhaseController()
-        self.net = Network()
+        self.cluster = cluster or ClusterConfig(f=1, k=max(P, 1),
+                                                n_partitions=P)
+        self.controller = PhaseController(e_ms=iteration_ms,
+                                          adaptive=adaptive_epoch)
+        self.net = net or Network()
+        assert n_slabs >= 1, n_slabs
+        self.n_slabs = n_slabs
+        self.durability = durability
         self.stats = EngineStats()
         # the one ordered op stream: the engine publishes, the operation
-        # replica subscribes
-        self.changelog = ChangeLog(N_SLABS)
+        # replica subscribes first (stream order), then the WAL sink
+        self.changelog = ChangeLog(n_slabs)
         self.changelog.subscribe(_ReplicaReplay(self))
+        if durability is not None:
+            from repro_torch.db.wal import WalSink
+            durability.attach(self.store.val, self.store.tid,
+                              indexes=self.store.indexes
+                              if self.has_index else None)
+            snap = self.store.snapshot
+            self.changelog.subscribe(WalSink(
+                durability, R, C, np.arange(P) % durability.n_workers,
+                lambda: (snap["val"], snap["tid"],
+                         snap["indexes"] if self.has_index else None)))
+
+    # -- dict views kept for callers/tests that read engine state --------
+    @property
+    def master(self):
+        return {"val": self.store.val, "tid": self.store.tid}
+
+    @property
+    def replica(self):
+        return {"val": self.replica_store.val, "tid": self.replica_store.tid}
+
+    @property
+    def snapshot(self):
+        return {"val": self.store.snapshot["val"],
+                "tid": self.store.snapshot["tid"]}
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -161,9 +204,15 @@ class StarEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run_epoch(self, batch) -> dict:
-        """batch: output of tpcc make_batch.  Runs partitioned phase, fence,
-        single-master phase, fence.  Returns epoch metrics."""
+    def run_epoch(self, batch, ingest=None) -> dict:
+        """batch: output of ycsb/tpcc make_batch (or the service's
+        batcher).  Runs partitioned phase, fence, single-master phase,
+        fence.  Returns epoch metrics.
+
+        ingest: optional zero-arg callable run after the partitioned
+        phase's launches are enqueued and before the host waits for them —
+        the service forms the next epoch's batch here while the card
+        executes.  Its host time is reported as ``t_ingest_s``."""
         tr = obs.get_tracer()
         t_ep0 = time.perf_counter()
         ptxn = self._to_device(self._pad_axis(batch["ptxn"], 1))
@@ -175,10 +224,20 @@ class StarEngine:
         val, tidw, part_out, pstats = run_partitioned(
             self.store.val, self.store.tid, ptxn, self.epoch, self.part_seq,
             index)
+        t_ingest = 0.0
+        if ingest is not None:       # host ingest while the card executes
+            ti = time.perf_counter()
+            ingest()
+            t_ingest = time.perf_counter() - ti
+            tr.complete("service.ingest_overlap", "service", ti,
+                        ti + t_ingest, epoch=self.epoch)
+        tb = time.perf_counter()
         self._sync()
         t1 = time.perf_counter()
         tr.complete("engine.partitioned", "phase", t0, t1, epoch=self.epoch)
-        t_part = t1 - t0
+        # device-attributable time: when host ingest outlasts the card the
+        # wall clock measures ingest, not the phase
+        t_part = max(t1 - t0 - t_ingest, t1 - tb)
         self.store.val, self.store.tid = val, tidw
         if self.has_index:
             self.store.indexes = part_out["index"]
@@ -198,13 +257,16 @@ class StarEngine:
         # ---- fence 1: all streams applied, snapshot commit --------------
         t0 = time.perf_counter()
         ob_head, ob_tail = attr.overlapped, attr.fence
-        t_net1 = self._fence(ob_tail, overlapped_bytes=ob_head,
-                             t_exec_s=t_part)
+        if self.hybrid:
+            t_net1 = self._fence(ob_tail, overlapped_bytes=ob_head,
+                                 t_exec_s=t_part)
+        else:
+            t_net1 = self._fence(vb_alt)
         t_fence1 = time.perf_counter()
         t_f1 = t_fence1 - t0
         tr.complete("engine.fence", "fence", t0, t_fence1, which=1,
-                    epoch=self.epoch, tail_bytes=ob_tail,
-                    overlapped_bytes=ob_head)
+                    epoch=self.epoch, tail_bytes=ob_tail if self.hybrid
+                    else vb_alt, overlapped_bytes=ob_head)
 
         # ---- single-master phase (cross-partition txns, Silo OCC) ------
         t0 = time.perf_counter()
@@ -284,12 +346,13 @@ class StarEngine:
         s.sm_rounds += self.max_rounds if B > 0 else 0
         s.fence_time_s += t_f1 + t_f2
         s.value_bytes += vb
-        s.op_bytes_hybrid += ob
+        s.op_bytes_hybrid += ob if self.hybrid else vb_alt
         s.value_bytes_if_not_hybrid += vb_alt
         s.index_op_bytes += ib + ib_sm
-        s.op_bytes_overlapped += ob_head
-        s.op_bytes_fence += ob_tail
-        s.slabs_shipped += len(slab_bytes)
+        if self.hybrid:
+            s.op_bytes_overlapped += ob_head
+            s.op_bytes_fence += ob_tail
+            s.slabs_shipped += len(slab_bytes)
         p_committed = part_out["committed"].cpu().numpy()        # (P, T_pad)
         c_committed = (sm_out["committed"].cpu().numpy() if B > 0
                        else np.zeros(B, bool))                   # (B_pad,)
@@ -297,9 +360,11 @@ class StarEngine:
              "tau_p_ms": tau_p, "tau_s_ms": tau_s,
              "t_part_s": t_part, "t_sm_s": t_sm,
              "t_sm_round_s": t_sm_round,
+             "t_ingest_s": t_ingest,
              "t_fence1_s": t_fence1, "t_fence2_s": t_fence2,
              "t_fence_net_s": t_net1 + t_net2,
-             "op_bytes_overlapped": ob_head, "op_bytes_fence": ob_tail,
+             "op_bytes_overlapped": ob_head if self.hybrid else 0,
+             "op_bytes_fence": ob_tail if self.hybrid else vb_alt,
              "p_committed": p_committed, "c_committed": c_committed,
              "index_overflow": overflow,
              "starved": int(sstats["starved"])}
@@ -320,7 +385,9 @@ class StarEngine:
         envelope and returned (``t_fence_net_s``), not slept.  The device is
         synchronised before the fence returns, so the fence's time covers
         the streams' device work and the snapshot copies, not their
-        enqueue."""
+        enqueue.  ``commit_epoch`` (fence 2 only) retires the epoch through
+        the changelog: the WAL sink appends the committed streams and
+        fsyncs every worker's log inside the fence."""
         self.store.snapshot_commit()
         self.replica_store.snapshot_commit()
         self._sync()

@@ -64,8 +64,9 @@ def run_partitioned(val, tidw, ptxn, epoch, seq0=None, index=None,
 
     Returns (val', tid', out, stats) with ``out = {"log", "committed",
     "seq"[, "index"]}``; the log holds every op slot's post-image (P,T,M,…)
-    with a write mask — the replication stream — plus "iwrite"/"cskip"
-    (P,T,K) when an index is attached.  Inputs are not modified.
+    with a write mask — the replication stream, a padding lane's rows
+    clamped into [0, R) — plus "iwrite"/"cskip" (P,T,K) when an index is
+    attached.  Inputs are not modified.
     """
     P, T, M = ptxn["row"].shape
     R, C = val.shape[1], val.shape[2]
@@ -82,7 +83,15 @@ def run_partitioned(val, tidw, ptxn, epoch, seq0=None, index=None,
     logs, committed, skips = [], [], []
 
     for t in range(T):
-        rows, kind = ptxn["row"][:, t], ptxn["kind"][:, t]
+        # a padding lane of a service batch carries whatever its pool slot
+        # held (a cross transaction's global rows, say): the reference's
+        # gathers fill out-of-range reads and such a lane writes nothing,
+        # so clamping its rows into the partition changes no result and
+        # keeps every gather in bounds.  A valid lane keeps its rows.
+        raw = ptxn["row"][:, t]
+        rows = torch.where(ptxn["valid"][:, t, None], raw,
+                           raw.clamp(0, R - 1))
+        kind = ptxn["kind"][:, t]
         delta = ptxn["delta"][:, t]
         valid = ptxn["valid"][:, t] & ~ptxn["user_abort"][:, t]      # (P,)
         flat = pbase + rows                                           # (P, M)

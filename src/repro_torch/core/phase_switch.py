@@ -1,4 +1,5 @@
-"""Phase-switching controller (§4.3, Eqs 1-2).
+"""Phase-switching controller (§4.3, Eqs 1-2), port of
+``repro.core.phase_switch``.
 
     tau_p + tau_s = e                        (1)
     tau_s*t_s / (tau_p*t_p + tau_s*t_s) = P  (2)
@@ -10,8 +11,16 @@ cross-partition fraction; e the iteration time.  Solving:
 
 with the paper's edge case P = 0 -> (tau_p, tau_s) = (e, 0).
 
-The port keeps the controller the engine feeds (the service layer's
-adaptive epoch length waits for the service slice).
+Adaptive epoch length (SCAR/Lion-style reaction to the observed mix): with
+``adaptive=True`` the controller drives ``e_ms`` from the measured
+enqueue→formation queue-delay EMA the service layer feeds in through
+``observe_latency``.  Under epoch group commit the ideal queue delay is
+~e/2 (arrivals wait half an epoch on average), so the controller steers
+``e_ms`` toward ``2 * queue_delay`` — longer epochs when measured delay
+says batches form slower than the epoch turns (amortize fences), shorter
+when the system is underloaded (cut latency) — clamped to
+[e_min_ms, e_max_ms] and EMA-smoothed so a burst cannot whipsaw the epoch.
+The flag defaults to OFF: fig12's fixed 10 ms epochs stay reproducible.
 """
 from __future__ import annotations
 
@@ -39,6 +48,13 @@ class PhaseController:
     t_p: float = 0.0               # partitioned-phase txn/s (EMA)
     t_s: float = 0.0               # single-master txn/s (EMA)
     frac_cross: float = 0.0
+    queue_delay_ms: float = 0.0    # measured enqueue→batch-formation (EMA)
+    measured_commit_ms: float = 0.0  # measured enqueue→commit-fence (EMA)
+    fence_wait_ms: float = 0.0     # cluster: max per-node fence wait (EMA)
+    adaptive: bool = False         # drive e_ms from the queue-delay EMA
+    e_min_ms: float = 2.0
+    e_max_ms: float = 50.0
+    adapt_gain: float = 0.25       # per-observation step toward the target
     history: list = field(default_factory=list)
 
     def observe(self, phase: str, n_txns: int, elapsed_s: float,
@@ -55,8 +71,48 @@ class PhaseController:
         if frac_cross is not None:
             self.frac_cross = frac_cross
 
+    def observe_latency(self, queue_delay_ms: float,
+                        commit_latency_ms: float | None = None):
+        """Feed *measured* end-to-end latency from the service layer
+        (enqueue→formation queue delay, and optionally enqueue→commit-fence)
+        so Eq. 1–2 planning and latency reporting reflect live traffic
+        instead of the synthetic U(0, e) assumption."""
+        if queue_delay_ms >= 0:
+            self.queue_delay_ms = queue_delay_ms if self.queue_delay_ms == 0 \
+                else (self.ema * queue_delay_ms
+                      + (1 - self.ema) * self.queue_delay_ms)
+        if commit_latency_ms is not None and commit_latency_ms >= 0:
+            self.measured_commit_ms = commit_latency_ms \
+                if self.measured_commit_ms == 0 \
+                else (self.ema * commit_latency_ms
+                      + (1 - self.ema) * self.measured_commit_ms)
+        if self.adaptive and self.queue_delay_ms > 0:
+            # group-commit ideal: queue delay ≈ e/2 -> steer e toward
+            # 2 * measured delay, bounded and low-pass filtered
+            target = min(max(2.0 * self.queue_delay_ms, self.e_min_ms),
+                         self.e_max_ms)
+            self.e_ms += self.adapt_gain * (target - self.e_ms)
+
+    def observe_fence_wait(self, max_wait_ms: float):
+        """Cluster coordinator telemetry: the slowest node sets the fence;
+        everyone else waits.  The EMA of that worst-case wait quantifies
+        per-node skew (fig13 reports it) and is the §4.3 signal a deployment
+        would use to rebalance partitions across nodes."""
+        if max_wait_ms < 0:
+            return
+        self.fence_wait_ms = max_wait_ms if self.fence_wait_ms == 0 else (
+            self.ema * max_wait_ms + (1 - self.ema) * self.fence_wait_ms)
+
     def plan(self):
         tau_p, tau_s = solve_phase_times(self.e_ms, self.t_p, self.t_s,
                                          self.frac_cross)
         self.history.append((tau_p, tau_s))
         return tau_p, tau_s
+
+    def expected_mean_latency_ms(self) -> float:
+        """§4.3: deferral is symmetric; mean latency ≈ (tau_p + tau_s)/2 —
+        used until the service layer reports a measured figure, after which
+        the measured enqueue→commit EMA wins."""
+        if self.measured_commit_ms > 0:
+            return self.measured_commit_ms
+        return self.e_ms / 2.0

@@ -1,16 +1,18 @@
 """Replication: value vs operation streams + the Thomas write rule (§3,
-§5), port of ``repro.core.replication`` (the WAL stream splitters wait for
-the WAL port).
+§5), port of ``repro.core.replication``.
 
-* ``thomas_apply_batch`` — out-of-order-safe value replication of the
-  single-master log through the ``thomas_merge`` kernel: apply a write iff
-  its TID exceeds the record's TID; among duplicate rows the max-TID write
-  wins.
+* ``thomas_apply`` / ``thomas_apply_batch`` — out-of-order-safe value
+  replication through the ``thomas_merge`` kernel: apply a write iff its
+  TID exceeds the record's TID; among duplicate rows the max-TID write
+  wins.  ``thomas_apply`` takes any write stream (WAL recovery's record
+  chunks), ``thomas_apply_batch`` the single-master log.
 * ``replay_partitioned`` — ordered operation replication of the
   partitioned phase's stream, all partitions at once, with its index
   maintenance per queue slot.
 * ``replay_index_rounds`` — the single-master phase's index-op stream,
   per OCC round.
+* per-worker WAL streams — one committed epoch's streams split by owner
+  for ``db.wal.Durability`` (host numpy, the reference's on-disk types).
 * byte accounting — value bytes use real row sizes, operation bytes the
   operand sizes (Fig. 15).
 """
@@ -19,15 +21,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.ops import IDX_OPS, apply_op
+from repro_torch.core.ops import IDX_OPS, IX_KEY, apply_op
 from repro_torch.core.partitioned import last_writes, pad_rows
 from repro_torch.kernels.thomas_merge.ops import thomas_merge
-from repro_torch.storage.index import apply_index_ops
+from repro_torch.storage.index import PART_SHIFT, apply_index_ops
 
 KEY_BYTES = 8
 TID_BYTES = 8
 # an index-maintenance op ships (key, kind, operand words) on the op stream
 INDEX_OP_BYTES = KEY_BYTES + 4 + 8
+
+
+def thomas_apply(val, tidw, wrows, wvals, wtids):
+    """val (N, C) int32; tidw (N,) int64 TID words; wrows (K,) int32 (-1 =
+    skip); wvals (K, C) int32; wtids (K,) int64, all contiguous.  Merges
+    the stream into ``val``/``tidw`` IN PLACE (one ``thomas_merge`` launch
+    on the card) and returns them.  Unlike the reference it returns no
+    applied-write mask: no caller reads one."""
+    return thomas_merge(val, tidw, wrows, wvals, wtids)
 
 
 def thomas_apply_batch(val, tidw, log):
@@ -86,11 +97,129 @@ def replay_index_rounds(index, kinds, delta, iwrite, tids, part_ids=None):
     return index
 
 
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# per-worker WAL streams (durability, §4.5.1/§5) — host numpy
+# ---------------------------------------------------------------------------
+def wal_partition_streams(log, R: int, n_workers: int, worker_of_partition):
+    """Split one epoch's partitioned-phase log into per-worker WAL streams.
+
+    The op stream is logged in its §5 TRANSFORMED form — the whole
+    post-image ``val`` with its commit TID — so recovery can replay any
+    (file, chunk) order under the Thomas write rule.  Rows globalize to the
+    flat P*R space.  Yields ``(worker, rows, vals, tids, mask)`` numpy
+    arrays with non-empty masks only.
+
+    log: {'row' (P,T,M), 'val' (P,T,M,C), 'tid' (P,T,M), 'write' (P,T,M)};
+    worker_of_partition: (P,) int.
+    """
+    rows = _np(log["row"])
+    P = rows.shape[0]
+    grows = rows + np.arange(P, dtype=np.int64)[:, None, None] * R
+    vals, tids, wm = _np(log["val"]), _np(log["tid"]), _np(log["write"])
+    worker_of_partition = np.asarray(worker_of_partition)
+    for w in range(n_workers):
+        sel = worker_of_partition == w
+        if sel.any() and wm[sel].any():
+            yield w, grows[sel], vals[sel], tids[sel], wm[sel]
+
+
+def wal_master_streams(log, R: int, C: int, n_workers: int,
+                       worker_of_partition):
+    """Split the single-master phase's value stream (whole-record
+    post-images on global rows; row -1 where nothing was written) to each
+    owner's WAL.  Yields ``(worker, rows, vals, tids, mask)`` with
+    non-empty masks only."""
+    rows = _np(log["row"]).reshape(-1)
+    vals = _np(log["val"]).reshape(-1, C)
+    tids = _np(log["tid"]).reshape(-1)
+    wm = _np(log["write"]).reshape(-1)
+    owner = np.asarray(worker_of_partition)[np.where(wm, rows, 0) // R]
+    for w in range(n_workers):
+        m = wm & (owner == w)
+        if m.any():
+            yield w, rows, vals, tids, m
+
+
+def wal_index_streams(plog, n_workers: int, worker_of_partition,
+                      cross_kinds=None, cross_delta=None, slog=None):
+    """Split one epoch's index-maintenance op streams into per-worker WAL
+    chunks.  Index ops replay ORDERED: each op carries a ``step`` id
+    (partitioned queue slot t, then single-master round T+r) and recovery
+    re-applies each file's chunks step group by step group in file order.
+    A partition's ops all land in its owner's file, so cross-file chunks
+    touch disjoint segments and commute.
+
+    plog: partitioned log with 'kind' (P,T,M), 'delta' (P,T,M,C),
+    'iwrite' (P,T,K), 'tid' (P,T,M).  cross_kinds/cross_delta: the
+    single-master batch's (B, M)/(B, M, C) op arrays with slog the SM log
+    ('iwrite' (rounds,B,K), 'tid' (rounds,B,M)).
+
+    Yields ``(worker, step, kinds, delta, tids)`` flat committed-op numpy
+    arrays in step-ascending order, non-empty only.
+    """
+    worker_of_partition = np.asarray(worker_of_partition)
+    T = 0
+    per_worker = {w: [] for w in range(n_workers)}
+    if plog is not None and "iwrite" in plog:
+        iw = _np(plog["iwrite"])                                # (P, T, K)
+        P, T, K = iw.shape
+        kinds = _np(plog["kind"])[:, :, :K]
+        delta = _np(plog["delta"])[:, :, :K]
+        tids = _np(plog["tid"])[:, :, :K]
+        steps = np.broadcast_to(np.arange(T, dtype=np.int32)[None, :, None],
+                                iw.shape)
+        for w in range(n_workers):
+            sel = worker_of_partition == w
+            m = iw[sel]
+            if not m.any():
+                continue
+            # (n_p, T, K) -> (T, n_p, K) so the flat stream is step-major
+            order = (1, 0, 2)
+            m_t = m.transpose(order).reshape(-1)
+            per_worker[w].append((
+                steps[sel].transpose(order).reshape(-1)[m_t],
+                kinds[sel].transpose(order).reshape(-1)[m_t],
+                delta[sel].transpose(1, 0, 2, 3).reshape(
+                    -1, delta.shape[-1])[m_t],
+                tids[sel].transpose(order).reshape(-1)[m_t]))
+    if slog is not None and "iwrite" in slog:
+        iw = _np(slog["iwrite"])                                # (r, B, K)
+        rounds, B, K = iw.shape
+        kinds = np.broadcast_to(_np(cross_kinds)[None, :, :K], iw.shape)
+        cross_delta = _np(cross_delta)
+        delta = np.broadcast_to(cross_delta[None, :, :K],
+                                iw.shape + (cross_delta.shape[-1],))
+        tids = _np(slog["tid"])[:, :, :K]
+        steps = np.broadcast_to(
+            T + np.arange(rounds, dtype=np.int32)[:, None, None], iw.shape)
+        part = (delta[..., IX_KEY].astype(np.int64) >> PART_SHIFT)
+        owner = worker_of_partition[np.clip(part, 0,
+                                            len(worker_of_partition) - 1)]
+        flat = iw.reshape(-1)
+        for w in range(n_workers):
+            m = flat & (owner.reshape(-1) == w)
+            if not m.any():
+                continue
+            per_worker[w].append((
+                steps.reshape(-1)[m], kinds.reshape(-1)[m],
+                delta.reshape(-1, delta.shape[-1])[m],
+                tids.reshape(-1)[m]))
+    for w, chunks in per_worker.items():
+        if chunks:
+            yield (w,
+                   np.concatenate([c[0] for c in chunks]),
+                   np.concatenate([c[1] for c in chunks]),
+                   np.concatenate([c[2] for c in chunks]),
+                   np.concatenate([c[3] for c in chunks]))
+
+
 # ---------------------------------------------------------------------------
 # bandwidth accounting (Fig. 15) — host-side numpy on the write masks
 # ---------------------------------------------------------------------------
-def _np(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def value_bytes(log_write_mask, row_bytes_per_op) -> int:

@@ -50,18 +50,20 @@ _ROUND_ARGS = [VP] * 21 + [I32] * 5 + [ctypes.c_uint, VP]
 # the probe, bare: lower-bound search + bounded window gather
 # ---------------------------------------------------------------------------
 def scan_window(flat_key, flat_tid, q, seg_base, seg_cap, *, n_slots: int,
-                n_iters: int):
+                max_cap: int):
     """flat_key (S,) int32 / flat_tid (S,) int64 concatenated sorted
     segments; q/seg_base/seg_cap (Q,) int32 per-query key, segment start
-    and length (>= 1).  Returns (pos0 (Q,) int32, keys (Q, n_slots) int32,
-    tids (Q, n_slots) int64).  The kernel searches each segment to the
-    end; ``n_iters``, the plain version's halvings, must cover the longest
-    segment (bit_length(cap) of them do) for the two to agree."""
+    and length (>= 1, at most ``max_cap``, a host int).  Returns (pos0 (Q,)
+    int32, keys (Q, n_slots) int32, tids (Q, n_slots) int64).  The kernel
+    searches each segment to its end; the plain version takes the
+    reference's ``bit_length(max_cap) + 1`` halvings, which cover the
+    longest segment, so the two agree by construction."""
     kernel_launch("scan_window", backend=flat_key.device.type,
                   queries=int(q.shape[0]))
     if flat_key.device.type == "cpu":
         return scan_window_plain(flat_key, flat_tid, q, seg_base, seg_cap,
-                                 n_slots=n_slots, n_iters=n_iters)
+                                 n_slots=n_slots,
+                                 n_iters=int(max_cap).bit_length() + 1)
     dev = flat_key.device
     S, Q = flat_key.shape[0], q.shape[0]
     ins = [_build.checked("flat_key", flat_key, torch.int32, (S,), dev),

@@ -71,7 +71,7 @@ def segment_scan(key, lo, hi, n_slots: int = SCAN_L + 1):
         key, torch.zeros((cap,), dtype=torch.int64, device=dev), q,
         torch.zeros((1,), dtype=torch.int32, device=dev),
         torch.full((1,), cap, dtype=torch.int32, device=dev),
-        n_slots=n_slots, n_iters=int(cap).bit_length() + 1)
+        n_slots=n_slots, max_cap=cap)
     raw = pos0[0].long() + torch.arange(n_slots, device=dev)
     slots = raw.clamp(0, cap - 1)
     keys_at = keys_w[0]

@@ -176,11 +176,28 @@ def test_chip_smoke_fails_without_a_card(argv):
     assert "no CUDA device" in r.stderr
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
+    from repro_torch.db import hashtable, ycsb
+    from repro_torch.db.wal import Durability, recover, recover_full
+    from repro_torch.service import OpenLoopClient, TxnService, YCSBSource
     with pytest.raises(RuntimeError, match="cuda"):
         TEngine(1, 8, indexes=None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TEngine(2, 8, durability=Durability(tmp_path / "wal"))
+    client = OpenLoopClient(YCSBSource(ycsb.YCSBConfig(2, 8)), 100.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TxnService(TEngine(2, 8), [client])
+    # a directory a CPU engine wrote: recovery still asks for the card
+    eng = TEngine(2, 8, device="cpu", durability=Durability(tmp_path / "d"))
+    eng.run_epoch(ycsb.make_batch(ycsb.YCSBConfig(2, 8), 16, seed=0))
+    for rec in (recover_full, recover):
+        with pytest.raises(RuntimeError, match="cuda"):
+            rec(tmp_path / "d")
+    assert recover_full(tmp_path / "d", device="cpu")[3] == 0
+    with pytest.raises(RuntimeError, match="cuda"):
+        hashtable.make_index(8)
     with pytest.raises(RuntimeError, match="cuda"):
         StorageEngine(1, 8)
     with pytest.raises(RuntimeError, match="cuda"):

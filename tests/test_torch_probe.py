@@ -25,6 +25,7 @@ from repro.core.ops import (DELETE_IDX, IDX_OPS, INSERT_IDX, IX_EXPECT,
                             is_index_kind, writes_primary)
 from repro.kernels.occ import ref as jref
 from repro_torch.kernels.occ import ops as tocc
+from repro_torch.kernels.occ import ref as tocc_ref
 from repro_torch.storage.index import SENTINEL
 
 SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
@@ -300,3 +301,73 @@ def test_locate_marks_kinds_outside_the_index_ops():
     assert not out["scan_valid"][:, 4::2].any()
     assert not out["consume_ok"][:, 3].any()
     assert not out["consume_ok"][:, 4::2].any()
+
+
+# ---------------------------------------------------------------------------
+# the bare probe's halvings contract
+# ---------------------------------------------------------------------------
+def _bare_segments(seed, caps):
+    """Concatenated sorted segments (SENTINEL-padded tails, duplicates) and
+    four queries a segment: below, inside and above its keys."""
+    rng = np.random.default_rng(seed)
+    keys, tids, q, base, cap = [], [], [], [], []
+    off = 0
+    for c in caps:
+        live = int(rng.integers(0, c + 1))
+        seg = np.full(c, SENTINEL, np.int32)
+        seg[:live] = np.sort(rng.integers(0, 50, live))
+        keys.append(seg)
+        tids.append(rng.integers(0, 2**32, c, dtype=np.uint64)
+                    .astype(np.int64))
+        for qk in (-1, int(rng.integers(0, 50)), 25, SENTINEL):
+            q.append(qk)
+            base.append(off)
+            cap.append(c)
+        off += c
+    return tuple(np.concatenate(a) if i < 2 else np.asarray(a, np.int32)
+                 for i, a in enumerate((keys, tids, q, base, cap)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scan_window_plain_matches_jax_searchsorted(seed):
+    """The bare probe at the halvings it derives from ``max_cap`` (those
+    of ``ref.flat_segments``, ``bit_length(cap) + 1``), and the plain
+    version at the least that cover the longest segment
+    (``bit_length(cap)``), equal the JAX ``ref.py``'s lower bound
+    (``jnp.searchsorted`` in each segment) and its clipped window."""
+    caps = [1, 2, 3, 7, 8, 33, 64, 100]
+    fk, ft, q, base, cap = _bare_segments(seed, caps)
+    max_cap, ns = max(caps), 5
+    pos_ref, keys_ref, tids_ref = [], [], []
+    for qi, b, c in zip(q, base, cap):
+        seg = jnp.asarray(fk[b:b + c])
+        p = int(jnp.searchsorted(seg, jnp.int32(qi)))
+        slots = np.clip(p + np.arange(ns), 0, c - 1)
+        pos_ref.append(p)
+        keys_ref.append(fk[b + slots])
+        tids_ref.append(ft[b + slots])
+    args = [torch.as_tensor(a) for a in (fk, ft, q, base, cap)]
+    for got in (tocc.scan_window(*args, n_slots=ns, max_cap=max_cap),
+                tocc_ref.scan_window_plain(*args, n_slots=ns,
+                                           n_iters=max_cap.bit_length())):
+        pos, keys, tids = got
+        assert np.array_equal(pos.numpy(), pos_ref)
+        assert np.array_equal(keys.numpy(), np.stack(keys_ref))
+        assert np.array_equal(tids.numpy(), np.stack(tids_ref))
+
+
+@pytest.mark.parametrize("max_cap", [1, 2, 100, 2880])
+def test_scan_window_covers_the_longest_segment(max_cap):
+    """The halvings the bare probe derives from ``max_cap`` reach both ends
+    of a full segment that long, as the card's kernel (which searches
+    every segment to its end) does: a query below, at, between and past
+    every key lands where ``np.searchsorted`` puts it."""
+    fk = np.arange(0, 2 * max_cap, 2, dtype=np.int32)
+    ft = np.arange(max_cap, dtype=np.int64)
+    q = np.arange(-1, 2 * max_cap + 1, dtype=np.int32)
+    n = q.size
+    pos, _, _ = tocc.scan_window(
+        *(torch.as_tensor(x) for x in (fk, ft, q, np.zeros(n, np.int32),
+                                       np.full(n, max_cap, np.int32))),
+        n_slots=2, max_cap=max_cap)
+    assert np.array_equal(pos.numpy(), np.searchsorted(fk, q))
