@@ -69,6 +69,24 @@ Phases, in order; any failed check exits non-zero:
    the service's shapes); and the fig11 configuration for 5 epochs with
    the WAL,
    ``recover_full`` on the card bit-equal, indexes included;
+9. the read path (run after phase 8): phase 8's TPC-C service run again,
+   with the read tier (``ReadTier(max_staleness_epochs=2,
+   sec_refresh_every=2)``, fig12's knobs) and the analytics lane; then 4
+   more epochs of 512 transactions on the same engine whose read-only
+   transactions are offered to the read lane after their fence and
+   served at bound 2 (freshness 0 and 1).  ``replica_consistent()`` at
+   every fence, the views' committed projection equal to the master
+   snapshot's ``VIEW_COLS`` at every fence and each fence's stamp equal
+   to ``recompute`` of that fence's committed values; 0 stale reads,
+   reads served mid-epoch, every read within the bound; the first 4
+   distinct (replica, epoch) snapshots served in each part equal to
+   their fence, every group served from them equal to ``reference_read``
+   and to the CPU executor on a host copy; the lanes' own launches of
+   ``scan_window`` (at most one an index a group) and ``thomas_merge``
+   (one a views merge) counted from 0, and the first call of each held
+   bit-equal to its plain version on the CPU and timed (the new call
+   shapes); the snapshot copy timed a view and the dirty gate's host
+   copy a slab;
 5. LM kernel parity: Hymba-1.5B at its published widths and depth in
    bf16, random weights from a seed, serves 8 requests of 2,048 tokens
    plus 2 new ones through ``ServeEngine.generate`` while the first call
@@ -127,13 +145,19 @@ operators and host time a call, and the decode chain of
 counts of RMS_AB_ROWS (D = 1,600) by CUDA events.  It prints the card's
 name and power limit, then one ``AB {...}`` JSON line a process.
 
+``python3 chip_smoke.py --lanes N`` runs phase 8's TPC-C service run
+instead, in N pairs without and with phase 9's read tier and analytics
+lane (order alternating, one untimed run first), and prints the card's
+name and power limit and one ``LANES {...}`` JSON line a run.
+
 It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels (with each STAR kernel's launches in every service
-run), one of main-path figures, one of service-path figures, one of
-serve-path figures and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
+run and by the read path's lanes), one of main-path figures, one of
+service-path figures, one of read-path figures, one of serve-path figures and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -179,6 +203,11 @@ SERVICE_TPCC_RATE = 1500.0
 SERVICE_REPLAY = 8               # steady batches replayed card vs CPU
 SERVICE_TPCC_REPLAY = 4          # tpcc_full batches replayed card vs CPU
 SERVICE_WAL_EPOCHS = 5           # fig11 epochs logged for index recovery
+# phase 9: the read tier and the analytics lane (fig12's read-tier knobs)
+READ_K, READ_REFRESH = 2, 2      # staleness bound, replica view cadence
+READ_SNAPSHOTS = 4               # distinct (replica, epoch) snapshots checked
+READ_DIRECT_EPOCHS = 4           # epochs whose reads serve after the fence
+READ_DIRECT_TXNS = 512
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -1399,6 +1428,405 @@ def service_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the read tier and the analytics lane
+# ---------------------------------------------------------------------------
+def shape_figures(kernel, plain, args, kw, nbytes, nops, reset=None):
+    """One recorded call of a kernel wrapper at a new call shape: bit-equal
+    to its plain version on CPU copies, both timed on the card (CUDA
+    events; the kernel also by torch.profiler, one kernel a call), the
+    bound from this call's bytes and operations."""
+    import torch
+    cpu = torch.device("cpu")
+    dev = next(t.device for t in tree_leaves(args) if hasattr(t, "device"))
+    got = kernel(*to(args, dev), **kw)
+    torch.cuda.synchronize()
+    want = plain(*to(args, cpu), **kw)
+    ka, pa = to(args, dev), to(args, dev)
+    setup_k = reset and (lambda: reset(ka))
+    setup_p = reset and (lambda: reset(pa))
+    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ops = nops / H100_INT32_OPS_PER_S * 1e3
+    return {"equal": equal(got, want), "max_abs_err": max_abs_err(got, want),
+            "ms": cuda_ms(lambda: kernel(*ka, **kw), setup=setup_k),
+            "prof_ms": prof_ms(lambda: kernel(*ka, **kw), setup=setup_k)[0],
+            "kernels_per_call": kernels_in(lambda: kernel(*ka, **kw)),
+            "plain_ms": cuda_ms(lambda: plain(*pa, **kw), setup=setup_p),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations", "library_ms": None,
+            "bytes": int(nbytes), "ops": int(nops)}
+
+
+def read_kernel_checks(calls, kernels):
+    """The read executor's first ``scan_window`` call and the views' first
+    ``thomas_merge`` call (phase 9's new call shapes), each against its
+    plain version and timed; the figures go into the kernels' rows."""
+    from repro_torch.kernels.occ import ref as occ_ref
+    from repro_torch.kernels.occ.ops import scan_window
+    from repro_torch.kernels.thomas_merge.ops import thomas_merge
+    from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
+
+    (fk, ft, q, base, cap), kw = calls["read/scan_window"]
+    Q, ns = int(q.numel()), kw["n_slots"]
+    lg = int(kw["max_cap"]).bit_length()
+
+    def plain_probe(*a, n_slots, max_cap):
+        return occ_ref.scan_window_plain(
+            *a, n_slots=n_slots, n_iters=int(max_cap).bit_length() + 1)
+    # each query's key, segment start and length read, its position and
+    # window (keys and TIDs) written, the keys of its binary search read
+    fig = shape_figures(scan_window, plain_probe, (fk, ft, q, base, cap),
+                        kw, nbytes=Q * (12 + 4 + 12 * ns + 4 * lg),
+                        nops=Q * (4 + lg + 8 * ns))
+    check(fig.pop("equal"), "read executor's scan_window call differs from "
+          "its plain version")
+    check(fig["kernels_per_call"] == 1, f"read scan_window: "
+          f"{fig['kernels_per_call']} kernels a call")
+    fig.update(queries=Q, n_slots=ns, segment=int(kw["max_cap"]),
+               table_slots=int(fk.numel()))
+    kernels["scan_window"]["read_executor"] = fig
+
+    (val, tidw, rows, vals, tids), _ = calls["views/thomas_merge"]
+    C, Kw = int(val.shape[1]), int(rows.numel())
+    a_dev = to((val, tidw, rows, vals, tids), val.device)
+    thomas_merge(*a_dev)
+    n_win = int((a_dev[1] != tidw).sum())
+    n_live = int((rows >= 0).sum())
+    tid0 = tidw.clone()
+
+    def reset(a):
+        """Restore the TID column (values rewritten are the same)."""
+        a[1].copy_(tid0)
+    fig = shape_figures(thomas_merge, thomas_merge_plain,
+                        (val, tidw, rows, vals, tids), {},
+                        nbytes=Kw * 4 + n_live * (8 + 8)
+                        + n_win * (4 * C + 4 * C + 8),
+                        nops=Kw + n_live * 3, reset=reset)
+    check(fig.pop("equal"), "views' thomas_merge call differs from its "
+          "plain version")
+    check(fig["kernels_per_call"] == 1, f"views thomas_merge: "
+          f"{fig['kernels_per_call']} kernels a call")
+    fig.update(rows=int(val.shape[0]), cols=C, writes=Kw, live=n_live,
+               winners=n_win)
+    kernels["thomas_merge"]["views_master"] = fig
+
+
+def read_path(dev, kernels):
+    """Phase 9: TPC-C's full mix at phase 4's scale through ``TxnService``
+    with the read tier (bound 2, the replica view refreshed every 2nd
+    fence) and the analytics lane, at phase 8's rate for phase 8's
+    duration; then ``READ_DIRECT_EPOCHS`` epochs on the same engine whose
+    read-only transactions are served after their fence at bound 2.  At
+    every fence: ``replica_consistent()``, the views' committed projection
+    equal to the master snapshot's ``VIEW_COLS``, and (after the run) the
+    stamped aggregates equal to ``recompute`` of that fence's committed
+    values.  The first ``READ_SNAPSHOTS`` distinct (replica, epoch)
+    snapshots served in each part: each retained snapshot equal to its
+    fence, and each group's outputs equal to ``reference_read`` and to the
+    CPU executor on a host copy.  Returns the ``read_path`` figures; the
+    STAR kernels' rows gain ``read_launches`` and the new call shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.changelog import VIEW_COLS, AnalyticsLane
+    from repro_torch.changelog import views as views_mod
+    from repro_torch.db import tpcc
+    from repro_torch.kernels import _build
+    from repro_torch.reads import (ReadTier, SnapshotReadExecutor,
+                                   reference_read)
+    from repro_torch.reads import executor as ex_mod
+    from repro_torch.storage.engine import FIELDS
+    from repro_torch.service import (AdmissionConfig, AdmissionController,
+                                     OpenLoopClient, TPCCSource, TxnService)
+    cfg, state, eng = mk_engine(MAIN, 0, dev)
+    tier = ReadTier(max_staleness_epochs=READ_K,
+                    sec_refresh_every=READ_REFRESH)
+    lane = AnalyticsLane(cfg)
+    views = lane.views
+    client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                            rate_txn_s=SERVICE_TPCC_RATE)
+    svc = TxnService(eng, [client], AdmissionConfig(256, 512, "shed"),
+                     slots_per_partition=SERVICE_SLOTS,
+                     master_lanes=SERVICE_LANES,
+                     feedback=lambda b, m: tpcc.apply_consume_feedback(
+                         state, b, m), read_tier=tier, analytics=lane)
+    print(f"read path: TPC-C P={cfg.n_partitions} with ReadTier(k={READ_K}"
+          f", sec_refresh_every={READ_REFRESH}) and AnalyticsLane at "
+          f"{SERVICE_TPCC_RATE:.0f} txn/s for {SERVICE_TPCC_S} s")
+
+    # the lanes' own launches (the executor's probes, the views' merges),
+    # and their first calls recorded
+    lane_launches = {k: 0 for k in STAR_KERNELS}
+    rec = Recorder()
+
+    def count(module, name, kernel):
+        orig = getattr(module, name)
+
+        def counted(*a, **k):
+            n0 = _build.launch_counts().get(kernel, 0)
+            out = orig(*a, **k)
+            lane_launches[kernel] += _build.launch_counts().get(kernel, 0) \
+                - n0
+            return out
+        setattr(module, name, counted)
+        rec._undo.append((module, name, orig))
+    count(ex_mod, "scan_window", "scan_window")
+    count(views_mod, "thomas_apply", "thomas_merge")
+    rec.wrap(ex_mod, "scan_window", lambda *a, **k: "read/scan_window")
+    rec.wrap(views_mod, "thomas_apply", lambda *a, **k: "views/thomas_merge")
+
+    # every fence: the replica, the views' committed projection; the
+    # committed values kept (on the card) for recompute after the run
+    fences = {}
+    run_epoch = eng.run_epoch
+
+    def fenced(batch, ingest=None):
+        m = run_epoch(batch, ingest=ingest)
+        e = eng.committed_epoch
+        check(eng.replica_consistent(), f"read path: replica diverged at "
+              f"fence {e}")
+        if views.attached:
+            snap = eng.store.snapshot
+            check(torch.equal(views._c_proj,
+                              snap["val"][..., list(VIEW_COLS)])
+                  and torch.equal(views._c_ptid, snap["tid"]),
+                  f"read path: the views' committed projection differs "
+                  f"from the master snapshot at fence {e}")
+            stamp_e, aggs = views.latest()
+            check(stamp_e == e, f"read path: views stamped {stamp_e} at "
+                  f"fence {e}")
+            fences[e] = (aggs, snap["val"].clone())
+        return m
+    eng.run_epoch = fenced
+
+    # every served group: freshness within the bound; the first
+    # READ_SNAPSHOTS distinct snapshots of each part kept with the groups
+    # served from them (their inputs copied before the pool reuses them)
+    part = {"name": "service"}
+    kept = {}
+    freshness = []
+    serve = tier.serve
+
+    def served(admission, now_s=0.0, limit=None, mid_epoch=False):
+        res = serve(admission, now_s, limit, mid_epoch)
+        pool = admission.pool
+        for r in res:
+            freshness.append(r["freshness"])
+            check(r["freshness"] <= (0 if mid_epoch else READ_K),
+                  f"read path: a read served at freshness {r['freshness']}")
+            key = (part["name"], r["replica"], r["epoch"])
+            mine = [k for k in kept if k[0] == part["name"]]
+            if key not in kept and len(mine) >= READ_SNAPSHOTS:
+                continue
+            ent = tier.catalog.entries[r["replica"]]
+            snap = next(s for e, s, _ in ent.snaps if e == r["epoch"])
+            sl = r["slots"]
+            kept.setdefault(key, (snap, []))[1].append((
+                ent.row_of_partition[pool.home[sl].astype(np.int64)],
+                pool.row[sl].copy(), pool.kind[sl].copy(),
+                pool.delta[sl].copy(), r["out"]))
+        return res
+    tier.serve = served
+
+    # the lanes' host time outside the executor (which its stats time):
+    # the views' stream callbacks, the catalog's stamps, the query mix
+    lane_s = {}
+
+    def timed(obj, name, key):
+        f = getattr(obj, name)
+
+        def t(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                lane_s[key] = lane_s.get(key, 0.0) + time.perf_counter() - t0
+        setattr(obj, name, t)
+    for name in ("on_slab", "on_master", "on_commit"):
+        timed(views, name, f"views.{name}")
+    timed(tier, "observe_epoch", "reads.observe_epoch")
+    timed(lane, "serve", "analytics.serve")
+    split = ("part_time_s", "sm_time_s", "fence_time_s", "epochs")
+    stats0 = {f: getattr(eng.stats, f) for f in split}
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = svc.run(duration_s=SERVICE_TPCC_S)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        run_launches = by_kernel(_build.launch_counts())
+        read_launches = dict(lane_launches)
+        lane_host_s = dict(lane_s)
+        engine_split = {f: getattr(eng.stats, f) - stats0[f] for f in split}
+        merges, batches = views.master_merges, tier.stats.batches
+        for c in svc.clients:
+            if hasattr(c, "shutdown"):
+                c.shutdown()
+        print(f"read path service: {out['throughput_txn_s']:.1f} write "
+              f"txn/s p50 {out['p50_ms']:.2f} p99 {out['p99_ms']:.2f} ms; "
+              f"{out['read_served']} reads ({out['read_mid_epoch_served']} "
+              f"mid-epoch) p50 {out['read_p50_ms']:.2f} p99 "
+              f"{out['read_p99_ms']:.2f} ms; {out['epochs']} epochs; "
+              f"lane launches {read_launches}")
+
+        # reads served after their fence at bound READ_K: the epochs'
+        # read-only transactions offered to the read lane after each fence
+        part["name"] = "after_fence"
+        direct = {"epochs": READ_DIRECT_EPOCHS, "txns": READ_DIRECT_TXNS,
+                  "offered": 0, "served": 0, "by_freshness": {}}
+        served0, fallbacks0 = tier.stats.served, tier.stats.fallbacks
+        for ep in range(READ_DIRECT_EPOCHS):
+            raw = tpcc.make_raw(cfg, state, READ_DIRECT_TXNS,
+                                np.random.default_rng(900 + ep))
+            batch = tpcc.make_batch(cfg, state, 0, raw=raw)
+            m = eng.run_epoch(batch)
+            tpcc.apply_consume_feedback(state, batch, m)
+            tier.observe_epoch(eng, m)
+            lane.serve(eng.committed_epoch)
+            sel = np.nonzero(raw["read_only"])[0]
+            if not sel.size:
+                continue
+            adm = AdmissionController(cfg.n_partitions,
+                                      cfg.rows_per_partition,
+                                      max_ops=raw["rows"].shape[1],
+                                      n_cols=raw["deltas"].shape[2],
+                                      read_lane=True)
+            req = {k: raw[k][sel] for k in ("parts", "rows", "kinds",
+                                            "deltas", "user_abort", "home",
+                                            "read_only")}
+            n = sel.size
+            req.update(txn_id=np.arange(n, dtype=np.int64),
+                       tenant=np.zeros(n, np.int32), arrival_s=np.zeros(n))
+            check(not adm.offer(req, 0.0).any(), "read path: the read "
+                  "lane refused a read")
+            direct["offered"] += n
+            for r in tier.serve(adm):
+                f = r["freshness"]
+                direct["by_freshness"][f] = \
+                    direct["by_freshness"].get(f, 0) + int(r["slots"].size)
+        direct["served"] = tier.stats.served - served0
+        direct["fallbacks"] = tier.stats.fallbacks - fallbacks0
+        check(direct["served"] + direct["fallbacks"] == direct["offered"]
+              and direct["served"] > 0, "read path: reads after the fence "
+              "were dropped or none served")
+    finally:
+        # drop the instance attributes the wrappers were set as: a bound
+        # method put back on its own object would keep it (and the
+        # snapshots it holds) alive in a reference cycle
+        rec.restore()
+        for obj, names in ((eng, ("run_epoch",)), (tier, ("serve",
+                                                          "observe_epoch")),
+                           (lane, ("serve",)),
+                           (views, ("on_slab", "on_master", "on_commit"))):
+            for n in names:
+                vars(obj).pop(n, None)
+
+    s = tier.stats
+    check(s.stale_violations == 0, f"read path: {s.stale_violations} "
+          f"stale reads")
+    check(out["read_mid_epoch_served"] > 0, "read path: no read served "
+          "mid-epoch")
+    check(max(freshness) <= READ_K, "read path: a read past the bound")
+    for k in ("scan_window", "thomas_merge"):
+        check(read_launches[k] > 0, f"read path: the lanes never launched "
+              f"{k}")
+    n_idx = len(eng.store.indexes)
+    check(read_launches["scan_window"] <= batches * n_idx,
+          "read path: more than one probe launch per index per group")
+    check(read_launches["thomas_merge"] == merges, "read path: the views' "
+          "master merges are not one launch each")
+    for k, row in kernels.items():
+        row["read_launches"] = read_launches.get(k, 0)
+
+    # the stamps against recompute of each fence's committed values
+    for e, (aggs, val) in sorted(fences.items()):
+        want = views.recompute(val)
+        check(all(np.array_equal(aggs[k], want[k])
+                  and aggs[k].dtype == want[k].dtype for k in want),
+              f"read path: the views' stamp differs from recompute at "
+              f"fence {e}")
+    # the kept snapshots: each equal to its fence, each group's outputs
+    # equal to reference_read and the CPU executor on a host copy
+    cpu_exec = SnapshotReadExecutor()
+    n_groups = 0
+    for (pn, rid, e), (snap, groups) in kept.items():
+        check(e not in fences or torch.equal(snap["val"], fences[e][1]),
+              f"read path: the retained snapshot {rid}@{e} changed after "
+              f"its fence")
+        host = {"val": snap["val"].cpu(), "tid": snap["tid"].cpu(),
+                "idx": [{f: ix[f].cpu() for f in FIELDS}
+                        for ix in snap["idx"]]}
+        for arow, rows, kinds, deltas, got in groups:
+            want = reference_read(host, arow, rows, kinds, deltas)
+            cpu = cpu_exec.run(host, arow, rows, kinds, deltas)
+            check(equal(got, cpu) and all(
+                np.array_equal(got[k].cpu().numpy(), want[k])
+                for k in want), f"read path: a group served from "
+                  f"{rid}@{e} differs from reference_read")
+            n_groups += 1
+    check(sum(1 for k in kept if k[0] == "service") > 0
+          and sum(1 for k in kept if k[0] == "after_fence") > 0,
+          "read path: no snapshot kept in one of the parts")
+
+    # the new call shapes against their plain versions, timed
+    read_kernel_checks(rec.calls, kernels)
+
+    # a fence's snapshot copies: one view's arrays cloned, timed
+    view = eng.read_views()[0]
+    arrays = [view["val"], view["tid"]] + [ix[f] for ix in view["idx"]
+                                           for f in FIELDS]
+    copy_ms = cuda_ms(lambda: [a.clone() for a in arrays], reps=10)
+    view_bytes = sum(a.numel() * a.element_size() for a in arrays)
+    n_fences = len(fences)
+    copies = tier.catalog.stamp_copies
+    n_obs = 1 + out["epochs"] + READ_DIRECT_EPOCHS   # observe_epoch calls
+    # the dirty gate's host copy of a slab's write set
+    M = client.source.M
+    w = torch.zeros((cfg.n_partitions, SERVICE_SLOTS, M), dtype=torch.bool,
+                    device=dev)
+    gate_us = host_us(lambda: w.any(2).any(1).cpu().numpy(), reps=50)
+    fig = {k: out[k] for k in (
+        "read_served", "read_txn_s", "read_p50_ms", "read_p99_ms",
+        "read_fallbacks", "read_max_freshness", "read_mid_epoch_served",
+        "read_mid_epoch_deferred", "read_serve_time_s",
+        "read_stale_violations", "read_by_replica", "ingest_overlap_s",
+        "epoch_time_s", "epochs", "committed", "user_aborted",
+        "analytics_q_p50_ms", "analytics_q_p99_ms", "analytics_serves",
+        "analytics_mv_slabs", "analytics_mv_writes")}
+    fig.update(
+        write_txn_s=out["throughput_txn_s"], write_p50_ms=out["p50_ms"],
+        write_p99_ms=out["p99_ms"], write_p999_ms=out["p999_ms"],
+        read_post_fence_served=out["read_served"]
+        - out["read_mid_epoch_served"],
+        read_batches=batches, wall_s=wall, offered_rate_txn_s=SERVICE_TPCC_RATE,
+        duration_s=SERVICE_TPCC_S, max_staleness_epochs=READ_K,
+        sec_refresh_every=READ_REFRESH,
+        launches_by_kernel=run_launches, read_launches=read_launches,
+        lane_host_s=lane_host_s, engine_split=engine_split,
+        views_master_merges=merges, fences_checked=n_fences,
+        snapshots_checked=len(kept), groups_checked=n_groups,
+        after_fence=direct,
+        snapshot_copy={"bytes_per_view": view_bytes,
+                       "ms_per_view": copy_ms, "copies": copies,
+                       "observed_fences": n_obs,
+                       "bytes_per_fence": tier.catalog.stamp_bytes / n_obs,
+                       "ms_per_fence": copy_ms * copies / n_obs,
+                       "retain": tier.catalog.retain},
+        dirty_gate_host_us=gate_us)
+    print(f"read path: {n_fences} fences checked (views = master "
+          f"VIEW_COLS, stamps = recompute), {len(kept)} snapshots and "
+          f"{n_groups} groups bit-equal to reference_read; after the fence "
+          f"{direct['served']} of {direct['offered']} reads served "
+          f"{direct['by_freshness']}; snapshot copy {view_bytes} bytes "
+          f"{copy_ms:.3f} ms a view")
+    del eng, svc, tier, lane, views, fences, kept, rec, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the LM serving path (Hymba-1.5B)
 # ---------------------------------------------------------------------------
 def allclose_err(got, want, tol):
@@ -1992,7 +2420,7 @@ def main(argv):
     root = Path(__file__).resolve().parent
     if argv[:1] == ["--ab-side"] and len(argv) == 2:
         root = Path(argv[1]).resolve()
-    elif argv[:1] == ["--ab"] and len(argv) == 2:
+    elif argv[:1] in (["--ab"], ["--lanes"]) and len(argv) == 2:
         pass
     elif argv:
         print(__doc__, file=sys.stderr)
@@ -2004,6 +2432,8 @@ def main(argv):
     if argv[:1] == ["--ab"]:
         return ab(root, Path(argv[1]).resolve())
     sys.path.insert(0, str(root / "src"))
+    if argv[:1] == ["--lanes"]:
+        return lanes_ab(torch.device("cuda", 0), int(argv[1]))
     if argv:
         ab_side(root, torch.device("cuda", 0))
         return 0
@@ -2049,6 +2479,9 @@ def run(dev):
     service.update(device=name, nvidia_smi=smi)
     for k, row in kernels.items():
         row["service_launches"] = {r: n[k] for r, n in svc_launches.items()}
+    torch.cuda.empty_cache()
+    reads = read_path(dev, kernels)
+    reads.update(device=name, nvidia_smi=smi)
     lm_rows, serve = serve_path(dev)
     lm_rows["rmsnorm"]["decode"].update(launch_floor_prof_ms=floor,
                                         launch_floor_events_ms=floor_ev)
@@ -2057,6 +2490,7 @@ def run(dev):
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"service_path": service}))
+    print(json.dumps({"read_path": reads}))
     print(json.dumps({"serve_path": serve}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2195,6 +2629,65 @@ def measure_epochs(eng, cfg, state, batches):
         "consume_skips": totals["consume_skips"],
         "retries": totals["retries"], "profiled_epoch": prof,
         "lock_arrays_checked": n_locks}
+
+
+# ---------------------------------------------------------------------------
+# --lanes: phase 8's TPC-C service without and with phase 9's lanes
+# ---------------------------------------------------------------------------
+def tpcc_service(dev, lanes):
+    """Phase 8's TPC-C service run on a fresh engine, without or (``lanes``)
+    with the read tier and the analytics lane of phase 9, and with no
+    check inside the run.  Returns its figures."""
+    import torch
+    from repro_torch.changelog import AnalyticsLane
+    from repro_torch.db import tpcc
+    from repro_torch.reads import ReadTier
+    from repro_torch.service import (AdmissionConfig, OpenLoopClient,
+                                     TPCCSource, TxnService)
+    cfg, state, eng = mk_engine(MAIN, 0, dev)
+    kw = {}
+    if lanes:
+        kw = dict(read_tier=ReadTier(max_staleness_epochs=READ_K,
+                                     sec_refresh_every=READ_REFRESH),
+                  analytics=AnalyticsLane(cfg))
+    client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                            rate_txn_s=SERVICE_TPCC_RATE)
+    svc = TxnService(eng, [client], AdmissionConfig(256, 512, "shed"),
+                     slots_per_partition=SERVICE_SLOTS,
+                     master_lanes=SERVICE_LANES,
+                     feedback=lambda b, m: tpcc.apply_consume_feedback(
+                         state, b, m), **kw)
+    split = ("part_time_s", "sm_time_s", "fence_time_s", "epochs")
+    stats0 = {f: getattr(eng.stats, f) for f in split}
+    torch.cuda.synchronize()
+    out = svc.run(duration_s=SERVICE_TPCC_S)
+    client.shutdown()
+    check(eng.replica_consistent(), "--lanes: replica diverged")
+    fig = {k: out.get(k) for k in (
+        "throughput_txn_s", "p50_ms", "p99_ms", "committed", "epochs",
+        "epoch_time_s", "ingest_overlap_s", "read_served",
+        "read_serve_time_s", "read_p50_ms", "read_p99_ms")}
+    fig.update(lanes=lanes, engine_split={
+        f: getattr(eng.stats, f) - stats0[f] for f in split})
+    del svc, eng
+    torch.cuda.empty_cache()
+    return fig
+
+
+def lanes_ab(dev, n):
+    """``--lanes N``: ``tpcc_service`` in N pairs in one process, without
+    and with the lanes, the order alternating (off, on, on, off, ...), so
+    that drift of the card or the host shows in the spread.  Prints the
+    card's name and power limit, then one ``LANES {...}`` line a run."""
+    from repro_torch.kernels import _build
+    _build.build_all()
+    print(nvidia_smi(), flush=True)
+    tpcc_service(dev, True)                  # untimed: first launches
+    for i in range(n):
+        for lanes in ((False, True) if i % 2 == 0 else (True, False)):
+            print("LANES " + json.dumps(tpcc_service(dev, lanes)),
+                  flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------

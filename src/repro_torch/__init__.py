@@ -10,5 +10,7 @@ The package mirrors ``repro``'s layout module for module.  It imports
 
 Package inits stay empty of imports so that every module can be imported
 on its own (the JAX package's ``core/__init__`` import cycle is not
-copied).
+copied); ``service``, ``reads`` and ``changelog`` export their public
+classes as the reference's do, and none of them is imported by a module
+they import.
 """

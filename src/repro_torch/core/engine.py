@@ -15,7 +15,10 @@ hand-written kernels of ``csrc/`` (scan_window, occ_round, index_merge,
 thomas_merge), on ``cpu`` their plain PyTorch versions.  Phase times
 synchronise the device before the host clock is read.  ``run_epoch``'s
 ``ingest`` hook runs on the host while the card works through the
-partitioned phase's enqueued launches (no thread, no second stream).
+partitioned phase's enqueued launches (no thread; the engine uses one
+stream, and the read tier's executor, which the service runs in the
+hook, one of its own).  ``read_views()`` and ``committed_state()`` hand
+out the committed snapshot buffers, which the next fence overwrites.
 """
 from __future__ import annotations
 
@@ -401,8 +404,40 @@ class StarEngine:
         self.stats.fence_net_s += t_net
         return t_net
 
+    def committed_state(self):
+        """The committed full-replica arrays — what a new changelog
+        subscriber seeds its projection from.  These are the snapshot
+        buffers themselves, which the next fence overwrites: a subscriber
+        copies what it keeps."""
+        sn = self.store.snapshot
+        return sn["val"], sn["tid"]
+
     def replica_consistent(self) -> bool:
         return self.store.equals(self.replica_store)
+
+    def read_views(self):
+        """Committed snapshot views for the read tier's SnapshotCatalog:
+        the master copy plus the (single-host) operation replica, both
+        covering every partition with the identity row mapping — two
+        independently load-balanceable serving copies.  Views reference
+        the committed snapshot buffers, never the working arrays; the
+        next fence overwrites those buffers in place, so the catalog
+        copies what it retains (``SnapshotCatalog.stamp``)."""
+        wm = self.changelog.watermark(self.committed_epoch)
+        P = self.P
+        cover = np.ones(P, bool)
+        rop = np.arange(P, dtype=np.int64)
+        views = []
+        for rid, kind, store in (("full", "full", self.store),
+                                 ("replica", "secondary",
+                                  self.replica_store)):
+            sn = store.snapshot
+            views.append({"id": rid, "kind": kind, "node": 0,
+                          "epoch": self.committed_epoch, "watermark": wm,
+                          "cover": cover, "row_of_partition": rop,
+                          "val": sn["val"], "tid": sn["tid"],
+                          "idx": sn["indexes"] if self.has_index else []})
+        return views
 
     # ------------------------------------------------------------------
     # fault tolerance (§4.5)

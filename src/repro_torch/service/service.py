@@ -57,22 +57,26 @@ class TxnService:
         node_of_partition: cluster deployments pass the partition→node map
         so admission enforces per-node queue bounds and attributes
         shed/depth telemetry per node (see ClusterTxnService).
-        read_tier, analytics: the reference's read lane and HTAP lane,
-        which the port does not have yet; anything but None raises
-        NotImplementedError.
+        read_tier: optional ``reads.ReadTier`` — declared-read-only
+        transactions route to a bounded read lane and are served from
+        replica snapshots between fences instead of burning OCC slots.
+        analytics: optional ``changelog.AnalyticsLane`` — incrementally
+        maintained materialized views subscribe to the engine's changelog
+        and the CH-style query mix serves between fences from the
+        epoch-stamped aggregate snapshots.
         metrics: optional ``obs.MetricsRegistry`` (one is created if not
-        given) — the engine/service/admission stats dataclasses register
+        given) — the engine/service/read-tier stats dataclasses register
         into it and ``_observe_epoch`` records a per-epoch snapshot."""
-        if read_tier is not None or analytics is not None:
-            raise NotImplementedError("the port has no read tier or "
-                                      "analytics lane yet")
         self.engine = engine
         self.clients = list(clients)
         self.feedback = feedback
+        self.read_tier = read_tier
+        self.analytics = analytics
         M = max_ops if max_ops is not None else self.clients[0].source.M
         self.admission = AdmissionController(
             engine.P, engine.R, M, engine.C, cfg=admission_cfg,
-            node_of_partition=node_of_partition)
+            node_of_partition=node_of_partition,
+            read_lane=read_tier is not None)
         src = self.clients[0].source
         self.batcher = EpochBatcher(self.admission, slots_per_partition,
                                     master_lanes, row_bytes=src.row_bytes,
@@ -88,6 +92,13 @@ class TxnService:
         self.metrics.register_object("engine", engine.stats)
         self.metrics.register_object("service", self.stats)
         self.metrics.register_object("admission", self.admission.stats)
+        if read_tier is not None:
+            self.metrics.register_object("reads", read_tier.stats)
+        if analytics is not None:
+            self.metrics.register_provider(
+                "analytics",
+                lambda: {k.removeprefix("analytics_"): v
+                         for k, v in analytics.summary().items()})
         self.metrics.register_provider("kernels", obs.kernel_launch_counts)
 
     # ------------------------------------------------------------------
@@ -182,6 +193,15 @@ class TxnService:
         self._t0 = time.perf_counter()
         self._deadline = duration_s
         self.recorder.started_s = 0.0
+        if self.read_tier is not None:
+            self.read_tier.recorder.started_s = 0.0
+            self.read_tier.observe_epoch(self.engine)   # initial catalog
+            clog = getattr(self.engine, "changelog", None)
+            if clog is not None:
+                # mid-epoch slab-watermark serving rides the changelog
+                self.read_tier.attach_changelog(clog)
+        if self.analytics is not None:
+            self.analytics.ensure_attached(self.engine)
         self._ingest(self.clock())
         batch, plan = self.batcher.form(self.clock())
         nxt = {}
@@ -190,6 +210,13 @@ class TxnService:
             self._ingest(self.clock())
             with obs.span("service.batch_form", cat="service"):
                 nxt["formed"] = self.batcher.form(self.clock())
+            if self.read_tier is not None:
+                # mid-epoch: k=0 serves of partitions below the slab
+                # watermark, overlapped with device execution (the
+                # executor's own stream waits only on its snapshot's copy);
+                # dirty partitions defer to the fence
+                self.read_tier.serve(self.admission, self.clock(),
+                                     mid_epoch=True)
 
         while True:
             if max_epochs is not None and self.stats.epochs >= max_epochs:
@@ -213,9 +240,22 @@ class TxnService:
                 self.feedback(batch, m)
             self._complete(plan, m)
             self._observe_epoch(m)
+            if self.read_tier is not None:
+                # commit fence passed: refresh the snapshot catalog, then
+                # serve the read lane BETWEEN fences from the committed
+                # replica snapshots (no OCC slots burned)
+                self.read_tier.observe_epoch(self.engine, m)
+                self.read_tier.serve(self.admission, self.clock())
+            if self.analytics is not None:
+                # the HTAP lane: queries answered from the epoch-stamped
+                # MV snapshots the changelog commit just refreshed
+                self.analytics.serve(self.engine.committed_epoch,
+                                     self.clock())
             batch, plan = nxt["formed"]
 
         self.recorder.finished_s = self.clock()
+        if self.read_tier is not None:
+            self.read_tier.recorder.finished_s = self.clock()
         return self.summary()
 
     def _observe_epoch(self, metrics: dict):
@@ -246,4 +286,12 @@ class TxnService:
             "ingest_overlap_s": self.stats.ingest_time_s,
             "epoch_time_s": self.stats.epoch_time_s,
         }
+        if self.read_tier is not None:
+            out.update(self.read_tier.summary())
+            out["write_committed"] = self.stats.committed
+            out["write_txn_s"] = out["throughput_txn_s"]
+            out["combined_txn_s"] = (out["throughput_txn_s"]
+                                     + out["read_txn_s"])
+        if self.analytics is not None:
+            out.update(self.analytics.summary())
         return out

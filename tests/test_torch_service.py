@@ -282,14 +282,36 @@ def test_open_loop_end_to_end():
 
 
 @pytest.mark.parametrize("lane", ["read_tier", "analytics"])
-def test_unported_lanes_refused(lane):
-    """The reference's read tier and analytics lane are not ported: the
-    service refuses them rather than run without them."""
-    cfg = ycsb.YCSBConfig(n_partitions=4, records_per_partition=256)
-    client = OpenLoopClient(YCSBSource(cfg, seed=1), rate_txn_s=100.0)
-    with pytest.raises(NotImplementedError):
-        TxnService(StarEngine(4, 256, device="cpu"), [client],
-                   **{lane: object()})
+def test_service_lane_runs(lane):
+    """Each lane through the service on the CPU port engine over TPC-C's
+    full mix: it serves, and the service's summary carries the lane's
+    summary keys, which are the JAX lane's."""
+    from repro.changelog import AnalyticsLane as JLane
+    from repro.reads import ReadTier as JTier
+    from repro_torch.changelog import AnalyticsLane
+    from repro_torch.reads import ReadTier
+    cfg, state, eng = _tpcc("full")
+    client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                            rate_txn_s=3000.0)
+    obj = (ReadTier(max_staleness_epochs=1) if lane == "read_tier"
+           else AnalyticsLane(cfg))
+    ref = (JTier(max_staleness_epochs=1) if lane == "read_tier"
+           else JLane(cfg))
+    svc = TxnService(eng, [client], AdmissionConfig(256, 256),
+                     slots_per_partition=8, master_lanes=8,
+                     feedback=lambda b, m:
+                     tpcc.apply_consume_feedback(state, b, m),
+                     **{lane: obj})
+    out = svc.run(duration_s=30.0, max_epochs=4)
+    assert out["epochs"] == 4 and out["committed"] > 0
+    assert set(ref.summary()) <= set(out)
+    assert set(obj.summary()) == set(ref.summary())
+    if lane == "read_tier":
+        assert out["read_served"] > 0 and out["read_stale_violations"] == 0
+        assert {"write_committed", "write_txn_s", "combined_txn_s"} <= set(out)
+    else:
+        assert out["analytics_serves"] == 4 and out["analytics_mv_slabs"] > 0
+    assert eng.replica_consistent()
 
 
 def test_overload_sheds_not_unbounded():
