@@ -87,6 +87,35 @@ Phases, in order; any failed check exits non-zero:
    bit-equal to its plain version on the CPU and timed (the new call
    shapes); the snapshot copy timed a view and the dirty gate's host
    copy a slab;
+10. the cluster path (run after phase 9): 4 simulated nodes over phase
+   4's configuration (4 partitions a node, physical secondary copies, 4
+   stream slabs).  A ``ClusterStarEngine`` and a ``StarEngine`` fed the
+   same batches (two ``TPCCState``s from one seed, each with its consume
+   feedback), 1 warm and 4 measured epochs: commit counts equal,
+   ``consistent()`` at every fence, the partial and full copies and every
+   index segment bit-equal to the single-host master after every epoch;
+   the cluster's new call shapes (the secondary replay's
+   ``index_merge`` with rolled ``part_ids``, the scatter-back
+   ``thomas_merge`` into the partial and into the secondary copy) held
+   bit-equal to their plain versions and timed.  Then one
+   ``ClusterRuntime`` with the per-node WAL through the three recovery
+   cases at full width — a partial node killed at a fence
+   (PHASE_SWITCHING), node 0 killed mid-stream at slab 1
+   (FALLBACK_DIST_CC: its block restored from the physical secondary
+   copy, the full copy rebuilt from the partials), nodes 0-2 killed
+   (UNAVAILABLE: ``recover_full`` on the card reloads records and
+   indexes) — bit-equal to a ``StarEngine`` run without a failure after
+   every epoch, each slab applied once; the fig11 cluster (ppn = 1) on
+   the card and the CPU across a mid-stream kill, every copy bit-equal
+   after every epoch; and ``ClusterTxnService`` over the full-width
+   runtime (examples/serve_cluster.py's shape: TPC-C at 1,500 txn/s for
+   3.0 s, ``AdmissionConfig(64, 64, node_queue_cap=96)``, both of phase
+   9's lanes) with node 2 killed mid-run: one recovery, copies
+   consistent at every fence, the per-node commits summing to the
+   engine's, 0 stale reads, the views' stamps equal to ``recompute`` at
+   every fence.  It prints a ``cluster_path`` JSON line, and each STAR
+   kernel row gains ``cluster_launches`` (the service run) and
+   ``cluster_engine_launches`` (the 4 measured epochs);
 5. LM kernel parity: Hymba-1.5B at its published widths and depth in
    bf16, random weights from a seed, serves 8 requests of 2,048 tokens
    plus 2 new ones through ``ServeEngine.generate`` while the first call
@@ -152,8 +181,10 @@ name and power limit and one ``LANES {...}`` JSON line a run.
 
 It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels (with each STAR kernel's launches in every service
-run and by the read path's lanes), one of main-path figures, one of
-service-path figures, one of read-path figures, one of serve-path figures and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
+run, by the read path's lanes and on the cluster path), one of main-path
+figures, one of service-path figures, one of read-path figures, one of
+cluster-path figures, one of serve-path figures and, last, the
+``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
 """
@@ -208,6 +239,11 @@ READ_K, READ_REFRESH = 2, 2      # staleness bound, replica view cadence
 READ_SNAPSHOTS = 4               # distinct (replica, epoch) snapshots checked
 READ_DIRECT_EPOCHS = 4           # epochs whose reads serve after the fence
 READ_DIRECT_TXNS = 512
+# phase 10: the cluster (4 simulated nodes over phase 4's configuration)
+CLUSTER_NODES, CLUSTER_SLABS = 4, 4
+CLUSTER_EPOCHS = 4                # measured, after one warm epoch
+CLUSTER_RECOVERY_EPOCHS = 5       # kills at epochs 2, 3 (slab 1) and 5
+CLUSTER_KILL_EPOCH = 6            # the service run's kill (node 2)
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -1827,6 +1863,476 @@ def read_path(dev, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the STAR cluster on the card
+# ---------------------------------------------------------------------------
+def mk_cluster(cfg_kw, seed, device, runtime=False, **kw):
+    """A TPC-C cluster at ``cfg_kw`` over ``CLUSTER_NODES`` simulated
+    nodes with physical secondary copies: the engine, or (``runtime``) a
+    ``ClusterRuntime`` around it.  Returns (cfg, state, engine or
+    runtime)."""
+    import numpy as np
+    from repro_torch.cluster import ClusterRuntime
+    from repro_torch.core.cluster import ClusterStarEngine
+    from repro_torch.db import tpcc
+    cfg = tpcc.TPCCConfig(**cfg_kw)
+    state = tpcc.TPCCState(cfg)
+    init = tpcc.init_values(cfg, np.random.default_rng(seed), state=state)
+    cls = ClusterRuntime if runtime else ClusterStarEngine
+    c = cls(CLUSTER_NODES, cfg.n_partitions, cfg.rows_per_partition,
+            init_val=init, indexes=tpcc.index_specs(cfg),
+            max_rounds=MAX_ROUNDS, n_slabs=CLUSTER_SLABS, device=device,
+            **kw)
+    return cfg, state, c
+
+
+def copy_state(eng, which):
+    """One copy of a cluster engine ("part", "full" or "sec") as a state
+    dict for :func:`same_store`."""
+    return {"val": getattr(eng, f"{which}_val"),
+            "tid": getattr(eng, f"{which}_tid"),
+            "indexes": getattr(eng, f"{which}_idx")}
+
+
+def same_as_star(eng, star):
+    """The cluster's partial and full copies, records and every index
+    segment, bit-equal to the single-host engine's master (compared where
+    they lie, on the card)."""
+    import torch
+    want = [star.store.val, star.store.tid] + [
+        ix[f] for ix in star.store.indexes for f in ("key", "prow", "tid")]
+    for w in ("part", "full"):
+        st = copy_state(eng, w)
+        got = [st["val"], st["tid"]] + [
+            ix[f] for ix in st["indexes"] for f in ("key", "prow", "tid")]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            return False
+    return True
+
+
+def span_split(tracer):
+    """Seconds by span name over a tracer's events."""
+    out = {}
+    for e in tracer.events():
+        if e["dur_s"] is not None:
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur_s"]
+    return out
+
+
+def cluster_kernel_checks(calls, kernels):
+    """The cluster's new call shapes against their plain versions, timed:
+    the secondary replay's ``index_merge`` (rolled ``part_ids``) and the
+    single-master stream's two scatter-back ``thomas_merge`` calls (the
+    partial copy through ``thomas_apply_batch``, the secondary copy with
+    its rows remapped home-major)."""
+    from repro_torch.kernels.index_merge.ops import index_merge_cuda
+    from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
+    from repro_torch.kernels.thomas_merge.ops import thomas_merge
+    from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
+
+    args, _ = calls["cluster/sec_replay"]
+    P, cap = args[0].shape
+    Kd, Ki = args[3].shape[1], args[4].shape[1]
+    lg = max(cap, Ki).bit_length()
+    fig = shape_figures(index_merge_cuda, index_merge_unsorted_plain, args,
+                        {}, nbytes=P * cap * 16 * 2
+                        + P * (Kd * 4 + Ki * 16 + 4),
+                        nops=P * (Kd + Ki + 2 * cap) * lg * 3)
+    check(fig.pop("equal"), "cluster: the secondary replay's index_merge "
+          "differs from its plain version")
+    check(fig["kernels_per_call"] <= 2, f"cluster sec replay index_merge: "
+          f"{fig['kernels_per_call']} kernels a call")
+    fig["shape_P_cap_Kd_Ki"] = [P, cap, Kd, Ki]
+    kernels["index_merge"]["cluster_sec_replay"] = fig
+
+    (val, tidw, slog), _ = calls["cluster/part_scatter"]
+    C = val.shape[1]
+    part = (val, tidw, slog["row"].reshape(-1), slog["val"].reshape(-1, C),
+            slog["tid"].reshape(-1))
+    sec, _ = calls["cluster/sec_scatter"]
+    for key, args in (("cluster_part_scatter", part),
+                      ("cluster_sec_scatter", sec)):
+        val, tidw, rows = args[0], args[1], args[2]
+        Kw = int(rows.numel())
+        a = to(args, val.device)
+        thomas_merge(*a)
+        n_win = int((a[1] != tidw).sum())
+        n_live = int((rows >= 0).sum())
+        tid0 = tidw.clone()
+
+        def reset(x, tid0=tid0):
+            """Restore the TID column (values rewritten are the same)."""
+            x[1].copy_(tid0)
+        fig = shape_figures(thomas_merge, thomas_merge_plain, args, {},
+                            nbytes=Kw * 4 + n_live * (8 + 8)
+                            + n_win * (4 * C + 4 * C + 8),
+                            nops=Kw + n_live * 3, reset=reset)
+        check(fig.pop("equal"), f"cluster: the {key} thomas_merge call "
+              f"differs from its plain version")
+        check(fig["kernels_per_call"] == 1, f"cluster {key}: "
+              f"{fig['kernels_per_call']} kernels a call")
+        fig.update(rows=int(val.shape[0]), cols=int(C), writes=Kw,
+                   live=n_live, winners=n_win)
+        kernels["thomas_merge"][key] = fig
+
+
+def record_cluster_epoch(eng, batch):
+    """Run ``batch`` through the cluster engine with the first call of
+    each new shape recorded: the secondary replay's index_merge, the
+    scatter-back merges into the partial and the secondary copies."""
+    from repro_torch.core import replication
+    from repro_torch.core.ops import IDX_OPS
+    from repro_torch.kernels.index_merge import ops as im_ops
+    rec = Recorder()
+    ctx = {"sec": False}
+    orig = replication.apply_index_ops
+
+    def flagged(*a, part_ids=None, **k):
+        ctx["sec"] = part_ids is not None
+        try:
+            return orig(*a, part_ids=part_ids, **k)
+        finally:
+            ctx["sec"] = False
+    replication.apply_index_ops = flagged
+    rec._undo.append((replication, "apply_index_ops", orig))
+    P = eng.P
+    # the slab replay's merges are (P, P*K); the index rounds' (P, B*K)
+    rec.wrap(im_ops, "index_merge_cuda",
+             lambda key, prow, tid, dk, ik, ip, it:
+             "cluster/sec_replay" if ctx["sec"]
+             and ik.shape[1] <= P * IDX_OPS else None)
+    rec.wrap(replication, "thomas_apply_batch",
+             lambda *a, **k: "cluster/part_scatter")
+    rec.wrap(replication, "thomas_apply",
+             lambda *a, **k: "cluster/sec_scatter")
+    try:
+        m = eng.run_epoch(batch)
+    finally:
+        rec.restore()
+    return m, rec.calls
+
+
+def cluster_path(dev, kernels):
+    """Phase 10: the STAR cluster on the card — ``CLUSTER_NODES`` simulated
+    nodes over phase 4's P = 16 TPC-C at full width with physical
+    secondary copies.  Engine parity against a ``StarEngine`` fed the
+    same batches; the cluster's new kernel call shapes against their
+    plain versions; the three recovery cases at full width; the fig11
+    cluster card against CPU across a mid-stream kill; and
+    ``ClusterTxnService`` with both lanes over the full-width runtime with
+    a node killed mid-run.  Returns the ``cluster_path`` figures; the STAR
+    kernels' rows gain ``cluster_launches``."""
+    import copy
+    import tempfile
+    from collections import Counter
+    import numpy as np
+    import torch
+    from repro_torch.changelog import AnalyticsLane
+    from repro_torch.cluster import ClusterTxnService
+    from repro_torch.core.fault import FaultInjector, RecoveryCase
+    from repro_torch.db import tpcc
+    from repro_torch.db.wal import Durability
+    from repro_torch.kernels import _build
+    from repro_torch.obs import trace as obs
+    from repro_torch.reads import ReadTier
+    from repro_torch.service import (AdmissionConfig, OpenLoopClient,
+                                     TPCCSource)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fig = {"nodes": CLUSTER_NODES, "n_slabs": CLUSTER_SLABS,
+           "txns_per_epoch": MAIN_TXNS}
+
+    # ---- engine parity: the cluster and a StarEngine on the same batches
+    cfg, st_c, eng = mk_cluster(MAIN, 0, dev)
+    _, st_s, star = mk_engine(MAIN, 0, dev)
+    print(f"cluster path: {CLUSTER_NODES} nodes x {eng.ppn} partitions, "
+          f"P={cfg.n_partitions}, {CLUSTER_SLABS} slabs, secondary copies "
+          f"{eng.secondary}")
+
+    def both(seed, first=False, tracer=None):
+        """One epoch on each engine; the cluster's alone is timed, counted
+        and (``tracer``) traced."""
+        bc = tpcc.make_batch(cfg, st_c, MAIN_TXNS, seed=seed)
+        bs = tpcc.make_batch(cfg, st_s, MAIN_TXNS, seed=seed)
+        calls = None
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        old = obs.set_tracer(tracer) if tracer is not None else None
+        t0 = time.perf_counter()
+        try:
+            if first:
+                mc, calls = record_cluster_epoch(eng, bc)
+            else:
+                mc = eng.run_epoch(bc)
+        finally:
+            wall = time.perf_counter() - t0
+            if tracer is not None:
+                obs.set_tracer(old)
+        launches = _build.launch_counts()
+        ms = star.run_epoch(bs)
+        tpcc.apply_consume_feedback(st_c, bc, mc)
+        tpcc.apply_consume_feedback(st_s, bs, ms)
+        e = eng.epoch - 1
+        check(mc["committed_single"] == ms["committed_single"]
+              and mc["committed_cross"] == ms["committed_cross"],
+              f"cluster: commit counts differ from the StarEngine's at "
+              f"epoch {e}")
+        check(eng.consistent(), f"cluster: copies diverged at fence {e}")
+        check(same_as_star(eng, star), f"cluster: copies differ from the "
+              f"StarEngine's master at epoch {e}")
+        return mc, wall, launches, calls
+
+    _, _, _, calls = both(3000, first=True)
+    tracer = obs.Tracer(enabled=True)
+    engine_launches = {}
+    rows = []
+    for ep in range(CLUSTER_EPOCHS):
+        mc, wall, ln, _ = both(3001 + ep, tracer=tracer)
+        for k, n in ln.items():
+            engine_launches[k] = engine_launches.get(k, 0) + n
+        rows.append((mc, wall))
+        print(f"cluster epoch {eng.epoch - 1}: committed "
+              f"{mc['committed_single']}+{mc['committed_cross']} wall "
+              f"{wall:.4f}s t_part={mc['t_part_s']:.4f}s "
+              f"t_sm={mc['t_sm_s']:.4f}s, bit-equal to the StarEngine")
+    spans = span_split(tracer)
+    committed = sum(m["committed_single"] + m["committed_cross"]
+                    for m, _ in rows)
+    wall = sum(w for _, w in rows)
+    fig["engine"] = {
+        "epochs": CLUSTER_EPOCHS, "committed": committed, "wall_s": wall,
+        "committed_txn_per_s": committed / wall,
+        "epoch_walls": [w for _, w in rows],
+        "split_s": {
+            "partitioned": spans.get("engine.partitioned", 0.0),
+            "fence1": spans.get("fence.tail_ship", 0.0)
+            + spans.get("fence.psum", 0.0),
+            "single_master": spans.get("engine.single_master", 0.0),
+            "fence2_replay_drain": spans.get("engine.fence", 0.0),
+            "replay_drain": spans.get("fence.replay_drain", 0.0)},
+        "replica_s": {k: spans.get(k, 0.0) for k in (
+            "replica.replay_full", "replica.replay_secondary",
+            "replica.scatter_back", "changelog.commit")},
+        "op_bytes_overlapped": sum(m["op_bytes_overlapped"] for m, _ in rows),
+        "op_bytes_fence": sum(m["op_bytes_fence"] for m, _ in rows),
+        "node_committed": eng.node_committed.tolist(),
+        "launches": engine_launches,
+        "launches_by_kernel": by_kernel(engine_launches)}
+    for k in STAR_KERNELS:
+        check(fig["engine"]["launches_by_kernel"][k] > 0,
+              f"cluster engine: {k} never launched")
+    print(f"cluster engine: {committed} committed in {wall:.3f} s, "
+          f"{committed / wall:.1f} txn/s; split {fig['engine']['split_s']}")
+    del eng, star, st_c, st_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster_kernel_checks(calls, kernels)
+    del calls
+    part_s = {"engine_parity": time.perf_counter() - t_phase}
+    tp = time.perf_counter()
+
+    # ---- recovery at full width: the three cases, one runtime with the
+    # per-node WAL, a StarEngine fed the same batches without a failure
+    inj = FaultInjector()
+    inj.schedule_kill(2, epoch=2)                  # a partial node
+    inj.schedule_kill(0, epoch=3, slab=1)          # the master, mid-stream
+    for n in (0, 1, 2):                            # no full replica, no
+        inj.schedule_kill(n, epoch=5)              # complete partial set
+    tmp = tempfile.TemporaryDirectory()
+    # a checkpoint at epoch 3: the reload replays epoch 4's logs
+    dur = Durability(tmp.name, n_workers=CLUSTER_NODES, checkpoint_every=3)
+    cfg, st_c, rt = mk_cluster(MAIN, 1, dev, runtime=True, injector=inj,
+                               durability=dur)
+    _, st_s, star = mk_engine(MAIN, 1, dev)
+    cases = []
+    for ep in range(CLUSTER_RECOVERY_EPOCHS):
+        bc = tpcc.make_batch(cfg, st_c, MAIN_TXNS, seed=4000 + ep)
+        bs = tpcc.make_batch(cfg, st_s, MAIN_TXNS, seed=4000 + ep)
+        mc = rt.run_epoch(bc)
+        ms = star.run_epoch(bs)
+        tpcc.apply_consume_feedback(st_c, bc, mc)
+        tpcc.apply_consume_feedback(st_s, bs, ms)
+        check(rt.replica_consistent(), f"cluster recovery: copies diverged "
+              f"at fence {rt.committed_epoch}")
+        check(same_as_star(rt.eng, star), f"cluster recovery: copies "
+              f"differ from the StarEngine's after epoch {ep + 1}")
+        ev = mc.get("recovery")
+        if ev is not None:
+            cases.append({"epoch": ev.epoch, "failed": list(ev.failed),
+                          "case": ev.case.name, "run_mode": ev.run_mode,
+                          "t_recovery_s": ev.t_recovery_s,
+                          "slabs_discarded": ev.slabs_discarded,
+                          "aborted_at_slab": ev.aborted_at_slab,
+                          "restored_from_secondary":
+                          list(ev.restored_from_secondary),
+                          "reloaded_from_disk": ev.reloaded_from_disk})
+            print(f"cluster recovery: epoch {ev.epoch} nodes "
+                  f"{list(ev.failed)} {ev.case.name} in "
+                  f"{ev.t_recovery_s:.4f} s, then bit-equal to the "
+                  f"StarEngine")
+    want = [RecoveryCase.PHASE_SWITCHING.name,
+            RecoveryCase.FALLBACK_DIST_CC.name, RecoveryCase.UNAVAILABLE.name]
+    check([c["case"] for c in cases] == want, f"cluster recovery: cases "
+          f"{[c['case'] for c in cases]}, expected {want}")
+    check(cases[1]["slabs_discarded"] >= 1
+          and cases[1]["restored_from_secondary"] == [0],
+          "cluster recovery: the mid-stream kill discarded no slab or did "
+          "not restore node 0 from its secondary copy")
+    check(cases[2]["reloaded_from_disk"], "cluster recovery: UNAVAILABLE "
+          "did not reload from the WAL")
+    check(max(Counter(rt.eng.slab_ledger).values()) == 1,
+          "cluster recovery: a slab applied twice")
+    fig["recovery"] = {"epochs": CLUSTER_RECOVERY_EPOCHS, "cases": cases,
+                       "wal_entries": dur.entries_logged,
+                       "wal_checkpoints": dur.checkpoints}
+    dur.close()
+    tmp.cleanup()
+    del rt, star, st_c, st_s, dur
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_s["recovery"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+
+    # ---- card against CPU: the fig11 cluster (ppn = 1) across a kill
+    sides = []
+    for d in (dev, "cpu"):
+        inj = FaultInjector()
+        inj.schedule_kill(1, epoch=2, slab=1)
+        sides.append(mk_cluster(FIG11, 0, d, runtime=True, injector=inj))
+    for ep in range(FIG11_EPOCHS):
+        ms = []
+        for c, st, r in sides:
+            b = tpcc.make_batch(c, st, FIG11_TXNS, seed=ep)
+            ms.append(r.run_epoch(b))
+            tpcc.apply_consume_feedback(st, b, ms[-1])
+        (_, _, g), (_, _, h) = sides
+        check(all(same_store(copy_state(g.eng, w), copy_state(h.eng, w))
+                  for w in ("part", "full", "sec")),
+              f"cluster card vs CPU: copies differ after epoch {ep}")
+        check(g.replica_consistent() and h.replica_consistent(),
+              f"cluster card vs CPU: copies diverged at epoch {ep}")
+        check(all(np.array_equal(ms[0][k], ms[1][k])
+                  for k in ("p_committed", "c_committed")),
+              f"cluster card vs CPU: commit masks differ at epoch {ep}")
+    check(all(len(r.coordinator.events) == 1 for _, _, r in sides),
+          "cluster card vs CPU: the kill was not recovered on both")
+    print(f"cluster card vs CPU: {FIG11_EPOCHS} fig11 epochs on "
+          f"{CLUSTER_NODES} nodes across a mid-stream kill, partial, full "
+          f"and secondary copies bit-equal")
+    fig["card_vs_cpu"] = {"config": "fig11", "epochs": FIG11_EPOCHS,
+                          "case": sides[0][2].coordinator.events[0].case.name}
+    del sides
+    part_s["card_vs_cpu"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+
+    # ---- the entry point: ClusterTxnService over the full-width runtime
+    inj = FaultInjector()
+    inj.schedule_kill(2, epoch=CLUSTER_KILL_EPOCH)
+    cfg, state, rt = mk_cluster(MAIN, 0, dev, runtime=True, injector=inj)
+    tier = ReadTier(max_staleness_epochs=READ_K,
+                    sec_refresh_every=READ_REFRESH)
+    lane = AnalyticsLane(cfg)
+    views = lane.views
+    client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                            rate_txn_s=SERVICE_TPCC_RATE)
+    svc = ClusterTxnService(rt, [client],
+                            AdmissionConfig(64, 64, node_queue_cap=96),
+                            slots_per_partition=SERVICE_SLOTS,
+                            master_lanes=SERVICE_LANES,
+                            feedback=lambda b, m: tpcc.apply_consume_feedback(
+                                state, b, m), read_tier=tier, analytics=lane)
+    fences = {}
+    run_epoch = rt.run_epoch
+
+    def fenced(batch, ingest=None):
+        m = run_epoch(batch, ingest=ingest)
+        e = rt.committed_epoch
+        check(rt.replica_consistent(), f"cluster service: copies diverged "
+              f"at fence {e}")
+        if views.attached:
+            stamp_e, aggs = views.latest()
+            check(stamp_e == e, f"cluster service: views stamped {stamp_e} "
+                  f"at fence {e}")
+            fences[e] = (aggs, rt.committed_state()[0].clone(),
+                         "recovery" in m)
+        return m
+    rt.run_epoch = fenced
+    print(f"cluster service: TPC-C at {SERVICE_TPCC_RATE:.0f} txn/s for "
+          f"{SERVICE_TPCC_S} s, both lanes, node 2 killed at epoch "
+          f"{CLUSTER_KILL_EPOCH}")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = svc.run(duration_s=SERVICE_TPCC_S)
+    finally:
+        vars(rt).pop("run_epoch", None)
+    svc_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    svc_launches = _build.launch_counts()
+    client.shutdown()
+    check(rt.replica_consistent(), "cluster service: copies diverged")
+    check(out["recoveries"] == 1, f"cluster service: {out['recoveries']} "
+          f"recoveries")
+    check(sum(out["node_committed"]) == rt.stats.committed_single,
+          "cluster service: node_committed does not sum to the committed "
+          "single-partition transactions")
+    check(tier.stats.stale_violations == 0, "cluster service: stale reads")
+    by = by_kernel(svc_launches)
+    for k in STAR_KERNELS:
+        check(by[k] > 0, f"cluster service: {k} never launched")
+    after = False
+    n_checked = 0
+    for e, (aggs, val, rec) in sorted(fences.items()):
+        after = after or rec
+        want_aggs = views.recompute(val)
+        check(all(np.array_equal(aggs[k], want_aggs[k]) for k in want_aggs),
+              f"cluster service: the views' stamp differs from recompute at "
+              f"fence {e}")
+        n_checked += after
+    check(n_checked > 0, "cluster service: no fence after the recovery")
+    ev = svc.recovery_events[0]
+    fig["service"] = {k: out[k] for k in (
+        "throughput_txn_s", "p50_ms", "p99_ms", "p999_ms", "committed",
+        "epochs", "offered", "admitted", "shed", "node_committed",
+        "node_fence_wait_s", "node_queue_depth_max", "node_shed",
+        "recoveries", "recovery_latency_s", "op_bytes_overlapped",
+        "op_bytes_fence", "slabs_shipped", "slabs_discarded", "read_served",
+        "read_p50_ms", "read_p99_ms", "read_stale_violations",
+        "analytics_serves", "epoch_time_s", "ingest_overlap_s")}
+    n_obs = 1 + out["epochs"]
+    fig["service"].update(
+        wall_s=svc_wall, offered_rate_txn_s=SERVICE_TPCC_RATE,
+        duration_s=SERVICE_TPCC_S, kill={"node": 2,
+                                         "epoch": CLUSTER_KILL_EPOCH,
+                                         "case": ev.case.name,
+                                         "t_recovery_s": ev.t_recovery_s},
+        fences_checked=len(fences), fences_after_recovery=int(n_checked),
+        launches=svc_launches, launches_by_kernel=by,
+        snapshot_bytes_per_fence=tier.catalog.stamp_bytes / n_obs,
+        snapshot_stamps=tier.catalog.stamp_copies, observed_fences=n_obs)
+    for k, row in kernels.items():
+        row["cluster_launches"] = by.get(k, 0)
+        row["cluster_engine_launches"] = \
+            fig["engine"]["launches_by_kernel"].get(k, 0)
+    print(f"cluster service: {out['throughput_txn_s']:.1f} txn/s p50 "
+          f"{out['p50_ms']:.2f} p99 {out['p99_ms']:.2f} ms, "
+          f"{out['committed']} committed in {out['epochs']} epochs, "
+          f"recovery {ev.case.name} in {ev.t_recovery_s:.4f} s, "
+          f"{out['read_served']} reads, node_committed "
+          f"{out['node_committed']}, launches {by}")
+    del rt, svc, tier, lane, views, fences, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_s["service"] = time.perf_counter() - tp
+    fig["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    fig["wall_s"] = time.perf_counter() - t_phase
+    fig["part_wall_s"] = part_s
+    print(f"cluster path: {fig['wall_s']:.1f} s ({part_s}), peak device "
+          f"memory {fig['peak_memory_bytes'] / 1e9:.3f} GB")
+    return fig
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the LM serving path (Hymba-1.5B)
 # ---------------------------------------------------------------------------
 def allclose_err(got, want, tol):
@@ -2482,6 +2988,8 @@ def run(dev):
     torch.cuda.empty_cache()
     reads = read_path(dev, kernels)
     reads.update(device=name, nvidia_smi=smi)
+    cluster = cluster_path(dev, kernels)
+    cluster.update(device=name, nvidia_smi=smi)
     lm_rows, serve = serve_path(dev)
     lm_rows["rmsnorm"]["decode"].update(launch_floor_prof_ms=floor,
                                         launch_floor_events_ms=floor_ev)
@@ -2491,6 +2999,7 @@ def run(dev):
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"service_path": service}))
     print(json.dumps({"read_path": reads}))
+    print(json.dumps({"cluster_path": cluster}))
     print(json.dumps({"serve_path": serve}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 """Calibrated cluster cost model for the evaluation baselines (§7) — the
-port keeps the network envelope the engine's fence model uses (the
-baseline throughput models wait for the benchmark slice).
+port keeps the network envelope the engine's fence model uses and the
+calibration record ``baselines.calibrate`` measures (the baseline
+throughput models wait for the benchmark slice).
 
 The transaction *algorithms* (OCC rounds, lock conflicts, replication
 streams) execute for real in the vectorized engine; absolute wall-clock
@@ -26,3 +27,20 @@ class Network:
     rtt_s: float = 100e-6                  # same-AZ round trip
     def transfer_s(self, nbytes: float) -> float:
         return nbytes / self.bandwidth_Bps
+
+
+@dataclass(frozen=True)
+class Node:
+    workers: int = 12                      # paper: 12 worker threads/node
+
+
+@dataclass
+class Calibration:
+    """Per-txn costs measured on the calibrating device (seconds), plus
+    conflict telemetry measured from the real executors."""
+    t_single_cpu: float                    # single-partition txn, no CC
+    t_cross_cpu: float                     # cross-partition txn under OCC
+    retry_factor: float = 0.0              # measured retries per committed txn
+    value_bytes_per_txn: float = 0.0       # replication payload
+    op_bytes_per_txn: float = 0.0          # hybrid replication payload
+    remote_reads_per_cross: float = 2.0    # measured avg remote ops

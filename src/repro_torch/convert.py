@@ -1,8 +1,9 @@
 """Carry state across between numpy (the JAX package's arrays, read with
-``np.asarray``) and the port: storage state for ``StorageEngine``, and a
-JAX LM parameter tree for ``models.transformer.LM``.
+``np.asarray``) and the port: storage state for ``StorageEngine``, a JAX
+cluster engine's copies for ``core.cluster.ClusterStarEngine``, and a JAX
+LM parameter tree for ``models.transformer.LM``.
 
-TID words are uint32 in the reference and int64 in the port; both storage
+TID words are uint32 in the reference and int64 in the port; the storage
 functions check the range as they convert.
 """
 from __future__ import annotations
@@ -105,3 +106,34 @@ def params_from_jax(params, cfg, device=None):
                              f"needs {want[k][0]}")
         out[k] = _tensor(v, dev)
     return out
+
+
+def cluster_state_from_jax(engine, state, epoch: int):
+    """Load a JAX ``ClusterStarEngine``'s committed state into a port
+    ``core.cluster.ClusterStarEngine`` (``engine``), working and snapshot
+    copies alike.  ``state`` holds the reference engine's arrays as numpy:
+    ``part_val``/``full_val`` (P, R, C) int32, ``part_tid``/``full_tid``
+    (P, R) uint32, ``part_idx``/``full_idx`` lists of key/prow int32, tid
+    uint32 (P, cap), and, where the reference kept physical secondary
+    copies, ``sec_val``/``sec_tid``/``sec_idx`` in its rolled layout (else
+    the port's are rolled from the partial copy).  ``epoch`` is the
+    reference engine's ``epoch``: the one it runs next, after ``epoch -
+    1`` committed fences.  TID words widen to int64 as in
+    :func:`from_jax_state`."""
+    from repro_torch.core.cluster import _clone
+    st = {}
+    for copy in ("part", "full", "sec"):
+        if copy == "sec" and (not engine.secondary or "sec_val" not in state):
+            continue
+        t = from_jax_state(state[f"{copy}_val"], state[f"{copy}_tid"],
+                           state[f"{copy}_idx"], device=engine.device)
+        st.update({f"{copy}_val": t["val"], f"{copy}_tid": t["tid"],
+                   f"{copy}_idx": t["indexes"]})
+    if engine.secondary and "sec_val" not in state:
+        st.update({f"sec_{k}": v for k, v in engine._roll_home(
+            {k: st[f"part_{k}"] for k in ("val", "tid", "idx")}).items()})
+    engine._load_state(st)
+    engine._snap = _clone(st)
+    engine.epoch = int(epoch)
+    engine.committed_epoch = int(epoch) - 1
+    return engine

@@ -9,11 +9,13 @@ The coordinator (deployable as a Paxos/Raft replicated state machine — we
 model it as the view service) detects failures at the replication fence,
 broadcasts the failed set, reverts to the last committed epoch (two-version
 records, db.revert_to_snapshot) and selects one of the paper's four recovery
-cases (§4.5.3).
+cases (§4.5.3).  ``FaultInjector`` schedules the node kills the cluster
+runtime detects at its fences; ``catch_up`` is the case-1 Thomas-rule
+catch-up of a recovering node.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
 
 
@@ -126,3 +128,67 @@ def make_recovery_plan(cfg: ClusterConfig, failed: set[int],
     return RecoveryPlan(case=case, revert_to_epoch=committed_epoch,
                         remaster=remaster, copy_sources=copy_sources,
                         run_mode=run_mode)
+
+
+def catch_up(val, tidw, donor_log, thomas_apply):
+    """A recovering node copies remote data and applies live updates with the
+    Thomas write rule in parallel (§4.5.3 case 1)."""
+    return thomas_apply(val, tidw, donor_log["row"], donor_log["val"],
+                        donor_log["tid"])
+
+
+# ---------------------------------------------------------------------------
+# live failure injection
+# ---------------------------------------------------------------------------
+@dataclass
+class FaultInjector:
+    """Schedules node kills at chosen epochs for the cluster runtime.
+
+    The coordinator polls the injector at every replication fence (a
+    killed node's fence message never arrives — the §4.5 missed-heartbeat
+    detection); a kill takes effect DURING the scheduled epoch, so that
+    epoch's work is never committed: the coordinator reverts to the last
+    committed epoch and runs the classified recovery.  ``killed`` tracks
+    nodes currently down; recovery revives them once their state is
+    restored from a donor or from disk (case-1 copy + catch-up, §4.5.3).
+
+    ``schedule_kill(..., slab=s)`` kills the node MID-STREAM: while the
+    scheduled epoch's partitioned phase executes stream slab ``s`` —
+    slabs ``0..s-1`` have already shipped to the replicas, so the epoch
+    aborts with that prefix of its op stream consumed, exercising the
+    §4.5 revert's slab high-watermark (exactly-once re-streaming).
+    ``slab=0`` kills before anything shipped (nothing to discard).
+    """
+    schedule: dict = field(default_factory=dict)    # epoch -> set[node]
+    slab_schedule: dict = field(default_factory=dict)  # epoch -> {slab: set}
+    killed: set = field(default_factory=set)
+    kills_injected: int = 0
+
+    def schedule_kill(self, node: int, epoch: int, slab: int | None = None):
+        if slab is None:
+            self.schedule.setdefault(int(epoch), set()).add(int(node))
+        else:
+            self.slab_schedule.setdefault(int(epoch), {}).setdefault(
+                int(slab), set()).add(int(node))
+
+    def slab_kills(self, epoch: int) -> dict:
+        """Peek the mid-stream kills of ``epoch`` ({slab: nodes}) without
+        consuming them — the runtime arms its abort check from this before
+        polling the fence."""
+        return {s: set(ns)
+                for s, ns in self.slab_schedule.get(int(epoch), {}).items()}
+
+    def poll(self, epoch: int) -> set[int]:
+        """Nodes newly killed during ``epoch`` (mid-stream kills included —
+        by fence time they are just as dead); they join ``killed``."""
+        fresh = set(self.schedule.pop(int(epoch), set()))
+        for nodes in self.slab_schedule.pop(int(epoch), {}).values():
+            fresh |= set(nodes)
+        fresh -= self.killed
+        self.killed |= fresh
+        self.kills_injected += len(fresh)
+        return fresh
+
+    def revive(self, nodes):
+        for n in nodes:
+            self.killed.discard(int(n))

@@ -18,9 +18,11 @@ it retains.  The JAX engine makes new arrays at every fence, so a
 reference to them stays as stamped; the port's engine copies each fence
 into the same snapshot buffers, so ``stamp`` keeps a copy of ``val``,
 ``tid`` and every index field.  A retained snapshot then never changes
-after its fence.  On the card the copy is enqueued on the current stream
-and an event recorded after it (``snap["ready"]``): the read executor's
-own stream waits on that event alone, not on the epoch queued behind it.
+after its fence.  Views of one fence that hold the same arrays (the
+cluster engine's secondary views) share one copy.  On the card the copy
+is enqueued on the current stream and an event recorded after it
+(``snap["ready"]``): the read executor's own stream waits on that event
+alone, not on the epoch queued behind it.
 
 Lifecycle: a killed node's hosted copies are ``remove()``d — their
 retained snapshots died with the node's memory — and re-registered by the
@@ -45,6 +47,26 @@ def _own(x):
     return np.array(x, copy=True)
 
 
+class _FenceCopies:
+    """The copies ``stamp`` made at one fence, by source array: views of
+    one fence that hold the same array (the cluster engine's secondary
+    views all hold its one rolled secondary copy) share one copy."""
+
+    def __init__(self):
+        self.epoch = None
+        self._made = {}            # id(source) -> (source, copy)
+
+    def own(self, x, epoch: int):
+        if epoch != self.epoch:
+            self.epoch, self._made = epoch, {}
+        hit = self._made.get(id(x))
+        if hit is not None and hit[0] is x:
+            return hit[1], False
+        c = _own(x)
+        self._made[id(x)] = (x, c)
+        return c, True
+
+
 @dataclass
 class ReplicaEntry:
     replica_id: str
@@ -67,8 +89,9 @@ class SnapshotCatalog:
         self.retain = max(1, int(retain))
         self.entries: dict[str, ReplicaEntry] = {}
         self.current_epoch = 0     # last fence epoch any stamp announced
-        self.stamp_copies = 0      # snapshots copied by stamp()
-        self.stamp_bytes = 0       # bytes those copies moved
+        self.stamp_copies = 0      # snapshots stamped by stamp()
+        self.stamp_bytes = 0       # bytes those stamps copied
+        self._fence = _FenceCopies()
 
     # -- lifecycle -------------------------------------------------------
     def stamp(self, view: dict):
@@ -89,11 +112,16 @@ class SnapshotCatalog:
         self.current_epoch = max(self.current_epoch, epoch)
         if ent.snaps and ent.snaps[-1][0] >= epoch:
             return                                  # already stamped
-        snap = {"val": _own(view["val"]), "tid": _own(view["tid"]),
-                "idx": [{f: _own(ix[f]) for f in FIELDS}
+        copied = []
+
+        def own(x):
+            c, fresh = self._fence.own(x, epoch)
+            if fresh:
+                copied.append(c)
+            return c
+        snap = {"val": own(view["val"]), "tid": own(view["tid"]),
+                "idx": [{f: own(ix[f]) for f in FIELDS}
                         for ix in (view.get("idx") or [])]}
-        copied = [snap["val"], snap["tid"]] + [ix[f] for ix in snap["idx"]
-                                               for f in FIELDS]
         val = snap["val"]
         if isinstance(val, torch.Tensor) and val.device.type == "cuda":
             snap["ready"] = torch.cuda.Event()
