@@ -147,6 +147,26 @@ Phases, in order; any failed check exits non-zero:
    prefill ends); then a prefill, and a prefill
    with 8 decode steps, under ``torch.profiler`` for where the time goes.
 
+11. train path: first both backward kernels (the port's own: the JAX
+   package differentiates its XLA attention and RMSNorm) against autograd
+   through their plain versions run in float32 on the card: rmsnorm's on
+   a sweep (1 to 16,384 rows, widths 1,024 to 12,288, bf16 and f32, with
+   and without the residual), flash's on a sweep of small prefill shapes
+   (every head dim, masks, the padded head map, rows that see no key) and
+   at three training shapes (Granite-MoE's 8 x 2,048 x 16 over 8 heads,
+   Hymba's prefill with its window and padded heads, D = 128), each in
+   bf16 and in f32 at batch 1; both timed at the train path's shapes
+   beside their plain version, the library call and the bound.  Then
+   Granite-MoE at full width and 2 layers in f32: 3 ``Trainer`` steps on
+   the card and on the CPU from one state (routing, losses, gradient
+   norms, parameters).  Then Granite-3.0-1B-A400M at full width and depth
+   in bf16, 8 x 2,048 tokens a step: 2 untimed and 12 timed steps (the
+   loss must fall; launches of the four LM kernels a step), a revert to
+   the fence and a disk checkpoint round trip (both bit-equal), the
+   replication report, one profiled step and one split by hand.  It
+   prints a ``train_path`` JSON line; the kernels line gains the two
+   backward rows and the forward rows' launches a training step.
+
 Before phase 2 it times the least kernel, a one-element ``fill_``, by
 torch.profiler (the launch floor).
 
@@ -163,7 +183,7 @@ scan's 3xTF32 products count three times), bf16 989 TFLOP/s.
 in one call instead: PARENT is a directory holding another checkout's
 ``src/repro_torch`` (the parent commit unpacked with ``git archive``, for
 example).  It runs phase 4's measured epochs and profiled epoch, phase
-7's prefill and the SSD kernel on its recorded prefill arguments, with
+7's generate (prefill and decode) and the SSD kernel on its recorded prefill arguments, with
 each tree's kernels, in four processes: parent, this tree, this tree,
 parent.  Each process also times the probe (both phases), the OCC round
 and ``thomas_apply_batch`` through the executors' wrappers on the
@@ -183,7 +203,8 @@ It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels (with each STAR kernel's launches in every service
 run, by the read path's lanes and on the cluster path), one of main-path
 figures, one of service-path figures, one of read-path figures, one of
-cluster-path figures, one of serve-path figures and, last, the
+cluster-path figures, one of serve-path figures, one of train-path
+figures and, last, the
 ``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
@@ -244,6 +265,28 @@ CLUSTER_NODES, CLUSTER_SLABS = 4, 4
 CLUSTER_EPOCHS = 4                # measured, after one warm epoch
 CLUSTER_RECOVERY_EPOCHS = 5       # kills at epochs 2, 3 (slab 1) and 5
 CLUSTER_KILL_EPOCH = 6            # the service run's kill (node 2)
+# phase 11: the train path (Granite-3.0-1B-A400M, full width and depth)
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # 16,384 tokens a step
+TRAIN_WARM, TRAIN_TIMED = 2, 12           # untimed, then timed steps
+TRAIN_EPOCH = 4                           # steps an epoch (a fence)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
+# card against CPU: full width, depth cut to 2 layers, float32
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 256
+TRAIN_PARITY_STEPS = 3
+TOL_TRAIN_LOSS = 1e-4                     # relative; reasons at the check
+TOL_TRAIN_GNORM = 1e-3
+TOL_ROUTE_GAP = 1e-5                      # a routing flip needs a tie
+TOL_TRAIN_PARAM_Q = 1e-6                  # each leaf's 99.9 % quantile
+# the backward kernels' sweeps and shapes
+RMS_BWD_ROWS = (1, 64, 65, 16384)
+RMS_BWD_WIDTHS = (1024, 1600, 1601, 12288)
+# on max |kernel - plain| / max |plain| of each gradient: bf16 outputs
+# round to 2^-9 and flash rounds P and dS to bf16 before their products
+# (as the forward rounds P), so the error scales with the tensor's
+# largest element; float32: both in float32, sums in another order
+TOL_BF16_BWD = 2e-2
+TOL_F32_BWD = 1e-5
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -253,6 +296,10 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
     "mamba2_ssd": "src/repro/kernels/mamba2_ssd/kernel.py:75",
+    # the port's own backward kernels: no TPU kernel; the JAX package
+    # differentiates these functions in XLA
+    "rmsnorm.backward": "src/repro/models/layers.py:18",
+    "flash_attention.backward": "src/repro/models/attention.py:61",
 }
 SOURCE = {
     "scan_window": "src/repro_torch/csrc/scan_window.cu",
@@ -262,6 +309,8 @@ SOURCE = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "mamba2_ssd": "src/repro_torch/csrc/ssd.cu",
+    "rmsnorm.backward": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention.backward": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -2908,6 +2957,619 @@ def serve_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the train path
+# ---------------------------------------------------------------------------
+def grad_err(got, want):
+    """max |got - want| / max |want| over the tensors of two trees (each
+    tensor on its own scale), float32; fails on a non-finite value."""
+    import torch
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.float(), w.float()
+        check(g.shape == w.shape, f"shape {tuple(g.shape)} vs "
+              f"{tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), "non-finite gradient")
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def rmsnorm_grad_plain(dy, dres, x, w, r, eps=1e-5):
+    """(dx, dw) by autograd through the plain rmsnorm in float32."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    y, s = rmsnorm_ref(xf, wf, None if r is None else r.float(), eps)
+    if r is None or dres is None:
+        return torch.autograd.grad(y, (xf, wf), dy.float())
+    return torch.autograd.grad((y, s), (xf, wf), (dy.float(), dres.float()))
+
+
+def flash_grad_plain(do, q, k, v, q_pos, k_pos, **kw):
+    """(dq, dk, dv) by autograd through the plain attention in float32."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    out = attention_ref(*leaves, q_pos, k_pos, **kw)
+    return torch.autograd.grad(out, leaves, do.float())
+
+
+def rmsnorm_bwd_sweep(dev):
+    """The rmsnorm backward kernel against autograd through its plain
+    version (float32) at RMS_BWD_ROWS x RMS_BWD_WIDTHS, bf16 and float32,
+    with and without the residual: both vector widths (1,601 is not a
+    multiple of 8), one row, rows past the grid's blocks (16,384 rows over
+    4 blocks an SM), the widest row.  Returns the worst error by dtype."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_backward
+    gen = torch.Generator(device=dev).manual_seed(23)
+    worst, n = {}, 0
+    for dtype, tol in ((torch.bfloat16, TOL_BF16_BWD),
+                       (torch.float32, TOL_F32_BWD)):
+        for T in RMS_BWD_ROWS:
+            for D in RMS_BWD_WIDTHS:
+                x, r, dy, dres = (torch.randn((T, D), generator=gen,
+                                              device=dev).to(dtype)
+                                  for _ in range(4))
+                w = torch.randn((D,), generator=gen, device=dev).to(dtype)
+                for rr, dr in ((r, dres), (None, None)):
+                    got = rmsnorm_backward(dy, dr, x, w, rr)
+                    want = rmsnorm_grad_plain(dy, dr, x, w, rr)
+                    torch.cuda.synchronize()
+                    err = grad_err(got, want)
+                    check(err <= tol, f"rmsnorm backward {dtype} T={T} "
+                          f"D={D} residual={rr is not None}: kernel differs "
+                          f"from its plain version by {err} (tolerance "
+                          f"{tol})")
+                    key = str(dtype)[6:]
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+                del x, r, dy, dres, w, got, want
+    torch.cuda.empty_cache()
+    print(f"rmsnorm backward sweep: {n} cases, " + ", ".join(
+        f"{k} max rel err {e:.3g}" for k, e in worst.items()))
+    return worst
+
+
+def flash_bwd_sweep(dev):
+    """The flash backward kernel against autograd through the plain
+    version on small prefill shapes: f32 and bf16, every head dim, ragged
+    lengths, causal, windowed and bidirectional masks, a regular GQA map
+    and Hymba's padded one, empty key slots, rows that see no key (their
+    gradient reaches every v row, dO / Sk, and no q or k) and a head where
+    no row sees a key."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device=dev).manual_seed(29)
+    hymba = [min(h // 5, 6) for h in range(32)]
+    ar = lambda n, off=0: torch.arange(off, off + n, dtype=torch.int32)
+    cases = [
+        (2, 4, 2, None, ar(100), ar(100), True, None),
+        (1, 32, 7, hymba, ar(150), ar(150), True, 40),
+        (2, 4, 2, None, ar(70), ar(130), False, None),
+        # keys start at 10 and some slots are empty: queries 0-9 see none
+        (1, 32, 7, hymba, ar(70),
+         torch.where(ar(130) % 7 == 3, -1, ar(130, 10)), True, 48),
+        (2, 16, 1, None, ar(64), ar(64), True, 24),
+        (1, 8, 4, None, ar(33), ar(90, 40), False, 20),
+        (2, 4, 2, None, ar(5), ar(40, 10), True, None),    # none sees any
+    ]
+    worst = {}
+    for dtype, tol in ((torch.float32, TOL_F32_BWD),
+                       (torch.bfloat16, TOL_BF16_BWD)):
+        for D in fa.HEAD_DIMS:
+            for B, H, Hkv, kvh, qp, kp, causal, window in cases:
+                Sq, Sk = qp.shape[0], kp.shape[0]
+                q, do = (torch.randn((B, Sq, H, D), generator=gen,
+                                     device=dev).to(dtype) for _ in range(2))
+                k, v = (torch.randn((B, Sk, Hkv, D), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                qp, kp = qp.to(dev), kp.to(dev)
+                kw = dict(causal=causal, window=window, kv_head=kvh)
+                o, lse = fa._forward(q, k, v, qp, kp, causal, window, None,
+                                     kvh, True)
+                got = fa.attention_backward(do, q, k, v, o, lse, qp, kp,
+                                            **kw)
+                want = flash_grad_plain(do, q, k, v, qp, kp, **kw)
+                torch.cuda.synchronize()
+                err = grad_err(got, want)
+                check(err <= tol, f"flash backward sweep {dtype} D={D} "
+                      f"B={B} H={H}/{Hkv} Sq={Sq} Sk={Sk} causal={causal} "
+                      f"window={window}: kernel differs from its plain "
+                      f"version by {err} (tolerance {tol})")
+                key = str(dtype)[6:]
+                worst[key] = max(worst.get(key, 0.0), err)
+    print("flash backward sweep: " + ", ".join(
+        f"{k} max rel err {e:.3g}" for k, e in worst.items()))
+    return worst
+
+
+def flash_bwd_shape(dev, B, S, H, Hkv, D, window, kv_head, gen):
+    """The flash backward kernel at one training shape: bf16 at batch B
+    and float32 at batch 1, every request held against the plain version
+    on that request alone.  Returns (bf16 inputs, bf16 max abs error,
+    bf16 error, f32 error)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=window, kv_head=kv_head)
+    errs = []
+    for dtype, b in ((torch.bfloat16, B), (torch.float32, 1)):
+        q, do = (torch.randn((b, S, H, D), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, S, Hkv, D), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        o, lse = fa._forward(q, k, v, pos, pos, True, window, None, kv_head,
+                             True)
+        got = fa.attention_backward(do, q, k, v, o, lse, pos, pos, **kw)
+        err = abs_err = 0.0
+        for i in range(b):
+            one = slice(i, i + 1)
+            want = flash_grad_plain(do[one], q[one], k[one], v[one], pos,
+                                    pos, **kw)
+            mine = [g[one] for g in got]
+            err = max(err, grad_err(mine, want))
+            abs_err = max(abs_err, *(float((g.float() - t).abs().max())
+                                     for g, t in zip(mine, want)))
+            del want, mine
+        tol = TOL_BF16_BWD if dtype == torch.bfloat16 else TOL_F32_BWD
+        check(err <= tol, f"flash backward {dtype} B={b} S={S} H={H}/{Hkv} "
+              f"D={D} window={window}: kernel differs from its plain "
+              f"version by {err} (tolerance {tol})")
+        errs.append(err)
+        if dtype == torch.bfloat16:
+            keep, keep_abs = (q, k, v, o, lse, do, pos, kw), abs_err
+        del got
+    return keep, keep_abs, errs[0], errs[1]
+
+
+def backward_kernel_rows(dev):
+    """Phase 11, step 1: both backward kernels against autograd through
+    their plain versions (sweeps, then the training shapes), and timed at
+    the train path's shapes beside the plain version, the library call
+    and the bound.  Returns {name: kernel row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_backward
+    rms_sweep = rmsnorm_bwd_sweep(dev)
+    fl_sweep = flash_bwd_sweep(dev)
+    rows = {}
+    # -- rmsnorm backward at the train path's shape: 16,384 x 1,024 bf16,
+    # the residual form (norm2 of every layer)
+    cfg = get_arch(TRAIN_ARCH)
+    T, D = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x, r, dy, dres = (torch.randn((T, D), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(4))
+    w = torch.randn((D,), generator=gen, device=dev).to(torch.bfloat16)
+    got = rmsnorm_backward(dy, dres, x, w, r)
+    want = rmsnorm_grad_plain(dy, dres, x, w, r)
+    err = grad_err(got, want)
+    check(err <= TOL_BF16_BWD, f"rmsnorm backward at the train shape: "
+          f"{err} (tolerance {TOL_BF16_BWD})")
+    abs_err = max(float((g.float() - v).abs().max())
+                  for g, v in zip(got, want))
+    del got, want
+    s = (x.float() + r.float()).to(x.dtype).requires_grad_()
+    wl = w.detach().clone().requires_grad_()
+    ys = F.rms_norm(s, (D,), wl, 1e-5)
+    # x, r, dy, dres in and dx (= d(residual)) out; w in and dw out
+    nbytes = 2 * (5 * T * D + 2 * D)
+    b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    b_ops = 12 * T * D / H100_F32_FLOPS * 1e3
+    fig = call_figures(lambda: rmsnorm_backward(dy, dres, x, w, r))
+    rows["rmsnorm.backward"] = {
+        "name": "rmsnorm.backward", "route": "cuda",
+        "source": SOURCE["rmsnorm.backward"],
+        "replaces": REPLACES["rmsnorm.backward"],
+        "replaces_note": "no TPU kernel: the port's own backward of "
+                         "rmsnorm_pallas (src/repro/kernels/rmsnorm/"
+                         "kernel.py:30); the JAX package differentiates "
+                         "layers.rms_norm in XLA",
+        "launches": 0, "max_abs_err": abs_err, "max_rel_err": err,
+        "tolerance": TOL_BF16_BWD, "ms": fig["ms"], "prof_ms": fig["prof_ms"],
+        "kernels_per_call": fig["kernels_per_call"],
+        "plain_ms": cuda_ms(lambda: rmsnorm_grad_plain(dy, dres, x, w, r),
+                            reps=5),
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            ys, (s, wl), dy, retain_graph=True)),
+        "library_note": "F.rms_norm's autograd backward on the pre-added "
+                        "sum (no d(residual) input)",
+        "shape": [T, D], "sweep_max_rel_err": rms_sweep,
+        "bytes": nbytes, "host_us": fig["host_us"]}
+    del x, r, dy, dres, w, s, wl, ys
+    torch.cuda.empty_cache()
+    # -- flash backward at three shapes: Granite-MoE's training shape,
+    # Hymba's prefill shape (window 1,024, 32 padded heads over 7 kv
+    # heads through kv_index_map) and D = 128 (Granite-8B's head dim)
+    hymba = get_arch("hymba-1.5b")
+    shapes = {
+        "granite-moe train": (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.d_head, None, None),
+        "hymba prefill": (TRAIN_BATCH, TRAIN_SEQ, hymba.n_heads_padded,
+                          hymba.n_kv_heads_padded, hymba.d_head,
+                          hymba.sliding_window, hymba.kv_index_map()),
+        "D=128": (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, None, None)}
+    errs, keep = {}, None
+    for name, (B, S, H, Hkv, Dh, window, kvh) in shapes.items():
+        inputs, e_abs, e16, e32 = flash_bwd_shape(dev, B, S, H, Hkv, Dh,
+                                                  window, kvh, gen)
+        errs[name] = {"bf16": e16, "float32": e32}
+        if keep is None:
+            keep, abs_err = inputs, e_abs
+        del inputs
+        torch.cuda.empty_cache()
+    print("flash backward at the training shapes, every request, max rel "
+          "err: " + json.dumps(errs))
+    q, k, v, o, lse, do, pos, kw = keep
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    pairs = B * H * S * (S + 1) // 2
+    flops = 5 * 2 * pairs * Dh           # five products of the forward's size
+    # q, o, dO in and dQ out; k, v in and dK, dV out; the LSE in (f32)
+    nbytes = 2 * (4 * B * S * H * Dh + 4 * B * S * Hkv * Dh) + 4 * B * H * S
+    b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    b_ops = flops / H100_BF16_FLOPS * 1e3
+    fig = call_figures(lambda: fa.attention_backward(do, q, k, v, o, lse, pos,
+                                                     pos, **kw))
+    idx = torch.tensor(fa.head_map(H, Hkv), device=dev)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.index_select(2, idx).transpose(1, 2).detach().requires_grad_()
+    vt = v.index_select(2, idx).transpose(1, 2).detach().requires_grad_()
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    rows["flash_attention.backward"] = {
+        "name": "flash_attention.backward", "route": "cuda",
+        "source": SOURCE["flash_attention.backward"],
+        "replaces": REPLACES["flash_attention.backward"],
+        "replaces_note": "no TPU kernel: the port's own backward of "
+                         "flash_attention_pallas (src/repro/kernels/"
+                         "flash_attention/kernel.py:92); the JAX package "
+                         "differentiates chunked_attention in XLA",
+        "launches": 0, "max_abs_err": abs_err,
+        "max_rel_err": errs["granite-moe train"]["bf16"],
+        "tolerance": TOL_BF16_BWD, "ms": fig["ms"], "prof_ms": fig["prof_ms"],
+        "kernels_per_call": fig["kernels_per_call"],
+        "plain_ms": cuda_ms(lambda: flash_grad_plain(do, q, k, v, pos, pos,
+                                                     **kw), reps=5),
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True)),
+        "library_note": "SDPA's backward (is_causal) on K/V expanded to "
+                        "every query head",
+        "shape": [B, S, H, Hkv, Dh], "flops": flops, "bytes": nbytes,
+        "shapes_max_rel_err": errs, "sweep_max_rel_err": fl_sweep,
+        "host_us": fig["host_us"],
+        "forward_with_lse_ms": cuda_ms(lambda: fa._forward(
+            q, k, v, pos, pos, True, None, None, None, True)),
+        "forward_ms": cuda_ms(lambda: fa.attention(q, k, v, pos, pos,
+                                                   causal=True))}
+    del q, k, v, o, lse, do, qt, kt, vt, ot, dot, keep
+    torch.cuda.empty_cache()
+    return rows
+
+
+def route_recorder(moe_lib, log, side):
+    """Wrap ``moe.route`` so that each call appends (``side[0]``, expert
+    ids, the gap between each token's k-th and (k+1)-th gate) to ``log``;
+    returns the undo."""
+    import torch
+    orig = moe_lib.route
+
+    def route(router, x_flat, cfg):
+        out = orig(router, x_flat, cfg)
+        with torch.no_grad():
+            gates = torch.softmax(x_flat.float() @ router, dim=-1)
+            top = torch.topk(gates, cfg.top_k + 1, dim=-1).values
+            log.append((side[0], out[1].cpu(),
+                        (top[:, -2] - top[:, -1]).cpu()))
+        return out
+    moe_lib.route = route
+    return lambda: setattr(moe_lib, "route", orig)
+
+
+def train_parity(dev):
+    """Phase 11, step 2: Granite-MoE at full width, depth cut to
+    TRAIN_PARITY_LAYERS, float32 (no TF32 anywhere), TRAIN_PARITY_STEPS
+    ``Trainer`` steps on the card (kernels) and on the CPU (plain
+    versions) from the same parameters and batches.  The routing ids are
+    compared first: a token routed otherwise on the two sides must have a
+    tie (its k-th and (k+1)-th gates within TOL_ROUTE_GAP).  Then the
+    losses (TOL_TRAIN_LOSS relative: float32 sums in another order), the
+    gradient norms (TOL_TRAIN_GNORM) and the parameters, leaf by leaf.
+    Adam's normalised step moves a coordinate by up to lr whatever the
+    size of its gradient, so a coordinate whose gradient is at the noise
+    level can move by up to lr a step in either direction on the two
+    sides: every coordinate is held to 2 x the sum of the steps' learning
+    rates, which only a non-finite or runaway update can break.  The
+    gate that catches a wrong gradient is each leaf's 99.9 % quantile of
+    |card - CPU| <= TOL_TRAIN_PARAM_Q (1.3 % of the first step's lr):
+    where a gradient is well above the noise, float32 sums in another
+    order change its step by ~1e-6 of lr, while a wrong gradient moves
+    most coordinates of its leaf by ~lr."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              n_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    tcfg = TrainerConfig(seq_len=TRAIN_PARITY_SEQ, batch=TRAIN_PARITY_BATCH,
+                         steps_per_epoch=TRAIN_EPOCH,
+                         hp=AdamWConfig(lr=TRAIN_LR,
+                                        warmup_steps=TRAIN_WARMUP))
+    cpu = Trainer(cfg, tcfg, device="cpu")
+    card = Trainer(cfg, tcfg, device=dev)
+    card.load_state(cpu.params, cpu.opt_state)
+    log, side = [], ["cpu"]
+    undo = route_recorder(moe_lib, log, side)
+    try:
+        for _ in range(TRAIN_PARITY_STEPS):
+            side[0] = "cpu"
+            cpu.run(1)
+            side[0] = "card"
+            card.run(1)
+    finally:
+        undo()
+    sides = {t: [(i, g) for d, i, g in log if d == t] for t in ("cpu",
+                                                               "card")}
+    check(len(sides["cpu"]) == len(sides["card"]) > 0,
+          "train parity: route calls differ in number")
+    flips, worst_gap = 0, 0.0
+    for (ic, gc), (ig, _) in zip(sides["cpu"], sides["card"]):
+        bad = (ic != ig).any(-1)
+        flips += int(bad.sum())
+        if bad.any():
+            worst_gap = max(worst_gap, float(gc[bad].max()))
+    check(worst_gap <= TOL_ROUTE_GAP, f"train parity: {flips} tokens routed "
+          f"otherwise on the card, with a gate gap up to {worst_gap} "
+          f"(a tie is <= {TOL_ROUTE_GAP})")
+    out = {"layers": TRAIN_PARITY_LAYERS, "batch": TRAIN_PARITY_BATCH,
+           "seq": TRAIN_PARITY_SEQ, "steps": TRAIN_PARITY_STEPS,
+           "route_calls": len(sides["cpu"]), "routing_flips": flips,
+           "worst_flip_gap": worst_gap}
+    for key, tol in (("loss", TOL_TRAIN_LOSS), ("grad_norm",
+                                                TOL_TRAIN_GNORM)):
+        a = [m[key] for m in cpu.metrics_history]
+        b = [m[key] for m in card.metrics_history]
+        rel = max(abs(x - y) / max(abs(x), 1e-12) for x, y in zip(a, b))
+        check(rel <= tol, f"train parity: {key} card {b} vs CPU {a} "
+              f"(relative {rel}, tolerance {tol})")
+        out[f"{key}_cpu"], out[f"{key}_card"] = a, b
+        out[f"{key}_max_rel_err"] = rel
+    lr_sum = sum(TRAIN_LR * min(1.0, (t + 1) / TRAIN_WARMUP)
+                 for t in range(TRAIN_PARITY_STEPS))
+    bound = 2 * lr_sum
+    worst, worst_q, worst_leaf = 0.0, 0.0, None
+    for k, p in cpu.params.items():
+        d = (card.params[k].detach().cpu() - p.detach()).abs().reshape(-1)
+        worst = max(worst, float(d.max()))
+        # every coordinate of the leaf, sorted: torch.quantile takes at
+        # most 2^24 elements
+        q = float(d.sort().values[min(d.numel() - 1,
+                                      int(0.999 * d.numel()))])
+        if q >= worst_q:
+            worst_q, worst_leaf = q, k
+    check(worst <= bound, f"train parity: parameters differ by {worst} "
+          f"(bound {bound} = 2 x the steps' learning rates)")
+    check(worst_q <= TOL_TRAIN_PARAM_Q, f"train parity: {worst_leaf}'s "
+          f"99.9 % quantile of |card - CPU| is {worst_q} (tolerance "
+          f"{TOL_TRAIN_PARAM_Q})")
+    out.update(param_max_abs_err=worst, param_bound=bound,
+               param_leaf_p999_abs_err=worst_q, param_p999_leaf=worst_leaf,
+               param_p999_tolerance=TOL_TRAIN_PARAM_Q)
+    del cpu, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_digest(tr):
+    """(float64 sum, int64 sum of the raw bits) of every parameter and
+    optimizer-state tensor, in a fixed order: equal digests of equal
+    shapes are what a bit-equal state gives."""
+    import torch
+    from repro_torch.train.star_dp import tree_leaves
+    out = []
+    for t in tree_leaves({"p": tr.params, "o": tr.opt_state}):
+        t = t.detach()
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        out.append((float(t.double().sum()), int(bits.long().sum())))
+    return out
+
+
+def same_as_commit(tr):
+    """Whether the live state equals the committed snapshot bit for bit."""
+    import torch
+    from repro_torch.train.star_dp import tree_leaves
+    c = tr.commit_log.committed
+    live = tree_leaves({"p": tr.params, "o": tr.opt_state})
+    snap = tree_leaves({"p": c.params, "o": c.opt_state})
+    return len(live) == len(snap) and all(
+        torch.equal(a.detach(), b) for a, b in zip(live, snap))
+
+
+def train_path(dev, rows):
+    """Phase 11, step 3: ``Trainer`` on Granite-3.0-1B-A400M at full width
+    and depth in bf16, TRAIN_BATCH x TRAIN_SEQ tokens a step, remat as the
+    config says.  Returns the train_path figures; sets the train path's
+    launches a step on ``rows`` (the four LM kernel rows)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.star_dp import EpochCommitLog
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_arch(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainerConfig(
+        seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, steps_per_epoch=TRAIN_EPOCH,
+        hp=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)), device=dev)
+    setup_s = time.perf_counter() - t0
+    tr.run(TRAIN_WARM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    tr.run(TRAIN_TIMED)
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history[TRAIN_WARM:]
+    losses = [m["loss"] for m in tr.metrics_history]
+    timed = [m["loss"] for m in hist]
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"train: a non-finite loss in {losses}")
+    first, last = (statistics.mean(timed[:4]), statistics.mean(timed[-4:]))
+    check(last < first, f"train: the loss did not fall ({timed})")
+    L = cfg.n_layers
+    per_step = {k: counts.get(k, 0) / TRAIN_TIMED for k in (
+        "flash_attention.prefill", "flash_attention.backward", "rmsnorm",
+        "rmsnorm.backward")}
+    # remat: every block's forward kernels run again in the backward (the
+    # final norm is outside the blocks: once)
+    need = {"flash_attention.prefill": 2 * L, "flash_attention.backward": L,
+            "rmsnorm": 4 * L + 1, "rmsnorm.backward": 2 * L + 1}
+    for k, n in need.items():
+        check(per_step[k] == n, f"train: {k} launched {per_step[k]} times "
+              f"a step, expected {n}")
+    step_s = [m["step_s"] for m in hist]
+    med = statistics.median(step_s)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # -- revert: to the fence at step 16, two steps past it, then back
+    tr.run(TRAIN_EPOCH - tr.step % TRAIN_EPOCH)
+    fence_step = tr.step
+    digest = state_digest(tr)
+    check(same_as_commit(tr), "train: the fence's snapshot differs from "
+          "the live state")
+    tr.run(2)
+    check(state_digest(tr) != digest, "train: two steps left the state "
+          "as it was")
+    t0 = time.perf_counter()
+    back = tr.inject_failure()
+    torch.cuda.synchronize()
+    revert_s = time.perf_counter() - t0
+    check(back == fence_step and same_as_commit(tr)
+          and state_digest(tr) == digest,
+          "train: the revert is not bit-equal to the committed epoch")
+    # -- checkpoint at the fence, two steps, restore from disk
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tr.tcfg.checkpoint_dir = ckdir
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckdir, tr.step, tr.params, tr.opt_state,
+                               {"epoch": tr.step // TRAIN_EPOCH})
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(f.stat().st_size for f in path.iterdir())
+        tr.run(2)
+        t0 = time.perf_counter()
+        meta = tr.restore_from_disk()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(meta["step"] == fence_step and state_digest(tr) == digest
+              and same_as_commit(tr),
+              "train: the state restored from disk is not bit-equal to the "
+              "checkpoint")
+    finally:
+        tr.tcfg.checkpoint_dir = None
+        shutil.rmtree(ckdir, ignore_errors=True)
+    # -- hybrid replication accounting on a gradient
+    rep = tr.replication_report()
+    # -- one step under the profiler, then one split by hand
+    wall, per = profile_device(lambda: tr.run(1))
+    busy = sum(ms for ms, _ in per.values())
+    batch = {k: v.to(dev) for k, v in make_batch(
+        cfg, "train", TRAIN_SEQ, TRAIN_BATCH, seed=tr.step).items()}
+    split = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = tf.loss_fn(tr.model, batch, cfg)
+    torch.cuda.synchronize()
+    split["forward_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(tr.params.values()))
+    torch.cuda.synchronize()
+    split["backward_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adamw_update(tr.params, dict(zip(tr.params, grads)), tr.opt_state,
+                 tr.tcfg.hp)
+    torch.cuda.synchronize()
+    split["optimizer_s"] = time.perf_counter() - t0
+    del grads, loss
+    t0 = time.perf_counter()
+    EpochCommitLog(1).maybe_fence(0, tr.params, tr.opt_state)
+    torch.cuda.synchronize()
+    split["fence_snapshot_s"] = time.perf_counter() - t0
+    split.update(checkpoint_save_s=save_s, checkpoint_restore_s=restore_s,
+                 revert_s=revert_s)
+    rows.setdefault("flash_attention", {})[
+        "train_prefill_launches_per_step"] = per_step[
+            "flash_attention.prefill"]
+    rows.setdefault("rmsnorm", {})["train_launches_per_step"] = per_step[
+        "rmsnorm"]
+    rows["flash_attention.backward"]["launches"] = \
+        per_step["flash_attention.backward"]
+    rows["rmsnorm.backward"]["launches"] = per_step["rmsnorm.backward"]
+    figures = {
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+        "remat": cfg.remat, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+        "steps_per_epoch": TRAIN_EPOCH, "setup_s": setup_s,
+        "step_ms_median": med * 1e3, "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": tokens / med,
+        "train_mfu": 6 * cfg.n_active_params() * tokens / med / H100_BF16_FLOPS,
+        "train_mfu_note": "6 x n_active_params x tokens / step s / 989e12: "
+                          "attention's FLOPs and remat's recompute left out",
+        "n_active_params": cfg.n_active_params(), "n_params": cfg.n_params(),
+        "peak_mem_gb": peak / 1e9, "losses": losses,
+        "loss_first4_mean": first, "loss_last4_mean": last,
+        "launches_per_step": per_step, "revert_to_step": back,
+        "checkpoint_bytes": ck_bytes, "replication_value_bytes":
+        rep.value_bytes, "replication_op_bytes": rep.op_bytes,
+        "split": split, "profiled_step": {
+            "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            "top_kernels": [[k, ms, n] for k, (ms, n) in sorted(
+                per.items(), key=lambda kv: -kv[1][0])[:10]]},
+        "straggler_events": tr.straggler_events,
+        "fences": tr.commit_log.fences}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
+def train_phase(dev, rows):
+    """Phase 11: the backward kernels, card against CPU, the full model.
+    Adds the two backward kernels' rows to ``rows``; returns the
+    train_path figures."""
+    t0 = time.perf_counter()
+    rows.update(backward_kernel_rows(dev))
+    print("backward kernels: " + ", ".join(
+        f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, library "
+        f"{r['library_ms']:.4f})" for k, r in rows.items()
+        if k.endswith(".backward")), flush=True)
+    parity = train_parity(dev)
+    print(f"train parity: {json.dumps(parity)}", flush=True)
+    figures = train_path(dev, rows)
+    figures["parity"] = parity
+    figures["phase_s"] = time.perf_counter() - t0
+    print(f"train path: {figures['step_ms_median']:.1f} ms a step, "
+          f"{figures['tokens_per_s']:.0f} tokens/s, peak "
+          f"{figures['peak_mem_gb']:.2f} GB, phase "
+          f"{figures['phase_s']:.1f} s", flush=True)
+    return figures
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 def nvidia_smi():
@@ -2995,12 +3657,16 @@ def run(dev):
                                         launch_floor_events_ms=floor_ev)
     kernels.update(lm_rows)
     serve.update(device=name, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+    train = train_phase(dev, kernels)
+    train.update(device=name, nvidia_smi=smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"service_path": service}))
     print(json.dumps({"read_path": reads}))
     print(json.dumps({"cluster_path": cluster}))
     print(json.dumps({"serve_path": serve}))
+    print(json.dumps({"train_path": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -3236,8 +3902,9 @@ def ab_side(tree, dev):
     and profiled epoch (phase 4, after one untimed epoch whose probe and
     round calls are recorded), the probe and the round on those calls
     (:func:`occ_calls`) and ``thomas_apply_batch`` on the warm epoch's
-    single-master log, the serve path's prefill (``SERVE_RUNS`` timed
-    after two untimed), the SSD kernel alone on the arguments that prefill
+    single-master log, the serve path's generate (``SERVE_RUNS`` timed
+    after one untimed: prefill s and decode ms a step), the SSD kernel
+    alone on the arguments that prefill
     gave it, and rmsnorm on its recorded prefill and decode calls, in
     the decode chain of :func:`norm_chain` and at RMS_AB_ROWS rows.
     Prints one ``AB {...}`` JSON line."""
@@ -3302,13 +3969,14 @@ def ab_side(tree, dev):
         by_rows[n] = cuda_ms(lambda: rmsnorm(xs, w, rs, **nkw))
     out["rmsnorm_by_rows_ms"] = by_rows
     del calls, x, w, r, xs, rs
-    se.generate(prompts, 0)
-    pre = []
+    se.generate(prompts, 2)
+    pre, dec = [], []
     for _ in range(SERVE_RUNS):
         se.stats = ServeStats()
-        se.generate(prompts, 0)
+        se.generate(prompts, SERVE_GEN)
         pre.append(se.stats.prefill_s)
-    out.update(tree=str(tree), prefill_s=pre,
+        dec.append(se.stats.decode_s / se.stats.decode_steps * 1e3)
+    out.update(tree=str(tree), prefill_s=pre, decode_ms_per_step=dec,
                ssd_ms=cuda_ms(lambda: ssd(*args, **kw)))
     print("AB " + json.dumps(out), flush=True)
 

@@ -4,7 +4,8 @@ The package mirrors ``repro``'s layout module for module.  It imports
 ``torch`` and numpy only: never JAX and nothing of ``repro``.  Entry points
 (``core.engine.StarEngine``, ``storage.StorageEngine``, ``convert``,
 ``models.transformer.LM``, ``serve.engine.ServeEngine``,
-``launch.serve``) run on ``cuda`` unless the caller passes
+``launch.serve``, ``train.trainer.Trainer``, ``launch.train``) run on
+``cuda`` unless the caller passes
 ``device="cpu"``; the kernels in
 ``csrc/`` are built with nvcc at their first launch (``kernels._build``).
 

@@ -4,9 +4,10 @@
 Every ported architecture has one module in ``repro_torch.configs`` that
 instantiates :class:`ArchConfig` with the published numbers and registers it
 under its public id (``--arch <id>``).  ``SMOKE`` is a reduced config of the
-same family for CPU tests; the full config is served on the card.  The
-sharding and remat fields are kept so that configs compare field for field
-with the JAX package's; the port does not read them.
+same family for CPU tests; the full config is served and trained on the
+card.  The sharding fields are kept so that configs compare field for field
+with the JAX package's; the port reads ``remat`` and ``microbatches`` (the
+trainer) and none of the others.
 """
 from __future__ import annotations
 
@@ -208,8 +209,9 @@ ALL_ARCHS = [
     "hymba-1.5b", "dbrx-132b", "granite-moe-1b-a400m", "hubert-xlarge",
     "mamba2-130m",
 ]
-# the archs whose blocks (attn_mlp, mamba2, hymba) the port runs
-PORTED_ARCHS = ["hymba-1.5b", "granite-8b", "mamba2-130m"]
+# the archs whose blocks (attn_mlp, attn_moe, mamba2, hymba) the port runs
+PORTED_ARCHS = ["hymba-1.5b", "granite-8b", "mamba2-130m",
+                "granite-moe-1b-a400m"]
 
 
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:

@@ -1,7 +1,8 @@
 """Carry state across between numpy (the JAX package's arrays, read with
 ``np.asarray``) and the port: storage state for ``StorageEngine``, a JAX
 cluster engine's copies for ``core.cluster.ClusterStarEngine``, and a JAX
-LM parameter tree for ``models.transformer.LM``.
+LM parameter tree and optimizer state for ``models.transformer.LM`` and
+``train.trainer.Trainer``.
 
 TID words are uint32 in the reference and int64 in the port; the storage
 functions check the range as they convert.
@@ -74,6 +75,17 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def jax_key(name: str):
+    """A port parameter name -> (its "/"-joined key path in the JAX
+    package's tree, whose layers are stacked on a leading L axis; the
+    layer index, or None outside the layers): ``layers.3.moe.w_up`` ->
+    (``layers/moe/w_up``, 3), ``embed`` -> (``embed``, None)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
 def params_from_jax(params, cfg, device=None):
     """A JAX parameter tree (``repro.models.transformer.init_params``
     layout, leaves as numpy arrays, layers stacked on a leading L axis)
@@ -105,6 +117,20 @@ def params_from_jax(params, cfg, device=None):
             raise ValueError(f"{k}: shape {tuple(v.shape)}, the config "
                              f"needs {want[k][0]}")
         out[k] = _tensor(v, dev)
+    return out
+
+
+def opt_state_from_jax(opt, cfg, device=None):
+    """A JAX ``repro.train.optimizer.init_opt_state`` tree (``master``,
+    ``m``, ``v`` parameter trees and ``step``, leaves as numpy) -> the
+    port's optimizer state: ``{"master", "m", "v"}`` as ``{name: tensor}``
+    (layers unstacked as :func:`params_from_jax` does) and ``"step"`` an
+    int32 scalar, on ``device``."""
+    dev = resolve_device(device)
+    out = {s: params_from_jax(opt[s], cfg, device=dev)
+           for s in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                               dtype=torch.int32, device=dev)
     return out
 
 

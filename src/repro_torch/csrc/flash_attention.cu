@@ -65,6 +65,9 @@
 //   extra blocks gained.
 // - Masking never forms -inf - -inf: a masked score is -inf and the
 //   running max starts at -1e30, finite.
+// - Training: prefill also writes each row's log-sum-exp when the caller
+//   passes an lse buffer (serving passes NULL and pays one branch a row),
+//   and flash_attention_bwd below computes dQ, dK and dV.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,6 +105,10 @@ struct Args {
   long long qs[3], ks[3], vs[3], os[3];  // batch, head, position strides
   float scale;
   int causal, window;                     // window <= 0: none
+  // prefill: NULL, or (B, H, Sq) float32 for each row's log-sum-exp of
+  // its scaled scores (-inf for a row that sees no key), which the
+  // backward needs; serving passes NULL
+  float* lse;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -151,7 +158,8 @@ __device__ void warp_mean_v(const T* v, long long stride, int Sk,
 
 // the block's min and max query position over its nq valid rows (every
 // warp computes the same)
-__device__ __forceinline__ void q_range(const Args& a, int q0, int nq,
+template <typename A>
+__device__ __forceinline__ void q_range(const A& a, int q0, int nq,
                                         int& lo, int& hi) {
   const int lane = threadIdx.x & 31;
   lo = INT32_MAX;
@@ -164,18 +172,19 @@ __device__ __forceinline__ void q_range(const Args& a, int q0, int nq,
   hi = warp_max_i(hi);
 }
 
-// classify every key tile once, a thread a tile, into cls[0, nT): 0 when
-// no query of the block can see it (skipped before it is loaded), 2 when
-// every query sees all of it (no per-element mask), 1 otherwise.  Decided
-// from the tile's min/max key position, which holds for any explicit
-// positions; the caller synchronises before reading cls.
-__device__ void classify_tiles(const Args& a, int nT, int qlo, int qhi,
+// classify every key tile (of TBK keys) once, a thread a tile, into
+// cls[0, nT): 0 when no query of the block can see it (skipped before it
+// is loaded), 2 when every query sees all of it (no per-element mask), 1
+// otherwise.  Decided from the tile's min/max key position, which holds
+// for any explicit positions; the caller synchronises before reading cls.
+template <int TBK = BK, typename A>
+__device__ void classify_tiles(const A& a, int nT, int qlo, int qhi,
                                unsigned char* cls) {
   const bool vec = (reinterpret_cast<uintptr_t>(a.kpos) & 15) == 0;
   for (int t = threadIdx.x; t < nT; t += blockDim.x) {
-    const int k0 = t * BK, n = min(BK, a.Sk - k0);
+    const int k0 = t * TBK, n = min(TBK, a.Sk - k0);
     int lo = INT32_MAX, hi = -1;
-    bool empty = n < BK;
+    bool empty = n < TBK;
     auto upd = [&](int p) {
       if (p < 0) {
         empty = true;
@@ -184,10 +193,10 @@ __device__ void classify_tiles(const Args& a, int nT, int qlo, int qhi,
         hi = max(hi, p);
       }
     };
-    if (n == BK && vec) {
+    if (n == TBK && vec) {
       const int4* p4 = reinterpret_cast<const int4*>(a.kpos + k0);
 #pragma unroll
-      for (int i = 0; i < BK / 4; ++i) {
+      for (int i = 0; i < TBK / 4; ++i) {
         const int4 x = p4[i];
         upd(x.x);
         upd(x.y);
@@ -493,6 +502,10 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
       l[i][hf] += __shfl_xor_sync(FULL, l[i][hf], 2);
       dead[i][hf] = l[i][hf] == 0.f && r0 + 16 * i + g + 8 * hf < nq;
       any_dead |= dead[i][hf];
+      const int r = r0 + 16 * i + g + 8 * hf;
+      if (a.lse != nullptr && tq == 0 && r < nq)
+        a.lse[((long long)b * a.H + h) * a.Sq + q0 + r] =
+            l[i][hf] == 0.f ? -INFINITY : m[i][hf] * a.scale + logf(l[i][hf]);
     }
   float* mean = reinterpret_cast<float*>(smem + L::MEAN_OFF) + warp * D;
   if (__any_sync(FULL, any_dead)) warp_mean_v<bf16, D>(v, a.vs[2], a.Sk,
@@ -675,6 +688,9 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
     const float l = lrow[r];
     for (int d = lane; d < D; d += 32)
       o[(q0 + r) * a.os[2] + d] = l > 0.f ? Os[r * L::LDO + d] / l : mean[d];
+    if (a.lse != nullptr && lane == 0)
+      a.lse[((long long)b * a.H + h) * a.Sq + q0 + r] =
+          l > 0.f ? mrow[r] + logf(l) : -INFINITY;
   }
 }
 
@@ -909,6 +925,659 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward (the port's own: the JAX package differentiates its XLA
+// attention and has no backward kernel).  FlashAttention-2's split, three
+// kernels in one call, no atomics (the gradients do not depend on the
+// order in which blocks run):
+// 1. pre: a block per (query head, request) computes each row's
+//    D_i = sum_d dO_i * O_i (float32) and whether the head has a row that
+//    saw no key (its LSE is -inf);
+// 2. dQ: a block per (query head, 64 query rows, request), as the forward,
+//    walks the visible key tiles: S = Q K^T, P = exp(scale S - LSE),
+//    dP = dO V^T, dS = P (dP - D), dQ += dS K; dQ = scale dQ;
+// 3. dK, dV: a block per (64 keys, kv head, request) walks every query
+//    head mapped to its kv head (the head table's grouped list, so GQA and
+//    padded heads sum inside the block) and their visible query tiles:
+//    S^T = K Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D),
+//    dK += dS^T Q; dK = scale dK.
+// A row that saw no key got the mean of v over all Sk keys: its gradient
+// is dO / Sk for every key's v and 0 for q and k (P = 1 / Sk, dS = 0).
+// bf16: every product on mma.sync m16n8k16 with P and dS rounded to bf16
+// as A operands (as the forward rounds P), operands by ldmatrix from
+// shared rows padded by 16 bytes; no operand is kept in registers between
+// tiles.  float32: plain FMAs through shared memory (not on the timed
+// path).  What bounds it: operations, five products of the forward's size
+// (seven here: dQ recomputes S and dP) against the bytes of q, k, v, o, dO
+// and the three gradients.  Tiles are loaded and then computed, one
+// barrier a step, with no overlap: a simple kernel first.
+// ---------------------------------------------------------------------------
+struct BArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dO;
+  const float* lse;                       // (B, H, Sq)
+  const int* qpos;
+  const int* kpos;
+  const int* kv_head;                     // the forward's head table
+  void* dq;
+  void* dk;
+  void* dv;
+  float* drow;                            // (B, H, Sq): D_i
+  int* dead;                              // (B, H): a row saw no key
+  int B, H, Hkv, Sq, Sk;
+  long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
+  float scale;
+  int causal, window;
+};
+
+constexpr int PRE_THREADS = 256;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(PRE_THREADS) bwd_pre_kernel(BArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int LPR = D / VEC;            // lanes a row (2 to 32)
+  constexpr int RPW = 32 / LPR;           // rows a warp step
+  constexpr int WARPS = PRE_THREADS / 32;
+  using P = Pack<T, VEC>;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = lane / LPR, c = (lane % LPR) * VEC;
+  const T* o = static_cast<const T*>(a.o) + b * a.os[0] + h * a.os[1];
+  const T* dO = static_cast<const T*>(a.dO) + b * a.dos[0] + h * a.dos[1];
+  const long long bh = ((long long)b * a.H + h) * a.Sq;
+  int dead = 0;
+  for (int i0 = warp * RPW; i0 < a.Sq; i0 += WARPS * RPW) {
+    const int i = i0 + row;
+    float s = 0.f;
+    if (i < a.Sq) {
+      const P x = *reinterpret_cast<const P*>(o + i * a.os[2] + c);
+      const P y = *reinterpret_cast<const P*>(dO + i * a.dos[2] + c);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s += to_f(x.v[e]) * to_f(y.v[e]);
+    }
+#pragma unroll
+    for (int x = 1; x < LPR; x <<= 1) s += __shfl_xor_sync(FULL, s, x);
+    if (i < a.Sq && lane % LPR == 0) {
+      a.drow[bh + i] = s;
+      dead |= a.lse[bh + i] == -INFINITY;
+    }
+  }
+  dead = __syncthreads_or(dead);
+  if (threadIdx.x == 0) a.dead[b * a.H + h] = dead;
+}
+
+// min and max of the valid (>= 0) positions pos[0, n) of a tile of `tile`
+// rows (n <= tile <= 64), and whether any is missing (< 0 or past n);
+// every lane of the warp gets the result
+__device__ __forceinline__ void pos_range(const int* pos, int n, int tile,
+                                          int& lo, int& hi, bool& empty) {
+  const int lane = threadIdx.x & 31;
+  lo = INT32_MAX;
+  hi = -1;
+  bool miss = n < tile;
+  for (int i = lane; i < n; i += 32) {
+    const int p = pos[i];
+    if (p < 0) {
+      miss = true;
+    } else {
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  }
+  lo = warp_min_i(lo);
+  hi = warp_max_i(hi);
+  empty = __any_sync(FULL, miss);
+}
+
+// ---- dQ, bfloat16 ----------------------------------------------------------
+template <int D> struct BQL {
+  static constexpr int BQ = 64;                  // query rows: 4 warps x 16
+  static constexpr int BKT = D <= 64 ? 64 : 32;  // keys a tile
+  static constexpr int LD = D + 8;
+  static constexpr size_t Q_OFF = 0;
+  static constexpr size_t DO_OFF = Q_OFF + BQ * LD * 2;
+  static constexpr size_t K_OFF = DO_OFF + BQ * LD * 2;
+  static constexpr size_t V_OFF = K_OFF + BKT * LD * 2;
+  static constexpr size_t KP_OFF = V_OFF + BKT * LD * 2;
+  static constexpr size_t CLS_OFF = KP_OFF + BKT * 4;
+  static constexpr size_t smem(int nT) { return CLS_OFF + nT; }
+};
+
+// rows [0, rows) of a (rows, D) bf16 tile from src (row stride `stride`)
+// into shared memory (row stride LD); rows at or past `valid` are zero
+template <int D, int LD>
+__device__ __forceinline__ void tile_async(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long stride, int valid,
+                                           int rows) {
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < rows * CPR; i += PF_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, src + (long long)(ok ? r : 0) * stride + c,
+               ok);
+  }
+}
+
+// C (16 x 8 n-tiles x N) += A (16 rows of a row-major shared tile at row
+// r0, K = KD columns) * B^T, B a row-major shared tile (n rows, KD cols):
+// the S = Q K^T pattern
+template <int KD, int N, int LD>
+__device__ __forceinline__ void mma_abt(float (&c)[N / 8][4],
+                                        const __nv_bfloat16* A, int r0,
+                                        const __nv_bfloat16* Bm) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, A + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      uint32_t bfr[4];
+      ldsm_x4(bfr, Bm + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                       kk * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(c[2 * np], af, bfr[0], bfr[1]);
+      mma16816(c[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// C (16 x D) += A (16 x K, accumulator layout in registers, rounded to
+// bf16) * B, B a row-major shared tile (K rows, D cols): the O += P V
+// pattern
+template <int K, int D, int LD>
+__device__ __forceinline__ void mma_pb(float (&c)[D / 8][4],
+                                       const float (&p)[K / 8][4],
+                                       const __nv_bfloat16* Bm) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bfr[4];
+      ldsm_x4_t(bfr, Bm + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              LD + dp * 16 + (lane >> 4) * 8);
+      mma16816(c[2 * dp], pa, bfr[0], bfr[1]);
+      mma16816(c[2 * dp + 1], pa, bfr[2], bfr[3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS) bwd_dq_bf16_kernel(BArgs a) {
+  using L = BQL<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = L::LD, BQ = L::BQ, BKT = L::BKT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::DO_OFF);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
+  int* KP = reinterpret_cast<int*>(smem + L::KP_OFF);
+  unsigned char* cls = smem + L::CLS_OFF;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.x, q0 = blockIdx.y * BQ, b = blockIdx.z;
+  const int hk = a.kv_head[h];
+  const int nq = min(BQ, a.Sq - q0);
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const bf16* dO =
+      static_cast<const bf16*>(a.dO) + b * a.dos[0] + h * a.dos[1];
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  bf16* dq = static_cast<bf16*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
+  const long long bh = ((long long)b * a.H + h) * a.Sq;
+
+  tile_async<D, LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQ);
+  tile_async<D, LD>(dOs, dO + q0 * a.dos[2], a.dos[2], nq, BQ);
+  cp_async_commit();
+  int qlo, qhi;
+  q_range(a, q0, nq, qlo, qhi);
+  const int nT = (a.Sk + BKT - 1) / BKT;
+  classify_tiles<BKT>(a, nT, qlo, qhi, cls);
+  __syncthreads();                        // cls is written
+
+  const int r0 = warp * 16;
+  int qp[2];
+  float lse2[2], dr[2];
+  bool dead[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + min(r0 + g + 8 * hf, nq - 1);
+    qp[hf] = a.qpos[r];
+    const float l = a.lse[bh + r];
+    dead[hf] = l == -INFINITY;
+    lse2[hf] = dead[hf] ? 0.f : l * LOG2E;
+    dr[hf] = a.drow[bh + r];
+  }
+  const float sl2 = a.scale * LOG2E;
+  float acc[D / 8][4];
+  zero<D / 8>(acc);
+
+  for (int t = next_tile(cls, 0, nT); t < nT; t = next_tile(cls, t + 1, nT)) {
+    const int k0 = t * BKT, nk = min(BKT, a.Sk - k0);
+    __syncthreads();                      // the last tile is consumed
+    tile_async<D, LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BKT);
+    tile_async<D, LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BKT);
+    if (tid < BKT) KP[tid] = tid < nk ? a.kpos[k0 + tid] : -1;
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const bool full = cls[t] == 2;
+    float s[BKT / 8][4], dp[BKT / 8][4];
+    zero<BKT / 8>(s);
+    zero<BKT / 8>(dp);
+    mma_abt<D, BKT, LD>(s, Qs, r0, Ks);
+    mma_abt<D, BKT, LD>(dp, dOs, r0, Vs);
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const bool vis = !dead[hf] &&
+            (full || sees(KP[j * 8 + 2 * tq + (e & 1)], qp[hf], a.causal,
+                          a.window));
+        const float p = vis ? ex2(fmaf(s[j][e], sl2, -lse2[hf])) : 0.f;
+        s[j][e] = p * (dp[j][e] - dr[hf]);          // dS
+      }
+    mma_pb<BKT, D, LD>(acc, s, Ks);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g + 8 * hf;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dq + (q0 + r) * a.dqs[2] + c) =
+          __floats2bfloat162_rn(acc[j][2 * hf] * a.scale,
+                                acc[j][2 * hf + 1] * a.scale);
+    }
+  }
+}
+
+// ---- dK, dV, bfloat16 -----------------------------------------------------
+template <int D> struct BKL {
+  static constexpr int BKT = 64;                 // keys: 4 warps x 16
+  static constexpr int BQT = D <= 64 ? 64 : 32;  // queries a tile
+  static constexpr int LD = D + 8;
+  static constexpr size_t K_OFF = 0;
+  static constexpr size_t V_OFF = K_OFF + BKT * LD * 2;
+  static constexpr size_t Q_OFF = V_OFF + BKT * LD * 2;
+  static constexpr size_t DO_OFF = Q_OFF + BQT * LD * 2;
+  static constexpr size_t QP_OFF = DO_OFF + BQT * LD * 2;
+  static constexpr size_t LSE_OFF = QP_OFF + BQT * 4;
+  static constexpr size_t DR_OFF = LSE_OFF + BQT * 4;
+  static constexpr size_t SMEM = DR_OFF + BQT * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_bf16_kernel(BArgs a) {
+  using L = BKL<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = L::LD, BKT = L::BKT, BQT = L::BQT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::DO_OFF);
+  int* QP = reinterpret_cast<int*>(smem + L::QP_OFF);
+  float* LS = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* DR = reinterpret_cast<float*>(smem + L::DR_OFF);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BKT, nk = min(BKT, a.Sk - k0);
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  tile_async<D, LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BKT);
+  tile_async<D, LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BKT);
+  cp_async_commit();
+  int klo, khi;
+  bool kempty;
+  pos_range(a.kpos + k0, nk, BKT, klo, khi, kempty);
+  const int r0 = warp * 16;
+  int kp[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g + 8 * hf;
+    kp[hf] = r < nk ? a.kpos[k0 + r] : -1;
+  }
+  const float sl2 = a.scale * LOG2E, inv_sk = 1.f / (float)a.Sk;
+  const int* order = a.kv_head + a.H;
+  const int off = order[a.H + hk], G = order[a.H + hk + 1] - off;
+  float dk[D / 8][4], dv[D / 8][4];
+  zero<D / 8>(dk);
+  zero<D / 8>(dv);
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = order[off + gi];
+    const bool any_dead = a.dead[b * a.H + h] != 0;
+    const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
+    const bf16* dO =
+        static_cast<const bf16*>(a.dO) + b * a.dos[0] + h * a.dos[1];
+    const long long bh = ((long long)b * a.H + h) * a.Sq;
+    for (int q0 = 0; q0 < a.Sq; q0 += BQT) {
+      const int nq = min(BQT, a.Sq - q0);
+      int qlo, qhi;
+      bool qempty;
+      pos_range(a.qpos + q0, nq, nq, qlo, qhi, qempty);
+      const bool vis = khi >= 0 && (!a.causal || klo <= qhi) &&
+                       (a.window <= 0 || khi > qlo - a.window);
+      if (!vis && !any_dead) continue;    // the same in every warp
+      const bool full = !any_dead && !kempty &&
+                        (!a.causal || khi <= qlo) &&
+                        (a.window <= 0 || klo > qhi - a.window);
+      __syncthreads();                    // the last tile is consumed
+      tile_async<D, LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQT);
+      tile_async<D, LD>(dOs, dO + q0 * a.dos[2], a.dos[2], nq, BQT);
+      cp_async_commit();
+      if (tid < BQT) {
+        // a padding row: LSE +inf gives P = 0 (and it is not "dead")
+        QP[tid] = a.qpos[q0 + min(tid, nq - 1)];
+        LS[tid] = tid < nq ? a.lse[bh + q0 + tid] : INFINITY;
+        DR[tid] = tid < nq ? a.drow[bh + q0 + tid] : 0.f;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      // S^T = K Q^T, then P^T, for this warp's 16 keys
+      float st[BQT / 8][4];
+      zero<BQT / 8>(st);
+      mma_abt<D, BQT, LD>(st, Ks, r0, Qs);
+#pragma unroll
+      for (int j = 0; j < BQT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = j * 8 + 2 * tq + (e & 1);
+          const float l = LS[qi];
+          float p;
+          if (l == -INFINITY)
+            p = inv_sk;                   // saw no key: the mean of v
+          else if (full || sees(kp[e >> 1], QP[qi], a.causal, a.window))
+            p = ex2(fmaf(st[j][e], sl2, -l * LOG2E));
+          else
+            p = 0.f;
+          st[j][e] = p;
+        }
+      mma_pb<BQT, D, LD>(dv, st, dOs);    // dV += P^T dO
+      float dpt[BQT / 8][4];
+      zero<BQT / 8>(dpt);
+      mma_abt<D, BQT, LD>(dpt, Vs, r0, dOs);   // dP^T = V dO^T
+#pragma unroll
+      for (int j = 0; j < BQT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = j * 8 + 2 * tq + (e & 1);
+          dpt[j][e] = LS[qi] == -INFINITY
+                          ? 0.f
+                          : st[j][e] * (dpt[j][e] - DR[qi]);   // dS^T
+        }
+      mma_pb<BQT, D, LD>(dk, dpt, Qs);    // dK += dS^T Q
+    }
+  }
+  bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
+  bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g + 8 * hf;
+    if (r >= nk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + (k0 + r) * a.dks[2] + c) =
+          __floats2bfloat162_rn(dk[j][2 * hf] * a.scale,
+                                dk[j][2 * hf + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + (k0 + r) * a.dvs[2] + c) =
+          __floats2bfloat162_rn(dv[j][2 * hf], dv[j][2 * hf + 1]);
+    }
+  }
+}
+
+// ---- float32: plain FMAs through shared memory -----------------------------
+constexpr int FB = 32;                   // query rows and keys a tile
+
+template <int D> struct BFL {
+  static constexpr int LD = D + 1;       // odd row strides (words)
+  static constexpr int LDS = FB + 1;
+  static constexpr size_t al(size_t b) { return (b + 127) / 128 * 128; }
+  static constexpr size_t T_BYTES = al(FB * LD * 4);
+  // four (FB, D) tiles (Q, dO, K, V), two accumulators, two (FB, FB)
+  static constexpr size_t A_OFF = 4 * T_BYTES;
+  static constexpr size_t S_OFF = A_OFF + 2 * T_BYTES;
+  static constexpr size_t I_OFF = S_OFF + 2 * al(FB * LDS * 4);
+  static constexpr size_t SMEM = I_OFF + 4 * FB * 4;
+};
+
+template <int D>
+__device__ __forceinline__ void load_f32(float* dst, const float* src,
+                                         long long stride, int valid) {
+  for (int i = threadIdx.x; i < FB * D; i += PF_THREADS) {
+    const int r = i / D, c = i % D;
+    dst[r * BFL<D>::LD + c] = r < valid ? src[r * stride + c] : 0.f;
+  }
+}
+
+// dQ: a block per (query head, FB query rows, request)
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS) bwd_dq_f32_kernel(BArgs a) {
+  using L = BFL<D>;
+  constexpr int LD = L::LD, LDS = L::LDS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = reinterpret_cast<float*>(smem + L::T_BYTES);
+  float* Ks = reinterpret_cast<float*>(smem + 2 * L::T_BYTES);
+  float* Vs = reinterpret_cast<float*>(smem + 3 * L::T_BYTES);
+  float* Acc = reinterpret_cast<float*>(smem + L::A_OFF);
+  float* dS = reinterpret_cast<float*>(smem + L::S_OFF);
+  int* QP = reinterpret_cast<int*>(smem + L::I_OFF);
+  int* KP = QP + FB;
+  float* LS = reinterpret_cast<float*>(KP + FB);
+  float* DR = LS + FB;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x, q0 = blockIdx.y * FB, b = blockIdx.z;
+  const int hk = a.kv_head[h];
+  const int nq = min(FB, a.Sq - q0);
+  const long long bh = ((long long)b * a.H + h) * a.Sq;
+  const float* q = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const float* dO =
+      static_cast<const float*>(a.dO) + b * a.dos[0] + h * a.dos[1];
+  const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  float* dq = static_cast<float*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
+  load_f32<D>(Qs, q + q0 * a.qs[2], a.qs[2], nq);
+  load_f32<D>(dOs, dO + q0 * a.dos[2], a.dos[2], nq);
+  for (int i = tid; i < FB * LD; i += PF_THREADS) Acc[i] = 0.f;
+  if (tid < FB) {
+    QP[tid] = a.qpos[q0 + min(tid, nq - 1)];
+    LS[tid] = tid < nq ? a.lse[bh + q0 + tid] : -INFINITY;
+    DR[tid] = tid < nq ? a.drow[bh + q0 + tid] : 0.f;
+  }
+  for (int k0 = 0; k0 < a.Sk; k0 += FB) {
+    const int nk = min(FB, a.Sk - k0);
+    __syncthreads();                      // the last tile is consumed
+    load_f32<D>(Ks, k + k0 * a.ks[2], a.ks[2], nk);
+    load_f32<D>(Vs, v + k0 * a.vs[2], a.vs[2], nk);
+    if (tid < FB) KP[tid] = tid < nk ? a.kpos[k0 + tid] : -1;
+    __syncthreads();
+    for (int idx = tid; idx < FB * FB; idx += PF_THREADS) {
+      const int i = idx / FB, j = idx % FB;
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < D; ++d) {
+        s += Qs[i * LD + d] * Ks[j * LD + d];
+        dp += dOs[i * LD + d] * Vs[j * LD + d];
+      }
+      const bool vis = LS[i] != -INFINITY &&
+                       sees(KP[j], QP[i], a.causal, a.window);
+      const float p = vis ? expf(s * a.scale - LS[i]) : 0.f;
+      dS[i * LDS + j] = p * (dp - DR[i]);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < FB * D; idx += PF_THREADS) {
+      const int i = idx / D, d = idx % D;
+      float s = 0.f;
+      for (int j = 0; j < FB; ++j) s += dS[i * LDS + j] * Ks[j * LD + d];
+      Acc[i * LD + d] += s;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nq * D; idx += PF_THREADS) {
+    const int i = idx / D, d = idx % D;
+    dq[(q0 + i) * a.dqs[2] + d] = Acc[i * LD + d] * a.scale;
+  }
+}
+
+// dK, dV: a block per (FB keys, kv head, request)
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
+  using L = BFL<D>;
+  constexpr int LD = L::LD, LDS = L::LDS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = reinterpret_cast<float*>(smem + L::T_BYTES);
+  float* Ks = reinterpret_cast<float*>(smem + 2 * L::T_BYTES);
+  float* Vs = reinterpret_cast<float*>(smem + 3 * L::T_BYTES);
+  float* dK = reinterpret_cast<float*>(smem + L::A_OFF);
+  float* dV = reinterpret_cast<float*>(smem + L::A_OFF + L::T_BYTES);
+  float* Ps = reinterpret_cast<float*>(smem + L::S_OFF);
+  float* dS = Ps + FB * LDS;
+  int* QP = reinterpret_cast<int*>(smem + L::I_OFF);
+  int* KP = QP + FB;
+  float* LS = reinterpret_cast<float*>(KP + FB);
+  float* DR = LS + FB;
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * FB, nk = min(FB, a.Sk - k0);
+  const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  load_f32<D>(Ks, k + k0 * a.ks[2], a.ks[2], nk);
+  load_f32<D>(Vs, v + k0 * a.vs[2], a.vs[2], nk);
+  for (int i = tid; i < FB * LD; i += PF_THREADS) dK[i] = dV[i] = 0.f;
+  if (tid < FB) KP[tid] = tid < nk ? a.kpos[k0 + tid] : -1;
+  const float inv_sk = 1.f / (float)a.Sk;
+  const int* order = a.kv_head + a.H;
+  const int off = order[a.H + hk], G = order[a.H + hk + 1] - off;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = order[off + gi];
+    const long long bh = ((long long)b * a.H + h) * a.Sq;
+    const float* q = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[1];
+    const float* dO =
+        static_cast<const float*>(a.dO) + b * a.dos[0] + h * a.dos[1];
+    for (int q0 = 0; q0 < a.Sq; q0 += FB) {
+      const int nq = min(FB, a.Sq - q0);
+      __syncthreads();                    // the last tile is consumed
+      load_f32<D>(Qs, q + q0 * a.qs[2], a.qs[2], nq);
+      load_f32<D>(dOs, dO + q0 * a.dos[2], a.dos[2], nq);
+      if (tid < FB) {
+        QP[tid] = a.qpos[q0 + min(tid, nq - 1)];
+        LS[tid] = tid < nq ? a.lse[bh + q0 + tid] : INFINITY;
+        DR[tid] = tid < nq ? a.drow[bh + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < FB * FB; idx += PF_THREADS) {
+        const int i = idx / FB, j = idx % FB;
+        const float l = LS[i];
+        float p = 0.f, ds = 0.f;
+        if (l == -INFINITY) {
+          p = inv_sk;                     // saw no key: the mean of v
+        } else if (l != INFINITY && sees(KP[j], QP[i], a.causal, a.window)) {
+          float s = 0.f, dp = 0.f;
+          for (int d = 0; d < D; ++d) {
+            s += Qs[i * LD + d] * Ks[j * LD + d];
+            dp += dOs[i * LD + d] * Vs[j * LD + d];
+          }
+          p = expf(s * a.scale - l);
+          ds = p * (dp - DR[i]);
+        }
+        Ps[i * LDS + j] = p;
+        dS[i * LDS + j] = ds;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < FB * D; idx += PF_THREADS) {
+        const int j = idx / D, d = idx % D;
+        float sv = 0.f, sk = 0.f;
+        for (int i = 0; i < FB; ++i) {
+          sv += Ps[i * LDS + j] * dOs[i * LD + d];
+          sk += dS[i * LDS + j] * Qs[i * LD + d];
+        }
+        dV[j * LD + d] += sv;
+        dK[j * LD + d] += sk;
+      }
+    }
+  }
+  __syncthreads();
+  float* dkp = static_cast<float*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
+  float* dvp = static_cast<float*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
+  for (int idx = tid; idx < nk * D; idx += PF_THREADS) {
+    const int j = idx / D, d = idx % D;
+    dkp[(k0 + j) * a.dks[2] + d] = dK[j * LD + d] * a.scale;
+    dvp[(k0 + j) * a.dvs[2] + d] = dV[j * LD + d];
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int D>
+int launch_bwd(const BArgs& a, cudaStream_t st) {
+  bwd_pre_kernel<T, D><<<dim3(a.H, a.B), PRE_THREADS, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  int err;
+  if constexpr (std::is_same<T, float>::value) {
+    using L = BFL<D>;
+    if ((err = set_smem(bwd_dq_f32_kernel<D>, L::SMEM))) return err;
+    bwd_dq_f32_kernel<D><<<dim3(a.H, (a.Sq + FB - 1) / FB, a.B), PF_THREADS,
+                           L::SMEM, st>>>(a);
+    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = set_smem(bwd_dkdv_f32_kernel<D>, L::SMEM))) return err;
+    bwd_dkdv_f32_kernel<D><<<dim3((a.Sk + FB - 1) / FB, a.Hkv, a.B),
+                             PF_THREADS, L::SMEM, st>>>(a);
+  } else {
+    using LQ = BQL<D>;
+    using LK = BKL<D>;
+    const size_t sq = LQ::smem((a.Sk + LQ::BKT - 1) / LQ::BKT);
+    if ((err = set_smem(bwd_dq_bf16_kernel<D>, sq))) return err;
+    bwd_dq_bf16_kernel<D><<<dim3(a.H, (a.Sq + LQ::BQ - 1) / LQ::BQ, a.B),
+                            PF_THREADS, sq, st>>>(a);
+    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = set_smem(bwd_dkdv_bf16_kernel<D>, LK::SMEM))) return err;
+    bwd_dkdv_bf16_kernel<D><<<dim3((a.Sk + LK::BKT - 1) / LK::BKT, a.Hkv,
+                                   a.B),
+                              PF_THREADS, LK::SMEM, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_d(const BArgs& a, int D, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_bwd<T, 16>(a, st);
+    case 32: return launch_bwd<T, 32>(a, st);
+    case 64: return launch_bwd<T, 64>(a, st);
+    case 128: return launch_bwd<T, 128>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Strides are in elements, in the order (batch, head, position) for q, k,
@@ -920,10 +1589,14 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
 // over `splits` blocks per (request, kv head) and needs `ws`, float32 of
 // B * H * splits * (D + 2), and `counters`, int32 of B * Hkv, zero before
 // the first call (each call leaves them zero).  Prefill ignores all three.
+// lse: NULL, or for prefill float32 (B, H, Sq), each row's log-sum-exp of
+// its scaled visible scores (-inf where it sees no key) for the backward;
+// decode ignores it.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* qpos,
-    const void* kpos, const void* kv_head, void* ws, void* counters, int B,
-    int H, int Hkv, int Sq, int Sk, int D, int splits, long long qsb,
+    const void* kpos, const void* kv_head, void* ws, void* counters,
+    void* lse, int B, int H, int Hkv, int Sq, int Sk, int D, int splits,
+    long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb, long long osh,
     long long oss, float scale, int causal, int window, int dtype,
@@ -934,9 +1607,57 @@ extern "C" int flash_attention_fwd(
          (const int*)kv_head, (float*)ws, (int*)counters,
          B,      H,   Hkv, Sq, Sk, splits,
          {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
-         scale, causal, window};
+         scale, causal, window, (float*)lse};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return launch_d<float>(a, D, st);
   if (dtype == 1) return launch_d<__nv_bfloat16>(a, D, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of prefill: dq, dk, dv (shaped and typed as q, k, v) from
+// dO (as o), the forward's o and lse ((B, H, Sq) float32) and the same
+// positions, head table, scale and masks.  Strides in elements, (batch,
+// head, position), last axis contiguous, for q, k, v, o, dO, dq, dk, dv.
+// Scratch: drow float32 (B, H, Sq), dead int32 (B, H), both written
+// before they are read.  Three kernels on the stream (see above); every
+// gradient element is written once, no atomics.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, const void* qpos, const void* kpos,
+    const void* kv_head, void* dq, void* dk, void* dv, void* drow,
+    void* dead, int B, int H, int Hkv, int Sq, int Sk, int D,
+    const long long* strides, float scale, int causal, int window, int dtype,
+    void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaGetLastError();
+  if (Hkv <= 0 || H > MAX_HEADS || Sq == 1) return (int)cudaErrorInvalidValue;
+  BArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dO = dO;
+  a.lse = (const float*)lse;
+  a.qpos = (const int*)qpos;
+  a.kpos = (const int*)kpos;
+  a.kv_head = (const int*)kv_head;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.drow = (float*)drow;
+  a.dead = (int*)dead;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  long long* dst[8] = {a.qs, a.ks, a.vs, a.os, a.dos, a.dqs, a.dks, a.dvs};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  a.scale = scale;
+  a.causal = causal;
+  a.window = window;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_bwd_d<float>(a, D, st);
+  if (dtype == 1) return launch_bwd_d<__nv_bfloat16>(a, D, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -37,6 +37,22 @@
 // A warp a row, the row in a lane's registers, was tried and was slower
 // than either at every row count: 8 rows are 8 warps on the whole card,
 // and each lane runs ~50 elements' arithmetic in sequence.
+//
+// The backward (rmsnorm_bwd, the port's own: the JAX package has no
+// backward kernel and differentiates its XLA RMSNorm).  Given dy and, in
+// the residual form, d(x + r): with s = x + r in float32, inv =
+// rsqrt(mean(s^2) + eps) and n = s * inv,
+//   ds = inv * dy * w - s * inv^3 * sum(dy * w * s) / D  (+ d(x + r)),
+//   dx = d(residual) = ds,  dw = sum over rows of dy * n.
+// Bounded by bytes: it reads x, r, dy, d(x + r) and w and writes dx, for
+// ~12 flops an element.  A grid of G blocks (the launcher's choice, a few
+// a multiprocessor) walks the rows, a block a row at a time: one pass
+// loads x, r, dy and w, reduces the row's two sums (s^2 and dy * w * s)
+// across the block, a second pass (the row again, from L2) writes dx.
+// Each thread keeps its columns' share of dw in registers over all its
+// rows, and writes it as the block's partial sum; a second kernel adds the
+// G partials of each column in a fixed order.  No float atomics: the
+// result does not depend on the order in which blocks run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,6 +256,127 @@ int launch(const void* x, const void* r, const void* w, void* y, void* res,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+constexpr int MAX_D = 12288;
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                   const T* __restrict__ w, const T* __restrict__ dy,
+                   const T* __restrict__ dres, T* __restrict__ dx,
+                   float* __restrict__ part, long long T_, int D, float eps) {
+  // vectors a thread covers in a row at the widest D
+  constexpr int NK = (MAX_D + THREADS * VEC - 1) / (THREADS * VEC);
+  __shared__ float red[2][THREADS / 32];
+  using P = Pack<T, VEC>;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  float acc[NK][VEC];                     // this thread's columns of dw
+#pragma unroll
+  for (int k = 0; k < NK; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
+  for (long long row = blockIdx.x; row < T_; row += gridDim.x) {
+    const long long off = row * D;
+    float ss = 0.f, sd = 0.f;             // sum s^2, sum dy * w * s
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int i = (k * THREADS + t) * VEC;
+      if (i >= D) break;
+      const P xv = *reinterpret_cast<const P*>(x + off + i);
+      const P gv = *reinterpret_cast<const P*>(dy + off + i);
+      const P wv = *reinterpret_cast<const P*>(w + i);
+      P rv;
+      if (r != nullptr) rv = *reinterpret_cast<const P*>(r + off + i);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = to_f(xv.v[e]);
+        if (r != nullptr) v += to_f(rv.v[e]);
+        ss += v * v;
+        sd += to_f(gv.v[e]) * to_f(wv.v[e]) * v;
+      }
+    }
+    ss = warp_sum(ss);
+    sd = warp_sum(sd);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = sd;
+    }
+    __syncthreads();
+    float tss = 0.f, tsd = 0.f;
+#pragma unroll
+    for (int k = 0; k < THREADS / 32; ++k) {
+      tss += red[0][k];
+      tsd += red[1][k];
+    }
+    __syncthreads();                      // red is free for the next row
+    const float inv = rsqrtf(tss / (float)D + eps);
+    const float c = inv * inv * inv * tsd / (float)D;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int i = (k * THREADS + t) * VEC;
+      if (i >= D) break;
+      const P xv = *reinterpret_cast<const P*>(x + off + i);
+      const P gv = *reinterpret_cast<const P*>(dy + off + i);
+      const P wv = *reinterpret_cast<const P*>(w + i);
+      P rv, dv, ov;
+      if (r != nullptr) rv = *reinterpret_cast<const P*>(r + off + i);
+      if (dres != nullptr) dv = *reinterpret_cast<const P*>(dres + off + i);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = to_f(xv.v[e]);
+        if (r != nullptr) v += to_f(rv.v[e]);
+        const float g = to_f(gv.v[e]);
+        float ds = inv * g * to_f(wv.v[e]) - c * v;
+        if (dres != nullptr) ds += to_f(dv.v[e]);
+        acc[k][e] += g * v * inv;
+        ov.v[e] = from_f<T>(ds);
+      }
+      *reinterpret_cast<P*>(dx + off + i) = ov;
+    }
+  }
+  float* pb = part + (long long)blockIdx.x * D;
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int i = (k * THREADS + t) * VEC;
+    if (i >= D) break;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) pb[i + e] = acc[k][e];
+  }
+}
+
+// dw[i] = the G blocks' partials of column i, added in block order
+template <typename T>
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ part, int G,
+                                  int D, T* __restrict__ dw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= D) return;
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s += part[(long long)g * D + i];
+  dw[i] = from_f<T>(s);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* r, const void* w, const void* dy,
+               const void* dres, void* dx, float* part, void* dw,
+               long long T_, int D, int G, float eps, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*,
+                 float*, long long, int, float) =
+      D % VEC == 0 ? rmsnorm_bwd_kernel<T, VEC> : rmsnorm_bwd_kernel<T, 1>;
+  if (G > 0) {
+    kernel<<<(unsigned)G, THREADS, 0, st>>>(
+        (const T*)x, (const T*)r, (const T*)w, (const T*)dy,
+        (const T*)dres, (T*)dx, part, T_, D, eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  rmsnorm_dw_kernel<T><<<(D + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      part, G, D, (T*)dw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, w, y: (T, D) / (D,) / (T, D); r and res NULL or (T, D); every pointer
@@ -258,5 +395,27 @@ extern "C" int rmsnorm_fwd(const void* x, const void* r, const void* w,
     return launch<float>(x, r, w, y, res, T, D, eps, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, r, w, y, res, T, D, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: x, dy, dx (T, D); w, dw (D,); r and dres NULL or (T, D)
+// (dres = d(x + r), the gradient of the residual form's second output);
+// part float32 (G, D) scratch, 0 < G <= T (G = 0 only when T = 0).  dx
+// is also d(residual).  Pointers on 16-byte boundaries where D is a
+// multiple of 16 bytes; D <= 12288.  Two kernels on the stream: the rows,
+// then the dw partials' sum.
+extern "C" int rmsnorm_bwd(const void* x, const void* r, const void* w,
+                           const void* dy, const void* dres, void* dx,
+                           void* part, void* dw, long long T, int D, int G,
+                           float eps, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 0 || D > MAX_D || G < 0 || (T > 0 && G == 0) || G > T)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_bwd<float>(x, r, w, dy, dres, dx, (float*)part, dw, T, D,
+                             G, eps, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, r, w, dy, dres, dx, (float*)part,
+                                     dw, T, D, G, eps, st);
   return (int)cudaErrorInvalidValue;
 }

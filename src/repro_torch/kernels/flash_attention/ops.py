@@ -10,6 +10,11 @@ given), which also lists the query heads of each kv head for decode.
 ``block_q``/``block_k`` are accepted for the JAX signatures; the kernel's
 tiles are its own (64 query rows by 64 keys).
 
+``mha`` is differentiable: where a gradient is wanted it runs the forward
+kernel with each row's log-sum-exp as a second output and its backward is
+the backward kernel (``flash_attention_bwd``: dQ, dK, dV), or, for CPU
+tensors, autograd through the plain version.  Decode needs no gradient.
+
 Decode splits each (request, kv head)'s slots over several blocks, which
 combine through a scratch buffer and a counter per (request, kv head) kept
 here per device; the kernel leaves the counters at zero, so no call
@@ -30,11 +35,19 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_HEADS = 256                  # csrc/flash_attention.cu MAX_HEADS
 MAX_SPLITS = 32                  # csrc/flash_attention.cu MAX_SPLITS
-# q, k, v, o, q_pos, k_pos, kv_head, ws, counters; B, H, Hkv, Sq, Sk, D,
-# splits; 12 strides; scale; causal, window, dtype; stream
-_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+# q, k, v, o, q_pos, k_pos, kv_head, ws, counters, lse; B, H, Hkv, Sq, Sk,
+# D, splits; 12 strides; scale; causal, window, dtype; stream
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+         + [ctypes.c_longlong] * 12
          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p])
+# q, k, v, o, dO, lse, q_pos, k_pos, kv_head, dq, dk, dv, drow, dead; B, H,
+# Hkv, Sq, Sk, D; the 24 strides (a host array); scale; causal, window,
+# dtype; stream
+_BWD_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+BACKWARD = f"{KERNEL}.backward"
 
 _TABLES: dict = {}   # (kv_head, Hkv, device) -> int32 table on the card
 _SCRATCH: dict = {}  # device -> (ws float32, counters int32)
@@ -101,15 +114,11 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     (H ints in [0, Hkv)); without a map H % Hkv == 0 and it reads
     h // (H // Hkv).  Returns (B, Sq, H, D) in q's dtype.  Sq == 1 runs
     the decode configuration of the kernel, any other Sq the prefill one."""
-    B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    kv_head = head_map(H, Hkv, kv_head)
-    scale = float(scale if scale is not None else D ** -0.5)
-    name = f"{KERNEL}.{'decode' if Sq == 1 else 'prefill'}"
-    kernel_launch(name, backend=q.device.type, q=Sq, k=Sk, heads=B * H)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, q_pos, k_pos, causal=causal,
-                             window=window, scale=scale, kv_head=kv_head)
+    return _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
+                    False)[0]
+
+
+def _check(q, Sq, D, H):
     if q.dtype not in DTYPES:
         raise ValueError(f"attention: dtype {q.dtype}, the kernel takes "
                          f"float32 or bfloat16")
@@ -119,6 +128,27 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     if H > MAX_HEADS:
         raise ValueError(f"attention: {H} heads, the kernel takes at most "
                          f"{MAX_HEADS}")
+
+
+def _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
+             want_lse):
+    """:func:`attention`, and with ``want_lse`` (prefill only) also each
+    row's log-sum-exp of its scaled scores, (B, H, Sq) float32 (None on the
+    CPU, whose backward differentiates the plain version)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kv_head = head_map(H, Hkv, kv_head)
+    scale = float(scale if scale is not None else D ** -0.5)
+    name = f"{KERNEL}.{'decode' if Sq == 1 else 'prefill'}"
+    kernel_launch(name, backend=q.device.type, q=Sq, k=Sk, heads=B * H)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                             window=window, scale=scale,
+                             kv_head=kv_head), None
+    _check(q, Sq, D, H)
+    if want_lse and Sq == 1:
+        raise ValueError("attention: no gradient for the decode "
+                         "configuration (Sq == 1)")
     dev = q.device
     chk = _build.checked
     qs = chk("q", _build.aligned16(q), q.dtype, (B, Sq, H, D), dev)
@@ -129,6 +159,8 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     kp = chk("k_pos", _build.aligned16(k_pos.to(torch.int32)), torch.int32,
              (Sk,), dev)
     o = torch.empty_like(qs)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if want_lse else None)
     splits, ws_ptr, cnt_ptr = 0, 0, 0
     if Sq == 1:
         splits = decode_splits(B, Hkv, Sk, dev)
@@ -139,21 +171,102 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     f = _build.bind("flash_attention", "flash_attention_fwd", _ARGS)
     _build.launch(name, f, qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
                   o.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-                  _table(kv_head, Hkv, dev).data_ptr(), ws_ptr, cnt_ptr, B, H,
-                  Hkv, Sq, Sk, D, splits, *strides, scale, int(causal),
+                  _table(kv_head, Hkv, dev).data_ptr(), ws_ptr, cnt_ptr,
+                  None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk,
+                  D, splits, *strides, scale, int(causal),
                   0 if window is None else int(window), DTYPES[q.dtype],
                   _build.stream_ptr(dev))
-    return o
+    return o, lse
+
+
+def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
+                       window=None, scale=None, kv_head=None):
+    """The gradient of prefill :func:`attention`: (dq, dk, dv), shaped and
+    typed as q, k, v, from ``do`` (the gradient of ``o``), the forward's
+    output ``o`` and its ``lse`` ((B, H, Sq) float32).  CUDA tensors run
+    the backward kernel; CPU tensors differentiate the plain version
+    (``o`` and ``lse`` unused).  A row that sees no key gets the forward's
+    mean of v: its gradient reaches every v row (dO / Sk) and no q or k."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kv_head = head_map(H, Hkv, kv_head)
+    scale = float(scale if scale is not None else D ** -0.5)
+    kernel_launch(BACKWARD, backend=q.device.type, q=Sq, k=Sk, heads=B * H)
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_ref(*leaves, q_pos, k_pos, causal=causal,
+                                window=window, scale=scale, kv_head=kv_head)
+            return torch.autograd.grad(out, leaves, do)
+    _check(q, Sq, D, H)
+    if Sq == 1:
+        raise ValueError("attention: no gradient for the decode "
+                         "configuration (Sq == 1)")
+    dev = q.device
+    chk = _build.checked
+    qs = chk("q", _build.aligned16(q), q.dtype, (B, Sq, H, D), dev)
+    ks = chk("k", _build.aligned16(k), q.dtype, (B, Sk, Hkv, D), dev)
+    vs = chk("v", _build.aligned16(v), q.dtype, (B, Sk, Hkv, D), dev)
+    os_ = chk("o", _build.aligned16(o), q.dtype, (B, Sq, H, D), dev)
+    dos = chk("do", _build.aligned16(do), q.dtype, (B, Sq, H, D), dev)
+    ls = chk("lse", lse.contiguous(), torch.float32, (B, H, Sq), dev)
+    qp = chk("q_pos", q_pos.to(torch.int32).contiguous(), torch.int32,
+             (Sq,), dev)
+    kp = chk("k_pos", _build.aligned16(k_pos.to(torch.int32)), torch.int32,
+             (Sk,), dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (qs, ks, vs))
+    drow = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    dead = torch.empty((B, H), dtype=torch.int32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in (qs, ks, vs, os_, dos, dq, dk, dv)
+        for s in (t.stride(0), t.stride(2), t.stride(1))])
+    f = _build.bind("flash_attention", "flash_attention_bwd", _BWD_ARGS)
+    _build.launch(BACKWARD, f, qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                  os_.data_ptr(), dos.data_ptr(), ls.data_ptr(),
+                  qp.data_ptr(), kp.data_ptr(),
+                  _table(kv_head, Hkv, dev).data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), drow.data_ptr(),
+                  dead.data_ptr(), B, H, Hkv, Sq, Sk, D, strides, scale,
+                  int(causal), 0 if window is None else int(window),
+                  DTYPES[q.dtype], _build.stream_ptr(dev))
+    return dq, dk, dv
+
+
+class _MHA(torch.autograd.Function):
+    """Prefill attention with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, kv_head):
+        o, lse = _forward(q, k, v, q_pos, k_pos, causal, window, None,
+                          kv_head, True)
+        ctx.save_for_backward(q, k, v, o, lse, q_pos, k_pos)
+        ctx.mask = (causal, window, kv_head)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
+        causal, window, kv_head = ctx.mask
+        dq, dk, dv = attention_backward(do, q, k, v, o, lse, q_pos, k_pos,
+                                        causal=causal, window=window,
+                                        kv_head=kv_head)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def mha(q, k, v, *, causal=True, window=None, block_q=256, block_k=256,
         kv_head=None):
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, H, D)."""
+    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, H, D).
+    Differentiable: where grad mode is on and q, k or v wants a gradient
+    it goes through :class:`_MHA`; otherwise (serving) it is
+    :func:`attention` as it was."""
     dev = q.device
-    return attention(q, k, v, torch.arange(q.shape[1], dtype=torch.int32,
-                                           device=dev),
-                     torch.arange(k.shape[1], dtype=torch.int32, device=dev),
-                     causal=causal, window=window, kv_head=kv_head)
+    q_pos = torch.arange(q.shape[1], dtype=torch.int32, device=dev)
+    k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=dev)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _MHA.apply(q, k, v, q_pos, k_pos, causal, window, kv_head)
+    return attention(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                     kv_head=kv_head)
 
 
 def decode(q, k_cache, v_cache, slot_pos, pos, *, window=None, block_k=256,

@@ -31,7 +31,8 @@ def const_init(gen, shape, value, dtype) -> torch.Tensor:
 def rms_norm(x, weight, eps: float = 1e-5, residual=None):
     """RMSNorm over the last axis through the rmsnorm kernel.  Without a
     residual returns ``y``; with one, normalises ``x + residual`` and
-    returns ``(y, x + residual)`` (the fused form of an add then a norm)."""
+    returns ``(y, x + residual)`` (the fused form of an add then a norm).
+    Differentiable: its gradient is the rmsnorm backward kernel."""
     y, res = rmsnorm(x, weight, residual, eps=eps)
     return y if residual is None else (y, res)
 
@@ -89,3 +90,21 @@ def mlp_forward(p, x, act: str):
     else:
         up = act_fn(act)(up)
     return up @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# cross entropy
+# ---------------------------------------------------------------------------
+def cross_entropy(logits, labels, mask=None):
+    """logits (B, S, V) any float dtype; labels (B, S) int.  float32 math;
+    the row max is held constant under differentiation, as the JAX
+    package's ``stop_gradient`` holds it."""
+    logits = logits.float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

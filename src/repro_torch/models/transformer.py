@@ -1,21 +1,32 @@
-"""Model assembly: blocks -> LM with prefill and slot-cache decode (the
-serving half of ``repro/models/transformer.py``).
+"""Model assembly: blocks -> LM with the training loss, prefill and
+slot-cache decode (the port of ``repro/models/transformer.py``).
 
 The JAX package stacks layer parameters on a leading L axis and scans over
 them; here each layer is a :class:`Block` module in an ``nn.ModuleList``,
 and the functions below mirror the JAX ones with the model in place of the
-parameter tree.  Blocks: ``attn_mlp`` (GQA + MLP), ``mamba2`` (one SSD
-mixer, no MLP) and ``hymba`` (parallel GQA and SSD heads, then an MLP).
-Where the JAX block adds a residual and then normalises, the port calls the
-fused residual form of the rmsnorm kernel.
+parameter tree.  Blocks: ``attn_mlp`` (GQA + MLP), ``attn_moe`` (GQA +
+routed MoE FFN), ``mamba2`` (one SSD mixer, no MLP) and ``hymba``
+(parallel GQA and SSD heads, then an MLP).  Where the JAX block adds a
+residual and then normalises, the port calls the fused residual form of
+the rmsnorm kernel.
+
+Parameters are created frozen (serving); the trainer turns their
+gradients on.  With ``cfg.remat`` and a gradient wanted, each block and
+each cross-entropy chunk is recomputed in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``
+does: the forward kernels then run twice a step.
 
 Caches are ``{"layers": [per-layer dict], "pos": int}`` and are updated in
 place by :func:`decode_step`.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ArchConfig, BLOCK_ATTN_MLP,
                                       BLOCK_ATTN_MOE, BLOCK_HYMBA,
@@ -23,13 +34,14 @@ from repro_torch.configs.base import (ArchConfig, BLOCK_ATTN_MLP,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.layers import (const_init, init_mlp, mlp_forward,
-                                       normal_init, rms_norm)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import (const_init, cross_entropy, init_mlp,
+                                       mlp_forward, normal_init, rms_norm)
 
 NOT_PORTED = {
-    BLOCK_MLA_MLP: "MLA attention (ROADMAP Queue 1, item 11)",
-    BLOCK_ATTN_MOE: "the MoE FFN (ROADMAP Queue 1, item 11)",
+    BLOCK_MLA_MLP: "MLA attention (ROADMAP Queue 1, item 7)",
 }
+ATTN_BLOCKS = (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)    # GQA then an FFN
 
 
 def _check_ported(cfg: ArchConfig):
@@ -40,8 +52,8 @@ def _check_ported(cfg: ArchConfig):
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP Queue 1, item 11)")
-    if cfg.block not in (BLOCK_ATTN_MLP, BLOCK_MAMBA2, BLOCK_HYMBA):
+            f"(ROADMAP Queue 1, item 7)")
+    if cfg.block not in (*ATTN_BLOCKS, BLOCK_MAMBA2, BLOCK_HYMBA):
         raise ValueError(cfg.block)
 
 
@@ -67,10 +79,13 @@ class Block(nn.Module):
         self.norm1 = _frozen(const_init(gen, (d,), 1.0, dtype))
         if cfg.block != BLOCK_MAMBA2:   # mamba2-130m: one mixer, no MLP
             self.norm2 = _frozen(const_init(gen, (d,), 1.0, dtype))
-        if cfg.block in (BLOCK_ATTN_MLP, BLOCK_HYMBA):
+        if cfg.block in (*ATTN_BLOCKS, BLOCK_HYMBA):
             self.attn = _params(attn.init_attention(gen, cfg, dtype))
+        if cfg.block in (BLOCK_ATTN_MLP, BLOCK_HYMBA):
             self.mlp = _params(init_mlp(gen, d, cfg.d_ff, cfg.mlp_gated,
                                         dtype))
+        if cfg.block == BLOCK_ATTN_MOE:
+            self.moe = _params(moe_lib.init_moe(gen, cfg, dtype))
         if cfg.block in (BLOCK_MAMBA2, BLOCK_HYMBA):
             self.ssm = _params(m2.init_mamba2(gen, cfg, dtype))
         if cfg.block == BLOCK_HYMBA:
@@ -82,12 +97,19 @@ class Block(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# blocks (full-sequence form).  Return (x, per-layer cache or None)
+# blocks (full-sequence form).  Return (x, per-layer cache or None, aux)
 # ---------------------------------------------------------------------------
+def _ffn(lp, h2, cfg):
+    """The block's second half on the normalised h2: (y, MoE aux loss)."""
+    if cfg.block == BLOCK_ATTN_MOE:
+        return moe_lib.moe_forward(lp["moe"], h2, cfg)
+    return mlp_forward(lp["mlp"], h2, cfg.mlp_act), None
+
+
 def block_forward(lp, x, cfg, positions, want_cache=False):
     h = rms_norm(x, lp["norm1"])
     cache = None
-    if cfg.block == BLOCK_ATTN_MLP:
+    if cfg.block in ATTN_BLOCKS:
         y, (k, v) = attn.attention_forward(lp["attn"], h, cfg, positions)
         if want_cache:
             cache = {"k": k, "v": v}
@@ -96,7 +118,7 @@ def block_forward(lp, x, cfg, positions, want_cache=False):
                                      return_state=want_cache)
         if want_cache:
             cache = {"ssm": state}
-        return x + y, cache             # single-mixer block: no MLP half
+        return x + y, cache, None       # single-mixer block: no MLP half
     else:                               # hymba
         ya, (k, v) = attn.attention_forward(lp["attn"], h, cfg, positions)
         ys, state = m2.mamba2_forward(lp["ssm"], h, cfg,
@@ -106,14 +128,15 @@ def block_forward(lp, x, cfg, positions, want_cache=False):
         if want_cache:
             cache = {"attn": {"k": k, "v": v}, "ssm": state}
     h2, x = rms_norm(y, lp["norm2"], residual=x)      # x + y, then norm
-    return x + mlp_forward(lp["mlp"], h2, cfg.mlp_act), cache
+    y2, aux = _ffn(lp, h2, cfg)
+    return x + y2, cache, aux
 
 
 def block_decode(lp, x, layer_cache, cfg):
     """One-token step; ``layer_cache`` carries 'pos' injected by the caller
     and is updated in place."""
     h = rms_norm(x, lp["norm1"])
-    if cfg.block == BLOCK_ATTN_MLP:
+    if cfg.block in ATTN_BLOCKS:
         y, _ = attn.attention_decode(lp["attn"], h, layer_cache, cfg)
     elif cfg.block == BLOCK_MAMBA2:
         y, layer_cache["ssm"] = m2.mamba2_decode(lp["ssm"], h,
@@ -129,7 +152,7 @@ def block_decode(lp, x, layer_cache, cfg):
         y = 0.5 * (rms_norm(ya, lp["attn_norm"])
                    + rms_norm(ys, lp["ssm_norm"]))
     h2, x = rms_norm(y, lp["norm2"], residual=x)      # x + y, then norm
-    return x + mlp_forward(lp["mlp"], h2, cfg.mlp_act)
+    return x + _ffn(lp, h2, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +197,7 @@ def param_shapes(cfg: ArchConfig) -> dict:
 def embed_inputs(model, batch, cfg: ArchConfig):
     """Tokens only.  Returns (x (B, S, d), positions (S,))."""
     tokens = batch["tokens"]
-    x = model["embed"][tokens.long()]
+    x = F.embedding(tokens.long(), model["embed"])
     return x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
 
@@ -191,20 +214,69 @@ def unembed(model, x, cfg):
 # full model
 # ---------------------------------------------------------------------------
 def forward(model, batch, cfg: ArchConfig, want_cache=False,
-            last_only=False):
-    """Returns (logits, per-layer caches or None).  ``last_only`` unembeds
-    the last position alone (what prefill needs; the norm and the unembed
-    are per position, so its logits equal the full run's last row)."""
+            last_only=False, unembed_out=True):
+    """Returns (logits, per-layer caches or None, aux loss).  ``last_only``
+    unembeds the last position alone (what prefill needs; the norm and the
+    unembed are per position, so its logits equal the full run's last
+    row); without ``unembed_out`` the first output is the final-normed
+    hidden state.  Under ``cfg.remat``, with a gradient wanted, each block
+    is recomputed in the backward."""
     x, positions = embed_inputs(model, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for lp in model["layers"]:
-        x, cache = block_forward(lp, x, cfg, positions,
-                                 want_cache=want_cache)
+        if remat:
+            x, cache, aux_i = checkpoint(block_forward, lp, x, cfg,
+                                         positions, use_reentrant=False)
+        else:
+            x, cache, aux_i = block_forward(lp, x, cfg, positions,
+                                            want_cache=want_cache)
+        if aux_i is not None:
+            aux = aux + aux_i
         caches.append(cache)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, model["final_norm"])
-    return unembed(model, x, cfg), (caches if want_cache else None)
+    out = unembed(model, x, cfg) if unembed_out else x
+    return out, (caches if want_cache else None), aux
+
+
+def _ce_chunk(model, cfg, x, labels, mask):
+    """One chunk of :func:`chunked_ce`: (sum of masked nll, mask sum)."""
+    logits = unembed(model, x, cfg).float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((lse - lab) * mask).sum(), mask.sum()
+
+
+def chunked_ce(model, x, labels, mask, cfg: ArchConfig, chunk: int = 512):
+    """Sequence-chunked fused unembed + CE: the (B, S, V) logits are never
+    all materialized; each (B, chunk, V) tile is computed, reduced and,
+    with a gradient wanted, recomputed in the backward."""
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if S % chunk != 0 or S <= chunk:
+        return cross_entropy(unembed(model, x, cfg), labels, mask)
+    one = partial(_ce_chunk, model, cfg)
+    nll = cnt = 0.0
+    for i in range(S // chunk):
+        part = (x[:, i * chunk:(i + 1) * chunk],
+                labels[:, i * chunk:(i + 1) * chunk],
+                mask[:, i * chunk:(i + 1) * chunk])
+        n, c = (checkpoint(one, *part, use_reentrant=False)
+                if torch.is_grad_enabled() else one(*part))
+        nll, cnt = nll + n, cnt + c
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(model, batch, cfg: ArchConfig):
+    """(ce + 0.01 * aux, {"ce", "aux"}) on a batch {"tokens", "labels"}."""
+    x, _, aux = forward(model, batch, cfg, unembed_out=False)
+    ce = chunked_ce(model, x, batch["labels"], None, cfg)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
@@ -218,7 +290,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
             return {"ssm": m2.init_mamba2_cache(cfg, batch, dtype, dev)}
         ac = attn.init_attn_cache(cfg, batch, max_len, dtype, dev)
         ac.pop("pos")
-        if cfg.block == BLOCK_ATTN_MLP:
+        if cfg.block in ATTN_BLOCKS:
             return ac
         return {"attn": ac, "ssm": m2.init_mamba2_cache(cfg, batch, dtype,
                                                         dev)}
@@ -228,8 +300,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 def prefill(model, batch, cfg: ArchConfig, alloc_len: int | None = None):
     """Full-sequence prefill; returns (last-token logits (B, 1, V),
     decode-ready cache)."""
-    logits, caches = forward(model, batch, cfg, want_cache=True,
-                             last_only=True)
+    logits, caches, _ = forward(model, batch, cfg, want_cache=True,
+                                last_only=True)
     seq_len = batch["tokens"].shape[1]
     return logits, _prefill_to_cache(caches, cfg, seq_len,
                                      alloc_len or seq_len)
@@ -247,7 +319,7 @@ def _prefill_to_cache(caches, cfg, seq_len: int, alloc_len: int):
     if cfg.block == BLOCK_MAMBA2:
         return {"layers": [{"ssm": c["ssm"]} for c in caches],
                 "pos": seq_len}
-    kvs = [c if cfg.block == BLOCK_ATTN_MLP else c["attn"] for c in caches]
+    kvs = [c if cfg.block in ATTN_BLOCKS else c["attn"] for c in caches]
     keep = min(seq_len, cap)
     src = torch.arange(seq_len - keep, seq_len, device=kvs[0]["k"].device)
     idx = src % cap
@@ -263,7 +335,7 @@ def _prefill_to_cache(caches, cfg, seq_len: int, alloc_len: int):
         return {"k": to_slots(kv["k"]), "v": to_slots(kv["v"]),
                 "slot_pos": sp.clone()}
 
-    if cfg.block == BLOCK_ATTN_MLP:
+    if cfg.block in ATTN_BLOCKS:
         layers = [slots(kv) for kv in kvs]
     else:
         layers = [{"attn": slots(kv), "ssm": c["ssm"]}

@@ -90,13 +90,17 @@ def test_init_cache_matches_jax(name):
 
 
 def test_unported_blocks_raise():
+    """MLA is not ported: its block and glm4-9b's config raise.  The MoE
+    block is (tests/test_torch_moe.py): an ``attn_moe`` config builds."""
     from repro_torch.configs.base import ArchConfig
-    for block in ("mla_mlp", "attn_moe"):
-        cfg = ArchConfig(name="x", family="dense", source="-", block=block)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttf.LM(cfg, device="cpu")
+    cfg = ArchConfig(name="x", family="dense", source="-", block="mla_mlp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch("glm4-9b")
+    moe = ArchConfig(name="x", family="moe", source="-", block="attn_moe",
+                     n_experts=4, top_k=2)
+    assert len(ttf.LM(moe, device="cpu").layers[0].moe) == 4
 
 
 @pytest.mark.parametrize("frac", [1.0, 0.5])

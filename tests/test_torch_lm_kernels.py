@@ -6,8 +6,12 @@ chip_smoke.py.  Inputs are made with numpy from a seed.
 
 Tolerances (float32) follow tests/test_kernels.py: rmsnorm 1e-6, flash
 attention 1e-5, SSD 1e-4 — both sides compute in float32 and differ only
-in the order of their sums.
+in the order of their sums.  The gradients of the two differentiable
+wrappers (rmsnorm, flash prefill) are held to ``jax.grad`` of the JAX
+model's functions at 1e-5; their backward kernels are held to the plain
+versions on the card by chip_smoke.py (phase 11).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ from repro.kernels.flash_attention.ref import flash_attention_ref as jfa_ref
 from repro.kernels.mamba2_ssd.ops import ssd as jssd
 from repro.kernels.mamba2_ssd.ref import ssd_ref as jssd_ref
 from repro.kernels.rmsnorm.ops import rmsnorm as jrmsnorm
+from repro.models import layers as jlayers
+from repro.models.attention import _attend as jattend
 from repro.models.attention import expand_kv as jexpand_kv
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels.flash_attention import ops as tfa
@@ -26,6 +32,8 @@ from repro_torch.kernels.flash_attention.ref import (expand_kv,
                                                      visible)
 from repro_torch.kernels.mamba2_ssd.ops import ssd as tssd
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as trmsnorm
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_backward
+from repro_torch.models import layers as tlayers
 
 F32 = np.float32
 
@@ -318,6 +326,95 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
 
 
 # ---------------------------------------------------------------------------
+# gradients: the autograd Functions against jax.grad of the JAX functions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("with_residual", [True, False])
+def test_rms_norm_gradient_matches_jax(with_residual):
+    """``layers.rms_norm`` through the rmsnorm Function (on the CPU its
+    backward differentiates the plain version) against ``jax.grad`` of the
+    JAX ``layers.rms_norm`` (of ``x + r`` in the residual form, whose sum
+    the loss also reads, as the next block does): dx, d(residual), dw
+    within 1e-5 (float32, sums in another order)."""
+    rng = np.random.default_rng(11)
+    x, r, c1, c2 = (rng.standard_normal((3, 7, 48)).astype(F32)
+                    for _ in range(4))
+    w = rng.standard_normal(48).astype(F32)
+
+    def jloss(x, r, w):
+        s = x + r if with_residual else x
+        y = jlayers.rms_norm(s, w)
+        return jnp.sum(y * c1) + (jnp.sum(s * c2) if with_residual else 0.0)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, r, w)))
+    xt, rt, wt = (torch.tensor(a, requires_grad=True) for a in (x, r, w))
+    if with_residual:
+        y, s = tlayers.rms_norm(xt, wt, residual=rt)
+        loss = (y * torch.tensor(c1)).sum() + (s * torch.tensor(c2)).sum()
+    else:
+        loss = (tlayers.rms_norm(xt, wt) * torch.tensor(c1)).sum()
+    loss.backward()
+    _close(xt.grad, want[0], 1e-5)
+    _close(wt.grad, want[2], 1e-5)
+    if with_residual:
+        _close(rt.grad, want[1], 1e-5)
+    else:
+        assert rt.grad is None
+
+
+@pytest.mark.parametrize("causal,window,pad", [(True, None, False),
+                                               (True, 12, False),
+                                               (False, None, False),
+                                               (True, 12, True)])
+def test_mha_gradient_matches_jax(causal, window, pad):
+    """``ops.mha`` through the flash Function (on the CPU its backward
+    differentiates the plain version) against ``jax.grad`` of the JAX
+    model's ``_attend`` on K/V expanded by ``expand_kv``: causal, windowed,
+    bidirectional, and Hymba's padded head map (32 query heads over 7 kv
+    heads), where dK and dV sum over the irregular group of each kv head.
+    dq, dk, dv within 1e-5 (float32, sums in another order)."""
+    rng = np.random.default_rng(13)
+    if pad:
+        idx = get_arch("hymba-1.5b").kv_index_map()
+        H, Hkv = len(idx), max(idx) + 1
+    else:
+        idx, H, Hkv = None, 4, 2
+    B, S, D = 2, 24, 16
+    q, c = (rng.standard_normal((B, S, H, D)).astype(F32) for _ in range(2))
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(F32)
+            for _ in range(2))
+    pos = jnp.arange(S, dtype=jnp.int32)
+    g = H // Hkv if idx is None else 1
+
+    def jloss(q, k, v):
+        out = jattend(q, jexpand_kv(k, g, idx), jexpand_kv(v, g, idx), pos,
+                      pos, causal=causal, window=window, scale=D ** -0.5)
+        return jnp.sum(out * c)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = tfa.mha(qt, kt, vt, causal=causal, window=window, kv_head=idx)
+    (out * torch.tensor(c)).sum().backward()
+    for got, w in zip((qt.grad, kt.grad, vt.grad), want):
+        _close(got, w, 1e-5)
+
+
+def test_serving_takes_no_gradient_path():
+    """Under ``inference_mode`` (serving) or with no input wanting a
+    gradient, ``mha`` and ``rmsnorm`` call the forward wrappers as before:
+    no autograd node, no backward dispatch."""
+    from repro_torch.obs.trace import kernel_launch_counts
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    before = kernel_launch_counts()
+    with torch.inference_mode():
+        out = tfa.mha(q, q, q)
+        y, _ = trmsnorm(q, torch.ones(16, requires_grad=True))
+    assert out.grad_fn is None and y.grad_fn is None
+    after = kernel_launch_counts()
+    assert after.get("flash_attention.backward", 0) == before.get(
+        "flash_attention.backward", 0)
+    assert after.get("flash_attention.prefill", 0) == before.get(
+        "flash_attention.prefill", 0) + 1
+
+
+# ---------------------------------------------------------------------------
 # the card-only path: no CPU fallback for a non-CPU tensor
 # ---------------------------------------------------------------------------
 def test_wrappers_do_not_fall_back_off_the_cpu():
@@ -337,3 +434,22 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         tssd(torch.empty((2, 8, 4), device=m), torch.empty((2, 8), device=m),
              torch.empty((2, 8, 4), device=m),
              torch.empty((2, 8, 4), device=m))
+
+
+def test_backward_wrappers_do_not_fall_back_off_the_cpu():
+    """The same for the two backward wrappers and for the Functions'
+    forward (``mha`` and ``rmsnorm`` with a gradient wanted)."""
+    m = torch.device("meta")
+    x = torch.empty((4, 64), device=m)
+    w = torch.empty(64, device=m)
+    with pytest.raises(ValueError, match="kernel needs"):
+        rmsnorm_backward(x, x, x, w, x)
+    with pytest.raises(ValueError, match="kernel needs"):
+        trmsnorm(x.requires_grad_(), w)
+    q = torch.empty((1, 8, 2, 16), device=m)
+    pos = torch.arange(8, dtype=torch.int32, device=m)
+    lse = torch.empty((1, 2, 8), device=m)
+    with pytest.raises(ValueError, match="kernel needs"):
+        tfa.attention_backward(q, q, q, q, q, lse, pos, pos)
+    with pytest.raises(ValueError, match="kernel needs"):
+        tfa.mha(q.requires_grad_(), q, q)
