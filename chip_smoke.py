@@ -191,8 +191,10 @@ arguments its warm epoch recorded, and rmsnorm at the decode shape:
 device time by CUDA events and by torch.profiler, kernels, aten
 operators and host time a call, and the decode chain of
 :func:`norm_chain`; and rmsnorm at the prefill shape and at the row
-counts of RMS_AB_ROWS (D = 1,600) by CUDA events.  It prints the card's
-name and power limit, then one ``AB {...}`` JSON line a process.
+counts of RMS_AB_ROWS (D = 1,600) by CUDA events; and both backward
+kernels (flash attention's and rmsnorm's) at the train path's shapes,
+by CUDA events and by torch.profiler.  It prints the card's name and
+power limit, then one ``AB {...}`` JSON line a process.
 
 ``python3 chip_smoke.py --lanes N`` runs phase 8's TPC-C service run
 instead, in N pairs without and with phase 9's read tier and analytics
@@ -2974,6 +2976,18 @@ def grad_err(got, want):
     return worst
 
 
+def same_bits(a, b, what):
+    """Fails unless two calls' outputs are the same bit for bit (the
+    backward kernels use no float atomics: their sums run in a fixed
+    order)."""
+    import torch
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        same = x.shape == y.shape and torch.equal(
+            x.contiguous().view(torch.uint8),
+            y.contiguous().view(torch.uint8))
+        check(same, f"{what}: two calls on the same inputs differ")
+
+
 def rmsnorm_grad_plain(dy, dres, x, w, r, eps=1e-5):
     """(dx, dw) by autograd through the plain rmsnorm in float32."""
     import torch
@@ -2998,8 +3012,9 @@ def rmsnorm_bwd_sweep(dev):
     """The rmsnorm backward kernel against autograd through its plain
     version (float32) at RMS_BWD_ROWS x RMS_BWD_WIDTHS, bf16 and float32,
     with and without the residual: both vector widths (1,601 is not a
-    multiple of 8), one row, rows past the grid's blocks (16,384 rows over
-    4 blocks an SM), the widest row.  Returns the worst error by dtype."""
+    multiple of 8), one row, rows past the grid's blocks, the widest row;
+    each case twice, the two calls bit-identical.  Returns the worst error
+    by dtype."""
     import torch
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_backward
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -3014,6 +3029,8 @@ def rmsnorm_bwd_sweep(dev):
                 w = torch.randn((D,), generator=gen, device=dev).to(dtype)
                 for rr, dr in ((r, dres), (None, None)):
                     got = rmsnorm_backward(dy, dr, x, w, rr)
+                    same_bits(got, rmsnorm_backward(dy, dr, x, w, rr),
+                              f"rmsnorm backward {dtype} T={T} D={D}")
                     want = rmsnorm_grad_plain(dy, dr, x, w, rr)
                     torch.cuda.synchronize()
                     err = grad_err(got, want)
@@ -3037,7 +3054,7 @@ def flash_bwd_sweep(dev):
     lengths, causal, windowed and bidirectional masks, a regular GQA map
     and Hymba's padded one, empty key slots, rows that see no key (their
     gradient reaches every v row, dO / Sk, and no q or k) and a head where
-    no row sees a key."""
+    no row sees a key; each case twice, the two calls bit-identical."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -3070,6 +3087,9 @@ def flash_bwd_sweep(dev):
                                      kvh, True)
                 got = fa.attention_backward(do, q, k, v, o, lse, qp, kp,
                                             **kw)
+                same_bits(got, fa.attention_backward(do, q, k, v, o, lse, qp,
+                                                     kp, **kw),
+                          f"flash backward sweep {dtype} D={D} Sq={Sq}")
                 want = flash_grad_plain(do, q, k, v, qp, kp, **kw)
                 torch.cuda.synchronize()
                 err = grad_err(got, want)
@@ -3087,8 +3107,8 @@ def flash_bwd_sweep(dev):
 def flash_bwd_shape(dev, B, S, H, Hkv, D, window, kv_head, gen):
     """The flash backward kernel at one training shape: bf16 at batch B
     and float32 at batch 1, every request held against the plain version
-    on that request alone.  Returns (bf16 inputs, bf16 max abs error,
-    bf16 error, f32 error)."""
+    on that request alone, two calls bit-identical.  Returns (bf16
+    inputs, bf16 max abs error, bf16 error, f32 error)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     pos = torch.arange(S, dtype=torch.int32, device=dev)
@@ -3102,6 +3122,9 @@ def flash_bwd_shape(dev, B, S, H, Hkv, D, window, kv_head, gen):
         o, lse = fa._forward(q, k, v, pos, pos, True, window, None, kv_head,
                              True)
         got = fa.attention_backward(do, q, k, v, o, lse, pos, pos, **kw)
+        same_bits(got, fa.attention_backward(do, q, k, v, o, lse, pos, pos,
+                                             **kw),
+                  f"flash backward {dtype} B={b} S={S} H={H}/{Hkv} D={D}")
         err = abs_err = 0.0
         for i in range(b):
             one = slice(i, i + 1)
@@ -3145,6 +3168,8 @@ def backward_kernel_rows(dev):
                       .to(torch.bfloat16) for _ in range(4))
     w = torch.randn((D,), generator=gen, device=dev).to(torch.bfloat16)
     got = rmsnorm_backward(dy, dres, x, w, r)
+    same_bits(got, rmsnorm_backward(dy, dres, x, w, r),
+              "rmsnorm backward at the train shape")
     want = rmsnorm_grad_plain(dy, dres, x, w, r)
     err = grad_err(got, want)
     check(err <= TOL_BF16_BWD, f"rmsnorm backward at the train shape: "
@@ -3906,8 +3931,9 @@ def ab_side(tree, dev):
     after one untimed: prefill s and decode ms a step), the SSD kernel
     alone on the arguments that prefill
     gave it, and rmsnorm on its recorded prefill and decode calls, in
-    the decode chain of :func:`norm_chain` and at RMS_AB_ROWS rows.
-    Prints one ``AB {...}`` JSON line."""
+    the decode chain of :func:`norm_chain` and at RMS_AB_ROWS rows; and
+    both backward kernels at the train path's shapes
+    (:func:`train_backward_calls`).  Prints one ``AB {...}`` JSON line."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.core import replication
@@ -3978,7 +4004,46 @@ def ab_side(tree, dev):
         dec.append(se.stats.decode_s / se.stats.decode_steps * 1e3)
     out.update(tree=str(tree), prefill_s=pre, decode_ms_per_step=dec,
                ssd_ms=cuda_ms(lambda: ssd(*args, **kw)))
+    del se, args, kw
+    torch.cuda.empty_cache()
+    out.update(train_backward_calls(dev))
     print("AB " + json.dumps(out), flush=True)
+
+
+def train_backward_calls(dev):
+    """Both backward kernels through their wrappers at the train path's
+    shapes, with whatever kernels the tree's wrappers launch: flash
+    attention's at 8 x 2,048 x 16 / 8 heads x 64 (bf16, causal) and
+    rmsnorm's at 16,384 x 1,024 (bf16, the residual form): device time by
+    CUDA events and by torch.profiler, kernels, aten operators and host
+    time a call (:func:`call_figures`)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_backward
+    cfg = get_arch(TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    T, D = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    x, r, dy, dres = (torch.randn((T, D), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(4))
+    w = torch.randn((D,), generator=gen, device=dev).to(torch.bfloat16)
+    out = {"rmsnorm_backward": call_figures(
+        lambda: rmsnorm_backward(dy, dres, x, w, r))}
+    del x, r, dy, dres, w
+    B, S, H, Hkv, Dh = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head)
+    q, do = (torch.randn((B, S, H, Dh), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    o, lse = fa._forward(q, k, v, pos, pos, True, None, None, None, True)
+    out["attention_backward"] = call_figures(
+        lambda: fa.attention_backward(do, q, k, v, o, lse, pos, pos,
+                                      causal=True))
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return out
 
 if __name__ == "__main__":
     try:

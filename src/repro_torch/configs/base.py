@@ -221,7 +221,7 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
             importlib.import_module(f"repro_torch.configs.{mod}")
         except ModuleNotFoundError as e:
             raise NotImplementedError(
-                f"{name}: config not ported yet (ROADMAP Queue 1, item 11; "
+                f"{name}: config not ported yet (ROADMAP Queue 1, item 7a; "
                 f"ported: {', '.join(PORTED_ARCHS)})") from e
     spec = _REGISTRY[name]
     return spec.smoke if smoke else spec.full

@@ -68,8 +68,10 @@
 // - Training: prefill also writes each row's log-sum-exp when the caller
 //   passes an lse buffer (serving passes NULL and pays one branch a row),
 //   and flash_attention_bwd below computes dQ, dK and dV.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -270,6 +272,334 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ---------------------------------------------------------------------------
+// Hopper PTX for the bf16 backward: wgmma, proxy fences, bulk copies from
+// shared memory, and the acquire / release pair of the dQ turns
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across this point
+template <int R> __device__ __forceinline__ void reg_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R, int C>
+__device__ __forceinline__ void reg_fence(float (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) reg_fence(d[i]);
+}
+template <int R, int C>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+// this thread's shared-memory writes, visible to the async proxy (wgmma,
+// bulk copies)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// global-memory writes of the async proxy (bulk copies) ordered with the
+// generic proxy's (the turns' acquire and release)
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A wgmma shared-memory operand descriptor, no swizzle: the operand is
+// stored as core matrices of 8 rows x 16 bytes (8 bf16), each 128
+// contiguous bytes; `mn` and `k` are the byte distances between core
+// matrices adjacent along M (or N) and along K.  The leading byte offset
+// is the K distance and the stride byte offset the M/N distance, whether
+// the 16 bytes of a core-matrix row run along K (K-major) or along M or N
+// (MN-major, wgmma's transpose flag set): both held against matrix
+// products on the H100.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t mn,
+                                            uint32_t k) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((k >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((mn >> 4) & 0x3FFF) << 32);
+}
+
+// D (64 x N, float32, in registers) (+)= A (64 x 16) B (16 x N), bf16.
+// wgmma_ss: A and B in shared memory (descriptors; TA / TB set = that
+// operand MN-major); wgmma_rs: A in registers, in mma.sync's m16n8k16 A
+// layout, each warp of the warpgroup holding its 16 rows.  acc = 0 writes
+// D, 1 adds to it.  Accumulator layout: warp w of the warpgroup holds rows
+// 16 w + lane / 4 (+ 8); d[4 c + 2 h + e] is row + 8 h, column
+// 8 c + 2 (lane % 4) + e.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+// bytes (a multiple of 16) from shared memory to global memory by the
+// async proxy: a plain copy, or an add into float32
+__device__ __forceinline__ void bulk_store(void* g, const void* s,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          g),
+      "r"(smem_u32(s)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_add_f32(float* g, const void* s,
+                                             uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(g),
+      "r"(smem_u32(s)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// every bulk copy of this thread done (its writes performed)
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// every bulk copy of this thread but the last done
+__device__ __forceinline__ void bulk_wait_one() {
+  asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+}
+// mbarriers: init (one thread, then fence_mbar_init and a block barrier),
+// arrive with the bytes the copies will bring, wait for a phase
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+// a TMA tile of a 5-D tensor map into shared memory, and a plain bulk
+// copy from global memory, both completing on an mbarrier
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* m,
+                                         int c0, int c1, int c2, int c3,
+                                         int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(m), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -926,31 +1256,88 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// backward (the port's own: the JAX package differentiates its XLA
-// attention and has no backward kernel).  FlashAttention-2's split, three
-// kernels in one call, no atomics (the gradients do not depend on the
-// order in which blocks run):
-// 1. pre: a block per (query head, request) computes each row's
-//    D_i = sum_d dO_i * O_i (float32) and whether the head has a row that
-//    saw no key (its LSE is -inf);
-// 2. dQ: a block per (query head, 64 query rows, request), as the forward,
-//    walks the visible key tiles: S = Q K^T, P = exp(scale S - LSE),
-//    dP = dO V^T, dS = P (dP - D), dQ += dS K; dQ = scale dQ;
-// 3. dK, dV: a block per (64 keys, kv head, request) walks every query
-//    head mapped to its kv head (the head table's grouped list, so GQA and
-//    padded heads sum inside the block) and their visible query tiles:
-//    S^T = K Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D),
-//    dK += dS^T Q; dK = scale dK.
-// A row that saw no key got the mean of v over all Sk keys: its gradient
-// is dO / Sk for every key's v and 0 for q and k (P = 1 / Sk, dS = 0).
-// bf16: every product on mma.sync m16n8k16 with P and dS rounded to bf16
-// as A operands (as the forward rounds P), operands by ldmatrix from
-// shared rows padded by 16 bytes; no operand is kept in registers between
-// tiles.  float32: plain FMAs through shared memory (not on the timed
-// path).  What bounds it: operations, five products of the forward's size
-// (seven here: dQ recomputes S and dP) against the bytes of q, k, v, o, dO
-// and the three gradients.  Tiles are loaded and then computed, one
-// barrier a step, with no overlap: a simple kernel first.
+// backward: dQ, dK and dV of prefill.
+//
+// Replaces: no TPU kernel.  The JAX package differentiates its XLA
+// attention (chunked_attention, src/repro/models/attention.py:61) and has
+// no backward kernel; this one serves the port's training path.  Same
+// function as autograd through the plain version: P = exp(scale S - LSE)
+// over the visible keys, dV = P^T dO, dP = dO V^T, dS = P (dP - D_i) with
+// D_i = sum_d dO_i O_i, dQ = scale dS K, dK = scale dS^T Q.  A row that saw
+// no key (LSE -inf) got the mean of v over all Sk keys: its gradient is
+// dO / Sk on every key's v and 0 on q and k.
+//
+// What bounds it on the H100: operations, five products of the forward's
+// size (S, dP, dV, dK, dQ): at 8 x 2,048 x 16 heads x 64, causal, 172
+// GFLOP in bf16 against ~117 MB of q, k, v, o, dO, the LSE and the three
+// gradients.
+//
+// bf16, three kernels a call:
+// 1. bwd_pre_kernel, a block per (BQ query rows, query head, request):
+//    2,048 blocks at the training shape, so this bandwidth-bound pass over
+//    O and dO covers the card.  Each row's D_i, and the rows' table the
+//    main kernel reads (LSE log2 e, +inf for a row that saw no key or lies
+//    past Sq; D_i; the position); whether the tile has a row that saw no
+//    key; the tile's dQ turn counter set to 0.  The blocks of head 0,
+//    request 0 also write the tile plan: for each query tile and key tile,
+//    whether a query of the one may see a key of the other (from their
+//    min and max positions, as the forward classifies its tiles), whether
+//    every query sees every key (no mask), and the key tile's rank among
+//    the query tile's visible key tiles, the highest key tile first; and
+//    each query tile's count of them.
+// 2. bwd_bf16_kernel, one fused kernel for the five products, a block per
+//    BKT = 128 keys of one (kv head, request), warp-specialised: two
+//    consumer warpgroups (64 keys each, 232 registers a thread) and a
+//    producer warpgroup that gives its registers up (setmaxnreg), of which
+//    one warp loads and one writes dQ.  The block keeps its K and V tile
+//    in shared memory and walks every query head mapped to its kv head
+//    (the head table's grouped list, so GQA and Hymba's padded map sum
+//    inside the block) and their visible query tiles of BQ rows (128; 64
+//    at D = 128).  Per visit each consumer warpgroup computes S^T = K Q^T
+//    and dP^T = V dO^T (wgmma, both operands in shared memory, the two
+//    chains' k-steps interleaved), P^T and dS^T in the accumulator
+//    registers (no branch: the mask only in tiles that need one), then
+//    dV += P^T dO and dK += dS^T Q (wgmma with P^T and dS^T as register A
+//    operands: the accumulator layout packed to bf16, as the forward
+//    packs P), in flight while dS goes to shared memory, then its half of
+//    D's columns of dQ = dS K over all 128 keys (wgmma, both warpgroups'
+//    dS and K read transposed from shared memory).  dK and dV stay in
+//    registers over the walk.  Q, dO and the rows' table arrive
+//    by TMA (a 5-D tensor map a tensor, encoded on the host each call
+//    through the driver's cuTensorMapEncodeTiled, whose box lands as
+//    wgmma's no-swizzle core matrices) into a 2-stage ring on mbarriers:
+//    the next visit's tiles load while this one computes.
+//    dQ without float atomics in a run-dependent order: each warpgroup
+//    stages its columns of the tile in shared memory (in the accumulators'
+//    own order: no bank conflicts), and the dQ warp copies the tile by
+//    Hopper's bulk copy (rank 0) or bulk reduce-add (the rest) into a
+//    float32 scratch tile per (request,
+//    query head, query tile), in the order of the plan's ranks: it waits
+//    until the tile's turn counter equals its rank (acquire), issues the
+//    copy, and passes the turn on (release) once the copy has landed,
+//    which it checks after issuing the next tile's.  So every element of
+//    dQ is summed in one fixed order and dQ is the same bit for bit in
+//    every run; two dQ buffers let the consumers run a visit ahead of the
+//    turns.  Rank 0 is the highest visible key tile: under a causal mask
+//    the diagonal one, whose block reaches that query tile first.
+//    Why no wait can deadlock: each block takes a ticket (an atomic
+//    counter) when it starts and maps it to its (key tile, kv head,
+//    request), the highest key tile first within a (kv head, request).  A
+//    block waits only for higher key tiles of its own (kv head, request),
+//    whose tickets are lower: they started before it, are resident or
+//    done, and wait in turn only on lower tickets; the block holding a
+//    turn never waits for a block below it.
+//    A row that saw no key takes no part in the walk (its P is 0 there);
+//    its dO / Sk is added to every key's dV at the end, summed in a fixed
+//    order, by the blocks whose query heads have such a row.
+//    Shared memory at D = 64: K and V 32 KB, two stages of Q, dO and the
+//    rows' table 68 KB, two warpgroups' dS 32 KB, two float32 dQ tiles
+//    64 KB: ~197 KB, one block an SM.  D = 128 (BQ = 64): ~211 KB.
+// 3. bwd_dq_kernel writes each scratch tile as bf16 dq x scale (0 for a
+//    query tile that no key tile is visible to).
+// float32 (not on the timed path): the same pre-pass (64-row tiles), then
+// FlashAttention-2's split with plain FMAs through shared memory, dQ by a
+// block per query tile and dK, dV by a block per key tile.
 // ---------------------------------------------------------------------------
 struct BArgs {
   const void* q;
@@ -965,34 +1352,105 @@ struct BArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* drow;                            // (B, H, Sq): D_i
-  int* dead;                              // (B, H): a row saw no key
-  int B, H, Hkv, Sq, Sk;
+  float* drow;                            // float32: (B, H, Sq) D_i
+  // bf16 only (NULL for float32), see above
+  float4* rows;                           // (B, H, nQT * BQ)
+  int* plan;                              // (nQT, nKT), then nQT counts
+  int* turn;                              // (B, H, nQT) dQ turn counters
+  int* dead;                              // (B, H, nQT) a row saw no key
+  unsigned* ticket;                       // the main kernel's tickets
+  float* dqacc;                           // (B, H, nQT, BQ * D)
+  int B, H, Hkv, Sq, Sk, nQT, nKT, bkt;   // bkt: keys a main-kernel block
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
   float scale;
   int causal, window;
 };
 
-constexpr int PRE_THREADS = 256;
+constexpr int PRE_THREADS = 128;
+constexpr int MAX_KT = 4096;        // key tiles the plan classifies at most
 
+// the bf16 main kernel: NWG consumer warpgroups of 128 threads, 64 keys
+// each, and a producer warpgroup (a warp of loads, a warp of dQ); query
+// tiles of BQ rows
+template <int D> struct BW {
+  static constexpr int NWG = 2;
+  static constexpr int BKT = 64 * NWG;          // keys a block
+  static constexpr int BQ = D == 128 ? 64 : 128;   // query rows a tile
+  static constexpr int MT = BQ / 64;            // dQ's m-tiles
+  static constexpr int NC = 128 * NWG;          // consumer threads
+  static constexpr int NT = NC + 128;           // and the producer warpgroup
+  // registers a thread after setmaxnreg: 8 warps at 232 and 4 at 40 fill
+  // the 64 K registers of an SM (12 warps start at 168 each)
+  static constexpr int REG_C = 232, REG_P = 40;
+  static constexpr int S = 2;                   // stages of the Q/dO ring
+  static constexpr int NB = 2;                  // dQ tiles in flight
+  static constexpr int TQ = BQ * D * 2;         // bytes of a Q or dO tile
+  static constexpr int TK = BKT * D * 2;        // bytes of a K or V tile
+  static constexpr int TS = 64 * BQ * 2;        // a warpgroup's dS tile
+  static constexpr size_t K_OFF = 0;
+  static constexpr size_t V_OFF = TK;
+  static constexpr size_t Q_OFF = 2 * TK;                 // S stages
+  static constexpr size_t DO_OFF = Q_OFF + S * TQ;        // S stages
+  static constexpr size_t R_OFF = DO_OFF + S * TQ;        // S x the rows
+  static constexpr size_t S_OFF = R_OFF + S * BQ * 16;    // NWG x dS
+  static constexpr size_t DQ_OFF = S_OFF + NWG * TS;      // NB x dQ, f32
+  static constexpr size_t X_OFF = DQ_OFF + NB * BQ * D * 4;   // D floats
+  static constexpr size_t P_OFF = X_OFF + D * 4;   // plan column, then the
+                                                   // visible query tiles
+  static constexpr size_t smem(int nQT) { return P_OFF + 8 * (size_t)nQT; }
+  // named barriers (0 is __syncthreads): a stage is free; both dS tiles
+  // are whole; both are free again; the consumers
+  static constexpr int EMPTY = 1, DS = EMPTY + S, DS_FREE = DS + 1,
+                       CONS = DS_FREE + 1;
+};
+
+// query rows a tile of the backward: the float32 path's pre-pass, 64
+template <typename T, int D> __host__ __device__ constexpr int tile_rows() {
+  return std::is_same<T, float>::value ? 64 : BW<D>::BQ;
+}
+
+// the plan's row for query tile qt (rows [q0, q0 + nq)); a whole block
+__device__ void plan_row(const BArgs& a, int qt, int q0, int nq) {
+  __shared__ unsigned char cls[MAX_KT];
+  int qlo, qhi;
+  q_range(a, q0, nq, qlo, qhi);
+  if (a.bkt == 64)
+    classify_tiles<64>(a, a.nKT, qlo, qhi, cls);
+  else
+    classify_tiles<128>(a, a.nKT, qlo, qhi, cls);
+  __syncthreads();
+  int* row = a.plan + (long long)qt * a.nKT;
+  for (int t = threadIdx.x; t < a.nKT; t += blockDim.x) {
+    int rank = 0;
+    for (int u = t + 1; u < a.nKT; ++u) rank += cls[u] != 0;
+    row[t] = cls[t] == 0 ? 0 : (rank << 2) | (cls[t] == 2 ? 2 : 0) | 1;
+    if (t == 0) a.plan[(long long)a.nQT * a.nKT + qt] = rank + (cls[0] != 0);
+  }
+}
+
+// a block per (BQ query rows, query head, request)
 template <typename T, int D>
 __global__ void __launch_bounds__(PRE_THREADS) bwd_pre_kernel(BArgs a) {
+  constexpr int BQ = tile_rows<T, D>();
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LPR = D / VEC;            // lanes a row (2 to 32)
   constexpr int RPW = 32 / LPR;           // rows a warp step
   constexpr int WARPS = PRE_THREADS / 32;
   using P = Pack<T, VEC>;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = lane / LPR, c = (lane % LPR) * VEC;
+  const int q0 = qt * BQ, nq = min(BQ, a.Sq - q0);
   const T* o = static_cast<const T*>(a.o) + b * a.os[0] + h * a.os[1];
   const T* dO = static_cast<const T*>(a.dO) + b * a.dos[0] + h * a.dos[1];
-  const long long bh = ((long long)b * a.H + h) * a.Sq;
+  const long long bh = (long long)b * a.H + h;
   int dead = 0;
-  for (int i0 = warp * RPW; i0 < a.Sq; i0 += WARPS * RPW) {
-    const int i = i0 + row;
+  // every step's loads are independent: unrolled, all are in flight at once
+#pragma unroll
+  for (int it = 0; it < BQ / (WARPS * RPW); ++it) {
+    const int r = (it * WARPS + warp) * RPW + lane / LPR;
+    const int c = (lane % LPR) * VEC, i = q0 + r;
     float s = 0.f;
-    if (i < a.Sq) {
+    if (r < nq) {
       const P x = *reinterpret_cast<const P*>(o + i * a.os[2] + c);
       const P y = *reinterpret_cast<const P*>(dO + i * a.dos[2] + c);
 #pragma unroll
@@ -1000,352 +1458,400 @@ __global__ void __launch_bounds__(PRE_THREADS) bwd_pre_kernel(BArgs a) {
     }
 #pragma unroll
     for (int x = 1; x < LPR; x <<= 1) s += __shfl_xor_sync(FULL, s, x);
-    if (i < a.Sq && lane % LPR == 0) {
-      a.drow[bh + i] = s;
-      dead |= a.lse[bh + i] == -INFINITY;
+    if (lane % LPR == 0) {
+      const float l = r < nq ? a.lse[bh * a.Sq + i] : INFINITY;
+      const bool none = r < nq && l == -INFINITY;
+      dead |= none;
+      if (r < nq && a.drow != nullptr) a.drow[bh * a.Sq + i] = s;
+      if (a.rows != nullptr)
+        a.rows[(bh * a.nQT + qt) * BQ + r] = make_float4(
+            r < nq && !none ? l * LOG2E : INFINITY, r < nq ? s : 0.f,
+            __int_as_float(a.qpos[min(i, a.Sq - 1)]), 0.f);
     }
   }
   dead = __syncthreads_or(dead);
-  if (threadIdx.x == 0) a.dead[b * a.H + h] = dead;
-}
-
-// min and max of the valid (>= 0) positions pos[0, n) of a tile of `tile`
-// rows (n <= tile <= 64), and whether any is missing (< 0 or past n);
-// every lane of the warp gets the result
-__device__ __forceinline__ void pos_range(const int* pos, int n, int tile,
-                                          int& lo, int& hi, bool& empty) {
-  const int lane = threadIdx.x & 31;
-  lo = INT32_MAX;
-  hi = -1;
-  bool miss = n < tile;
-  for (int i = lane; i < n; i += 32) {
-    const int p = pos[i];
-    if (p < 0) {
-      miss = true;
-    } else {
-      lo = min(lo, p);
-      hi = max(hi, p);
-    }
+  if (a.rows == nullptr) return;
+  if (threadIdx.x == 0) {
+    a.dead[bh * a.nQT + qt] = dead;
+    a.turn[bh * a.nQT + qt] = 0;
+    if (qt == 0 && bh == 0) *a.ticket = 0u;
   }
-  lo = warp_min_i(lo);
-  hi = warp_max_i(hi);
-  empty = __any_sync(FULL, miss);
+  if (bh == 0) plan_row(a, qt, q0, nq);
 }
 
-// ---- dQ, bfloat16 ----------------------------------------------------------
-template <int D> struct BQL {
-  static constexpr int BQ = 64;                  // query rows: 4 warps x 16
-  static constexpr int BKT = D <= 64 ? 64 : 32;  // keys a tile
-  static constexpr int LD = D + 8;
-  static constexpr size_t Q_OFF = 0;
-  static constexpr size_t DO_OFF = Q_OFF + BQ * LD * 2;
-  static constexpr size_t K_OFF = DO_OFF + BQ * LD * 2;
-  static constexpr size_t V_OFF = K_OFF + BKT * LD * 2;
-  static constexpr size_t KP_OFF = V_OFF + BKT * LD * 2;
-  static constexpr size_t CLS_OFF = KP_OFF + BKT * 4;
-  static constexpr size_t smem(int nT) { return CLS_OFF + nT; }
-};
-
-// rows [0, rows) of a (rows, D) bf16 tile from src (row stride `stride`)
-// into shared memory (row stride LD); rows at or past `valid` are zero
-template <int D, int LD>
-__device__ __forceinline__ void tile_async(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int valid,
-                                           int rows) {
-  constexpr int CPR = D / 8;
-  for (int i = threadIdx.x; i < rows * CPR; i += PF_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LD + c, src + (long long)(ok ? r : 0) * stride + c,
-               ok);
-  }
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
 }
 
-// C (16 x 8 n-tiles x N) += A (16 rows of a row-major shared tile at row
-// r0, K = KD columns) * B^T, B a row-major shared tile (n rows, KD cols):
-// the S = Q K^T pattern
-template <int KD, int N, int LD>
-__device__ __forceinline__ void mma_abt(float (&c)[N / 8][4],
-                                        const __nv_bfloat16* A, int r0,
-                                        const __nv_bfloat16* Bm) {
-  const int lane = threadIdx.x & 31;
+// P^T = exp(scale S^T - LSE) and dS^T = P^T (dP^T - D_i) in place, for
+// this thread's keys kp (rows g, g + 8), the tile's rows RW and queries
+// [16 kk, 16 kk + 16); query 8 c + 2 t4 + e is column e of n-tile c.
+// Without branches, so that the compiler interleaves the exponentials: a
+// masked score's exponential is computed and dropped.
+template <bool MASK, int N>
+__device__ __forceinline__ void grad_scores(float (&s)[N], float (&dp)[N],
+                                            const float4* RW,
+                                            const int (&kp)[2], float sl2,
+                                            int causal, int window, int t4,
+                                            int kk) {
 #pragma unroll
-  for (int kk = 0; kk < KD / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, A + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  for (int c = 2 * kk; c < 2 * kk + 2; ++c)
 #pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t bfr[4];
-      ldsm_x4(bfr, Bm + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                       kk * 16 + ((lane >> 3) & 1) * 8);
-      mma16816(c[2 * np], af, bfr[0], bfr[1]);
-      mma16816(c[2 * np + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// C (16 x D) += A (16 x K, accumulator layout in registers, rounded to
-// bf16) * B, B a row-major shared tile (K rows, D cols): the O += P V
-// pattern
-template <int K, int D, int LD>
-__device__ __forceinline__ void mma_pb(float (&c)[D / 8][4],
-                                       const float (&p)[K / 8][4],
-                                       const __nv_bfloat16* Bm) {
-  const int lane = threadIdx.x & 31;
+    for (int e = 0; e < 2; ++e) {
+      const float4 rw = RW[8 * c + 2 * t4 + e];
+      const int qp = __float_as_int(rw.z);
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bfr[4];
-      ldsm_x4_t(bfr, Bm + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              LD + dp * 16 + (lane >> 4) * 8);
-      mma16816(c[2 * dp], pa, bfr[0], bfr[1]);
-      mma16816(c[2 * dp + 1], pa, bfr[2], bfr[3]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-template <int D>
-__global__ void __launch_bounds__(PF_THREADS) bwd_dq_bf16_kernel(BArgs a) {
-  using L = BQL<D>;
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = L::LD, BQ = L::BQ, BKT = L::BKT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::DO_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
-  int* KP = reinterpret_cast<int*>(smem + L::KP_OFF);
-  unsigned char* cls = smem + L::CLS_OFF;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int h = blockIdx.x, q0 = blockIdx.y * BQ, b = blockIdx.z;
-  const int hk = a.kv_head[h];
-  const int nq = min(BQ, a.Sq - q0);
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const bf16* dO =
-      static_cast<const bf16*>(a.dO) + b * a.dos[0] + h * a.dos[1];
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  bf16* dq = static_cast<bf16*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
-  const long long bh = ((long long)b * a.H + h) * a.Sq;
-
-  tile_async<D, LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQ);
-  tile_async<D, LD>(dOs, dO + q0 * a.dos[2], a.dos[2], nq, BQ);
-  cp_async_commit();
-  int qlo, qhi;
-  q_range(a, q0, nq, qlo, qhi);
-  const int nT = (a.Sk + BKT - 1) / BKT;
-  classify_tiles<BKT>(a, nT, qlo, qhi, cls);
-  __syncthreads();                        // cls is written
-
-  const int r0 = warp * 16;
-  int qp[2];
-  float lse2[2], dr[2];
-  bool dead[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = q0 + min(r0 + g + 8 * hf, nq - 1);
-    qp[hf] = a.qpos[r];
-    const float l = a.lse[bh + r];
-    dead[hf] = l == -INFINITY;
-    lse2[hf] = dead[hf] ? 0.f : l * LOG2E;
-    dr[hf] = a.drow[bh + r];
-  }
-  const float sl2 = a.scale * LOG2E;
-  float acc[D / 8][4];
-  zero<D / 8>(acc);
-
-  for (int t = next_tile(cls, 0, nT); t < nT; t = next_tile(cls, t + 1, nT)) {
-    const int k0 = t * BKT, nk = min(BKT, a.Sk - k0);
-    __syncthreads();                      // the last tile is consumed
-    tile_async<D, LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BKT);
-    tile_async<D, LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BKT);
-    if (tid < BKT) KP[tid] = tid < nk ? a.kpos[k0 + tid] : -1;
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    const bool full = cls[t] == 2;
-    float s[BKT / 8][4], dp[BKT / 8][4];
-    zero<BKT / 8>(s);
-    zero<BKT / 8>(dp);
-    mma_abt<D, BKT, LD>(s, Qs, r0, Ks);
-    mma_abt<D, BKT, LD>(dp, dOs, r0, Vs);
-#pragma unroll
-    for (int j = 0; j < BKT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1;
-        const bool vis = !dead[hf] &&
-            (full || sees(KP[j * 8 + 2 * tq + (e & 1)], qp[hf], a.causal,
-                          a.window));
-        const float p = vis ? ex2(fmaf(s[j][e], sl2, -lse2[hf])) : 0.f;
-        s[j][e] = p * (dp[j][e] - dr[hf]);          // dS
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = 4 * c + 2 * hf + e;
+        float p = ex2(fmaf(s[j], sl2, -rw.x));
+        if (MASK) {
+          const bool vis = (kp[hf] >= 0) & ((causal == 0) | (kp[hf] <= qp)) &
+                           ((window <= 0) | (kp[hf] > qp - window));
+          p = vis ? p : 0.f;
+        }
+        s[j] = p;
+        dp[j] = p * (dp[j] - rw.y);
       }
-    mma_pb<BKT, D, LD>(acc, s, Ks);
-  }
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = r0 + g + 8 * hf;
-    if (r >= nq) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = j * 8 + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(dq + (q0 + r) * a.dqs[2] + c) =
-          __floats2bfloat162_rn(acc[j][2 * hf] * a.scale,
-                                acc[j][2 * hf + 1] * a.scale);
     }
-  }
 }
 
-// ---- dK, dV, bfloat16 -----------------------------------------------------
-template <int D> struct BKL {
-  static constexpr int BKT = 64;                 // keys: 4 warps x 16
-  static constexpr int BQT = D <= 64 ? 64 : 32;  // queries a tile
-  static constexpr int LD = D + 8;
-  static constexpr size_t K_OFF = 0;
-  static constexpr size_t V_OFF = K_OFF + BKT * LD * 2;
-  static constexpr size_t Q_OFF = V_OFF + BKT * LD * 2;
-  static constexpr size_t DO_OFF = Q_OFF + BQT * LD * 2;
-  static constexpr size_t QP_OFF = DO_OFF + BQT * LD * 2;
-  static constexpr size_t LSE_OFF = QP_OFF + BQT * 4;
-  static constexpr size_t DR_OFF = LSE_OFF + BQT * 4;
-  static constexpr size_t SMEM = DR_OFF + BQT * 4;
+// TMA maps of q, dO (boxes of BQ rows) and k, v (BKT rows), from
+// tile_map below
+struct TMaps {
+  CUtensorMap q, dO, k, v;
 };
 
 template <int D>
-__global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_bf16_kernel(BArgs a) {
-  using L = BKL<D>;
+__global__ void __launch_bounds__(BW<D>::NT, 1)
+    bwd_bf16_kernel(BArgs a, const __grid_constant__ TMaps tm) {
+  using L = BW<D>;
   using bf16 = __nv_bfloat16;
-  constexpr int LD = L::LD, BKT = L::BKT, BQT = L::BQT;
+  constexpr int BKT = L::BKT, NC = L::NC, S = L::S, NB = L::NB;
+  constexpr int BQ = L::BQ, MT = L::MT, DH = D / 2;
+  constexpr uint32_t CM = 128;               // bytes of a core matrix
+  constexpr uint32_t QG = (BQ / 8) * CM;     // Q, dO, dS: column-group step
+  constexpr uint32_t KG = (BKT / 8) * CM;    // K, V: column-group step
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::DO_OFF);
-  int* QP = reinterpret_cast<int*>(smem + L::QP_OFF);
-  float* LS = reinterpret_cast<float*>(smem + L::LSE_OFF);
-  float* DR = reinterpret_cast<float*>(smem + L::DR_OFF);
+  __shared__ unsigned ticket;
+  __shared__ int n_vis;
+  // mbarriers: a stage has landed (TMA); a dQ tile is whole; its buffer
+  // is free
+  __shared__ __align__(8) uint64_t full[S], dq_full[NB], dq_free[NB];
+  unsigned char* Ks = smem + L::K_OFF;
+  unsigned char* Vs = smem + L::V_OFF;
+  float2* DQs = reinterpret_cast<float2*>(smem + L::DQ_OFF);
+  float* dsum = reinterpret_cast<float*>(smem + L::X_OFF);
+  int* plan = reinterpret_cast<int*>(smem + L::P_OFF);
+  int* vq = plan + a.nQT;                        // visible query tiles
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * BKT, nk = min(BKT, a.Sk - k0);
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  tile_async<D, LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BKT);
-  tile_async<D, LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BKT);
-  cp_async_commit();
-  int klo, khi;
-  bool kempty;
-  pos_range(a.kpos + k0, nk, BKT, klo, khi, kempty);
-  const int r0 = warp * 16;
+  const int tid = threadIdx.x, wg = tid >> 7, wi = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  if (tid == 0) {
+    ticket = atomicAdd(a.ticket, 1u);
+#pragma unroll
+    for (int i = 0; i < S; ++i) mbar_init(&full[i], 1);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      mbar_init(&dq_full[i], NC);
+      mbar_init(&dq_free[i], 1);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int tk = (int)ticket, nQT = a.nQT;
+  const int grp = tk / a.nKT;                    // b * Hkv + kv head
+  const int kt = a.nKT - 1 - tk % a.nKT;
+  const int b = grp / a.Hkv, hk = grp % a.Hkv;
+  const int k0 = kt * BKT, nk = min(BKT, a.Sk - k0);
+  for (int i = tid; i < nQT; i += L::NT)
+    plan[i] = a.plan[(long long)i * a.nKT + kt];
+  const int* order = a.kv_head + a.H;
+  const int off = order[a.H + hk], G = order[a.H + hk + 1] - off;
+  __syncthreads();
+  if (tid < 32) {                                // the visible query tiles
+    int n = 0;
+    for (int q0 = 0; q0 < nQT; q0 += 32) {
+      const bool v = q0 + lane < nQT && (plan[q0 + lane] & 1);
+      const unsigned m = __ballot_sync(FULL, v);
+      if (v) vq[n + __popc(m & ((1u << lane) - 1))] = q0 + lane;
+      n += __popc(m);
+    }
+    if (lane == 0) n_vis = n;
+  }
+  __syncthreads();
+  // visit v: query head order[off + v / nvq], query tile vq[v % nvq]
+  const int nvq = n_vis, nv = G * nvq;
+  auto tile_of = [&](int v) {
+    return ((long long)b * a.H + order[off + v / nvq]) * nQT + vq[v % nvq];
+  };
+
+  if (wg == L::NWG) {
+    // ---- the producer warpgroup: warp 0 loads, warp 1 writes dQ; it
+    // gives its registers to the consumers and its other warps leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::REG_P));
+    if (wi == 0) {
+      // visit v's Q, dO and rows' table into stage v % S by TMA (lane 0);
+      // the first visit also brings the block's K and V
+      auto load = [&](int v) {
+        const int h = order[off + v / nvq], qt = vq[v % nvq], st = v % S;
+        mbar_expect(&full[st],
+                    2 * L::TQ + BQ * 16 + (v == 0 ? 2 * L::TK : 0));
+        if (v == 0) {
+          tma_tile(Ks, &tm.k, 0, k0, 0, hk, b, &full[0]);
+          tma_tile(Vs, &tm.v, 0, k0, 0, hk, b, &full[0]);
+        }
+        tma_tile(smem + L::Q_OFF + st * L::TQ, &tm.q, 0, qt * BQ, 0, h, b,
+                 &full[st]);
+        tma_tile(smem + L::DO_OFF + st * L::TQ, &tm.dO, 0, qt * BQ, 0, h,
+                 b, &full[st]);
+        bulk_load(smem + L::R_OFF + st * BQ * 16,
+                  a.rows + tile_of(v) * BQ, BQ * 16, &full[st]);
+      };
+      for (int v = 0; v < nv; ++v) {
+        if (v >= S) named_sync(L::EMPTY + v % S, NC + 32);
+        if (lane == 0) load(v);
+      }
+    } else if (wi == 1 && lane == 0) {
+      // dQ: each tile in its turn.  A tile's copy lands while the next
+      // tile's turn is polled: once the next copy is issued, the tile
+      // before has its turn passed on and its buffer freed.  Holding a turn
+      // while waiting for the next one cannot deadlock: only blocks of
+      // lower key tiles wait for it, and this block waits only for higher
+      // ones.
+      int* held = nullptr;
+      int held_rank = 0;
+      for (int u = 0; u < nv; ++u) {
+        const int bu = u % NB;
+        mbar_wait(&dq_full[bu], (u / NB) & 1);
+        const long long tile = tile_of(u);
+        int* turn = a.turn + tile;
+        const int rank = plan[vq[u % nvq]] >> 2;
+        // a turn that never comes is a fault of the plan: trap (an error
+        // on the stream) after ~2^26 polls rather than hold the card
+        for (int n = 0; ld_acquire(turn) != rank; ++n)
+          if (n == 1 << 26) __trap();
+        fence_async_global();
+        float* dst = a.dqacc + tile * (BQ * D);
+        const float2* src = DQs + bu * (BQ * D / 2);
+        if (rank == 0)
+          bulk_store(dst, src, BQ * D * 4);
+        else
+          bulk_add_f32(dst, src, BQ * D * 4);
+        bulk_commit();
+        if (held != nullptr) {          // the tile before: landed, passed on
+          bulk_wait_one();
+          mbar_arrive(&dq_free[(u - 1) % NB]);
+          fence_async_global();
+          st_release(held, held_rank + 1);
+        }
+        held = turn;
+        held_rank = rank;
+      }
+      if (held != nullptr) {
+        bulk_wait_all();
+        fence_async_global();
+        st_release(held, held_rank + 1);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg owns keys [64 wg, 64 wg + 64) -------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::REG_C));
+  unsigned char* Sw = smem + L::S_OFF + wg * L::TS;   // this one's dS
+  // this thread's two keys: rows g and g + 8 of its warp's 16
   int kp[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int r = r0 + g + 8 * hf;
+    const int r = 64 * wg + 16 * wi + g + 8 * hf;
     kp[hf] = r < nk ? a.kpos[k0 + r] : -1;
   }
-  const float sl2 = a.scale * LOG2E, inv_sk = 1.f / (float)a.Sk;
-  const int* order = a.kv_head + a.H;
-  const int off = order[a.H + hk], G = order[a.H + hk + 1] - off;
-  float dk[D / 8][4], dv[D / 8][4];
-  zero<D / 8>(dk);
-  zero<D / 8>(dv);
+  const float sl2 = a.scale * LOG2E;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int n = 0; n < nv; ++n) {
+    const int st = n % S, qt = vq[n % nvq];
+    const bool whole = (plan[qt] & 2) != 0;     // no mask in this tile
+    const unsigned char* Qs = smem + L::Q_OFF + st * L::TQ;
+    const unsigned char* dOs = smem + L::DO_OFF + st * L::TQ;
+    const float4* RW =
+        reinterpret_cast<const float4*>(smem + L::R_OFF + st * BQ * 16);
+    mbar_wait(&full[st], (n / S) & 1);          // the visit's tiles landed
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = order[off + gi];
-    const bool any_dead = a.dead[b * a.H + h] != 0;
-    const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
-    const bf16* dO =
-        static_cast<const bf16*>(a.dO) + b * a.dos[0] + h * a.dos[1];
-    const long long bh = ((long long)b * a.H + h) * a.Sq;
-    for (int q0 = 0; q0 < a.Sq; q0 += BQT) {
-      const int nq = min(BQT, a.Sq - q0);
-      int qlo, qhi;
-      bool qempty;
-      pos_range(a.qpos + q0, nq, nq, qlo, qhi, qempty);
-      const bool vis = khi >= 0 && (!a.causal || klo <= qhi) &&
-                       (a.window <= 0 || khi > qlo - a.window);
-      if (!vis && !any_dead) continue;    // the same in every warp
-      const bool full = !any_dead && !kempty &&
-                        (!a.causal || khi <= qlo) &&
-                        (a.window <= 0 || klo > qhi - a.window);
-      __syncthreads();                    // the last tile is consumed
-      tile_async<D, LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQT);
-      tile_async<D, LD>(dOs, dO + q0 * a.dos[2], a.dos[2], nq, BQT);
-      cp_async_commit();
-      if (tid < BQT) {
-        // a padding row: LSE +inf gives P = 0 (and it is not "dead")
-        QP[tid] = a.qpos[q0 + min(tid, nq - 1)];
-        LS[tid] = tid < nq ? a.lse[bh + q0 + tid] : INFINITY;
-        DR[tid] = tid < nq ? a.drow[bh + q0 + tid] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      // S^T = K Q^T, then P^T, for this warp's 16 keys
-      float st[BQT / 8][4];
-      zero<BQT / 8>(st);
-      mma_abt<D, BQT, LD>(st, Ks, r0, Qs);
+    // S^T = K Q^T and dP^T = V dO^T, their k-steps interleaved (two
+    // independent chains keep the tensor cores busier than one)
+    float s[BQ / 2], dp[BQ / 2];
+    wg_fence();
 #pragma unroll
-      for (int j = 0; j < BQT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * tq + (e & 1);
-          const float l = LS[qi];
-          float p;
-          if (l == -INFINITY)
-            p = inv_sk;                   // saw no key: the mean of v
-          else if (full || sees(kp[e >> 1], QP[qi], a.causal, a.window))
-            p = ex2(fmaf(st[j][e], sl2, -l * LOG2E));
-          else
-            p = 0.f;
-          st[j][e] = p;
-        }
-      mma_pb<BQT, D, LD>(dv, st, dOs);    // dV += P^T dO
-      float dpt[BQT / 8][4];
-      zero<BQT / 8>(dpt);
-      mma_abt<D, BQT, LD>(dpt, Vs, r0, dOs);   // dP^T = V dO^T
-#pragma unroll
-      for (int j = 0; j < BQT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * tq + (e & 1);
-          dpt[j][e] = LS[qi] == -INFINITY
-                          ? 0.f
-                          : st[j][e] * (dpt[j][e] - DR[qi]);   // dS^T
-        }
-      mma_pb<BQT, D, LD>(dk, dpt, Qs);    // dK += dS^T Q
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0, 0>(s, wg_desc(Ks + wg * 8 * CM + kk * 2 * KG, CM, KG),
+                     wg_desc(Qs + kk * 2 * QG, CM, QG), kk > 0);
+      wgmma_ss<0, 0>(dp, wg_desc(Vs + wg * 8 * CM + kk * 2 * KG, CM, KG),
+                     wg_desc(dOs + kk * 2 * QG, CM, QG), kk > 0);
     }
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // P^T and dS^T in place, the mask only in tiles that need one, then
+    // the bf16 A operands
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      if (whole)
+        grad_scores<false>(s, dp, RW, kp, sl2, a.causal, a.window, t4, kk);
+      else
+        grad_scores<true>(s, dp, RW, kp, sl2, a.causal, a.window, t4, kk);
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        da[kk][i] = pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+      }
+    // dV += P^T dO, dK += dS^T Q (dO and Q read transposed), in flight
+    // while dS goes to shared memory
+    reg_fence(dv);
+    reg_fence(dk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<1>(dv, pa[kk], wg_desc(dOs + kk * 2 * CM, QG, CM), 1);
+      wgmma_rs<1>(dk, da[kk], wg_desc(Qs + kk * 2 * CM, QG, CM), 1);
+    }
+    wg_commit();
+    // dS to this warpgroup's tile, a key per core-matrix row (key group
+    // 2 wi + hf, query group c), once both warpgroups' dQ products of the
+    // last visit have read the tiles
+    if (n > 0) named_sync(L::DS_FREE, NC);
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<uint32_t*>(
+            Sw + (((2 * wi + hf) * (BQ / 8) + c) * 8 + g) * 16 + t4 * 4) =
+            da[c >> 1][2 * (c & 1) + hf];
+    fence_async_smem();
+    named_sync(L::DS, NC);                      // both dS tiles are whole
+    // this warpgroup's columns [wg DH, wg DH + DH) of dQ = dS K over the
+    // block's 128 keys (m-tiles of 64 queries; dS read transposed)
+    float dq[MT][DH / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_ss<1, 1>(
+            dq[mt],
+            wg_desc(smem + L::S_OFF + (kk >> 2) * L::TS + mt * 8 * CM +
+                        (kk & 3) * 2 * QG,
+                    CM, QG),
+            wg_desc(Ks + kk * 2 * CM + wg * (DH / 8) * KG, KG, CM), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(dq);
+    reg_fence(dk);
+    reg_fence(dv);
+    reg_fence(pa);
+    reg_fence(da);
+    if (n + S < nv) named_arrive(L::EMPTY + st, NC + 32);   // stage free
+    // this warpgroup's columns of the block's dQ tile, in the
+    // accumulators' order, for the producer to copy out
+    const int bn = n % NB;
+    float2* stg = DQs + bn * (BQ * D / 2);
+    if (n >= NB) mbar_wait(&dq_free[bn], (n / NB - 1) & 1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < DH / 4; ++jj)
+        stg[(((mt * 2 + wg) * 4 + wi) * (DH / 4) + jj) * 32 + lane] =
+            make_float2(dq[mt][2 * jj], dq[mt][2 * jj + 1]);
+    fence_async_smem();
+    mbar_arrive(&dq_full[bn]);
+  }
+
+  // rows that saw no key: dO / Sk on every key's v
+  bool any_dead = false;
+  for (int i = 0; i < G; ++i) {
+    const long long bh = (long long)b * a.H + order[off + i];
+    for (int t = 0; t < nQT; ++t) any_dead |= a.dead[bh * nQT + t] != 0;
+  }
+  if (any_dead) {
+    for (int d = tid; d < D; d += NC) {
+      float sum = 0.f;
+      for (int i = 0; i < G; ++i) {
+        const int h = order[off + i];
+        const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+        const bf16* dO = static_cast<const bf16*>(a.dO) + b * a.dos[0] +
+                         h * a.dos[1] + d;
+        for (int r = 0; r < a.Sq; ++r)
+          if (lse[r] == -INFINITY) sum += to_f(dO[r * a.dos[2]]);
+      }
+      dsum[d] = sum / (float)a.Sk;
+    }
+    named_sync(L::CONS, NC);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dv[4 * c + j] += dsum[8 * c + 2 * t4 + (j & 1)];
   }
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int r = r0 + g + 8 * hf;
+    const int r = 64 * wg + 16 * wi + g + 8 * hf;
     if (r >= nk) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = j * 8 + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(dkp + (k0 + r) * a.dks[2] + c) =
-          __floats2bfloat162_rn(dk[j][2 * hf] * a.scale,
-                                dk[j][2 * hf + 1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + (k0 + r) * a.dvs[2] + c) =
-          __floats2bfloat162_rn(dv[j][2 * hf], dv[j][2 * hf + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t4, j = 4 * c + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + (k0 + r) * a.dks[2] + col) =
+          __floats2bfloat162_rn(dk[j] * a.scale, dk[j + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + (k0 + r) * a.dvs[2] + col) =
+          __floats2bfloat162_rn(dv[j], dv[j + 1]);
     }
+  }
+}
+
+// dq = scale x the scratch tile of (request, query head, query tile): read
+// in the order the main kernel wrote it, transposed through shared memory,
+// written a row at a time
+template <int D>
+__global__ void __launch_bounds__(256) bwd_dq_kernel(BArgs a) {
+  constexpr int BQ = BW<D>::BQ, DH = D / 2;
+  __shared__ float tile[BQ][D + 1];
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BQ, nq = min(BQ, a.Sq - q0);
+  const bool any = a.plan[(long long)a.nQT * a.nKT + qt] > 0;
+  const float2* src = reinterpret_cast<const float2*>(
+      a.dqacc + (((long long)b * a.H + h) * a.nQT + qt) * (BQ * D));
+  for (int p = threadIdx.x; p < BQ * D / 2; p += 256) {
+    // p = (((m-tile 2 + warpgroup) 4 + warp) DH / 4 + pair) 32 + lane
+    const int lane = p & 31, jj = (p >> 5) % (DH / 4), w = (p >> 5) / (DH / 4);
+    const int row = 64 * (w >> 3) + 16 * (w & 3) + (lane >> 2) + 8 * (jj & 1);
+    const int col = ((w >> 2) & 1) * DH + 8 * (jj >> 1) + 2 * (lane & 3);
+    const float2 x = any ? src[p] : make_float2(0.f, 0.f);
+    tile[row][col] = x.x;
+    tile[row][col + 1] = x.y;
+  }
+  __syncthreads();
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(a.dq) + b * a.dqs[0] +
+                      h * a.dqs[1];
+  for (int p = threadIdx.x; p < nq * (D / 2); p += 256) {
+    const int row = p / (D / 2), col = 2 * (p % (D / 2));
+    *reinterpret_cast<__nv_bfloat162*>(dq + (q0 + row) * a.dqs[2] + col) =
+        __floats2bfloat162_rn(tile[row][col] * a.scale,
+                              tile[row][col + 1] * a.scale);
   }
 }
 
@@ -1536,12 +2042,92 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// the workspace's layout: sets a's scratch pointers into ws (when not
+// NULL) and returns its bytes.  float32: D_i (B, H, Sq).  bf16: the rows'
+// table, the plan and its counts, the turn counters, the dead flags, the
+// ticket and the dQ scratch (see the note).
 template <typename T, int D>
-int launch_bwd(const BArgs& a, cudaStream_t st) {
-  bwd_pre_kernel<T, D><<<dim3(a.H, a.B), PRE_THREADS, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  int err;
+size_t bwd_workspace(BArgs& a, char* ws) {
+  const size_t bh = (size_t)a.B * a.H;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = ws == nullptr ? nullptr : ws + off;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  constexpr int BQ = tile_rows<T, D>();
+  a.nQT = (a.Sq + BQ - 1) / BQ;
+  if constexpr (std::is_same<T, float>::value) {
+    a.bkt = FB;
+    a.nKT = (a.Sk + FB - 1) / FB;
+    a.drow = reinterpret_cast<float*>(take(bh * a.Sq * 4));
+  } else {
+    a.bkt = BW<D>::BKT;
+    a.nKT = (a.Sk + a.bkt - 1) / a.bkt;
+    a.rows = reinterpret_cast<float4*>(take(bh * a.nQT * BQ * 16));
+    a.plan = reinterpret_cast<int*>(take(((size_t)a.nQT * a.nKT + a.nQT) * 4));
+    a.turn = reinterpret_cast<int*>(take(bh * a.nQT * 4));
+    a.dead = reinterpret_cast<int*>(take(bh * a.nQT * 4));
+    a.ticket = reinterpret_cast<unsigned*>(take(4));
+    a.dqacc = reinterpret_cast<float*>(take(bh * a.nQT * BQ * D * 4));
+  }
+  return off;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, from the driver library the CUDA
+// runtime has loaded (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A TMA map over a (B, S, heads, D) bf16 tensor read through its element
+// strides st (batch, head, position), whose box is `rows` positions of one
+// (request, head): 5-D (8 elements, positions, D / 8 column groups, heads,
+// requests), box (8, rows, D / 8, 1, 1), so a tile lands as D / 8 column
+// groups of rows x 16 bytes: wgmma's no-swizzle core-matrix layout, 128
+// contiguous bytes a core matrix.  Rows past S are zero-filled.
+int tile_map(CUtensorMap* m, const void* base, const long long* st, int B,
+             int S, int heads, int D, int rows) {
+  const EncodeTiled f = encode_tiled();
+  if (f == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)S, (cuuint64_t)(D / 8),
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)st[2] * 2, 16,
+                                 (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[5] = {8, (cuuint32_t)rows, (cuuint32_t)(D / 8), 1, 1};
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                       const_cast<void*>(base), dims, strides, box, one,
+                       CU_TENSOR_MAP_INTERLEAVE_NONE,
+                       CU_TENSOR_MAP_SWIZZLE_NONE,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+int launch_bwd(BArgs a, char* ws, cudaStream_t st) {
+  bwd_workspace<T, D>(a, ws);
+  if (a.nKT > MAX_KT) return (int)cudaErrorInvalidValue;
+  const dim3 tiles(a.nQT, a.H, a.B);
+  bwd_pre_kernel<T, D><<<tiles, PRE_THREADS, 0, st>>>(a);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
   if constexpr (std::is_same<T, float>::value) {
     using L = BFL<D>;
     if ((err = set_smem(bwd_dq_f32_kernel<D>, L::SMEM))) return err;
@@ -1549,36 +2135,49 @@ int launch_bwd(const BArgs& a, cudaStream_t st) {
                            L::SMEM, st>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
     if ((err = set_smem(bwd_dkdv_f32_kernel<D>, L::SMEM))) return err;
-    bwd_dkdv_f32_kernel<D><<<dim3((a.Sk + FB - 1) / FB, a.Hkv, a.B),
-                             PF_THREADS, L::SMEM, st>>>(a);
+    bwd_dkdv_f32_kernel<D><<<dim3(a.nKT, a.Hkv, a.B), PF_THREADS, L::SMEM,
+                             st>>>(a);
   } else {
-    using LQ = BQL<D>;
-    using LK = BKL<D>;
-    const size_t sq = LQ::smem((a.Sk + LQ::BKT - 1) / LQ::BKT);
-    if ((err = set_smem(bwd_dq_bf16_kernel<D>, sq))) return err;
-    bwd_dq_bf16_kernel<D><<<dim3(a.H, (a.Sq + LQ::BQ - 1) / LQ::BQ, a.B),
-                            PF_THREADS, sq, st>>>(a);
+    using L = BW<D>;
+    TMaps tm;
+    if ((err = tile_map(&tm.q, a.q, a.qs, a.B, a.Sq, a.H, D, L::BQ)) ||
+        (err = tile_map(&tm.dO, a.dO, a.dos, a.B, a.Sq, a.H, D, L::BQ)) ||
+        (err = tile_map(&tm.k, a.k, a.ks, a.B, a.Sk, a.Hkv, D, L::BKT)) ||
+        (err = tile_map(&tm.v, a.v, a.vs, a.B, a.Sk, a.Hkv, D, L::BKT)))
+      return err;
+    const size_t sm = L::smem(a.nQT);
+    if ((err = set_smem(bwd_bf16_kernel<D>, sm))) return err;
+    bwd_bf16_kernel<D><<<a.nKT * a.Hkv * a.B, L::NT, sm, st>>>(a, tm);
     if ((err = (int)cudaGetLastError())) return err;
-    if ((err = set_smem(bwd_dkdv_bf16_kernel<D>, LK::SMEM))) return err;
-    bwd_dkdv_bf16_kernel<D><<<dim3((a.Sk + LK::BKT - 1) / LK::BKT, a.Hkv,
-                                   a.B),
-                              PF_THREADS, LK::SMEM, st>>>(a);
+    bwd_dq_kernel<D><<<tiles, 256, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd_d(const BArgs& a, int D, cudaStream_t st) {
+int launch_bwd_d(const BArgs& a, int D, char* ws, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_bwd<T, 16>(a, st);
-    case 32: return launch_bwd<T, 32>(a, st);
-    case 64: return launch_bwd<T, 64>(a, st);
-    case 128: return launch_bwd<T, 128>(a, st);
+    case 16: return launch_bwd<T, 16>(a, ws, st);
+    case 32: return launch_bwd<T, 32>(a, ws, st);
+    case 64: return launch_bwd<T, 64>(a, ws, st);
+    case 128: return launch_bwd<T, 128>(a, ws, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+size_t workspace_d(BArgs& a, int D) {
+  switch (D) {
+    case 16: return bwd_workspace<T, 16>(a, nullptr);
+    case 32: return bwd_workspace<T, 32>(a, nullptr);
+    case 64: return bwd_workspace<T, 64>(a, nullptr);
+    case 128: return bwd_workspace<T, 128>(a, nullptr);
+    default: return 0;
+  }
+}
+
 }  // namespace
+
 
 // Strides are in elements, in the order (batch, head, position) for q, k,
 // v and o; the last axis is contiguous.  kv_head: int32, the (H,) map of
@@ -1618,16 +2217,28 @@ extern "C" int flash_attention_fwd(
 // dO (as o), the forward's o and lse ((B, H, Sq) float32) and the same
 // positions, head table, scale and masks.  Strides in elements, (batch,
 // head, position), last axis contiguous, for q, k, v, o, dO, dq, dk, dv.
-// Scratch: drow float32 (B, H, Sq), dead int32 (B, H), both written
-// before they are read.  Three kernels on the stream (see above); every
-// gradient element is written once, no atomics.
+// ws: flash_attention_bwd_workspace(...) bytes of scratch on the card,
+// 256-byte aligned, every byte written before it is read.  Three kernels
+// on the stream (see above); no float atomics: each call gives the same
+// gradients bit for bit.
+extern "C" long long flash_attention_bwd_workspace(int B, int H, int Sq,
+                                                   int Sk, int D, int dtype) {
+  BArgs a{};
+  a.B = B;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  if (dtype == 0) return (long long)workspace_d<float>(a, D);
+  if (dtype == 1) return (long long)workspace_d<__nv_bfloat16>(a, D);
+  return 0;
+}
+
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, const void* qpos, const void* kpos,
-    const void* kv_head, void* dq, void* dk, void* dv, void* drow,
-    void* dead, int B, int H, int Hkv, int Sq, int Sk, int D,
-    const long long* strides, float scale, int causal, int window, int dtype,
-    void* stream) {
+    const void* kv_head, void* dq, void* dk, void* dv, void* ws, int B,
+    int H, int Hkv, int Sq, int Sk, int D, const long long* strides,
+    float scale, int causal, int window, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaGetLastError();
   if (Hkv <= 0 || H > MAX_HEADS || Sq == 1) return (int)cudaErrorInvalidValue;
   BArgs a{};
@@ -1643,8 +2254,6 @@ extern "C" int flash_attention_bwd(
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.drow = (float*)drow;
-  a.dead = (int*)dead;
   a.B = B;
   a.H = H;
   a.Hkv = Hkv;
@@ -1657,7 +2266,7 @@ extern "C" int flash_attention_bwd(
   a.causal = causal;
   a.window = window;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_bwd_d<float>(a, D, st);
-  if (dtype == 1) return launch_bwd_d<__nv_bfloat16>(a, D, st);
+  if (dtype == 0) return launch_bwd_d<float>(a, D, (char*)ws, st);
+  if (dtype == 1) return launch_bwd_d<__nv_bfloat16>(a, D, (char*)ws, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,17 +45,38 @@
 //   ds = inv * dy * w - s * inv^3 * sum(dy * w * s) / D  (+ d(x + r)),
 //   dx = d(residual) = ds,  dw = sum over rows of dy * n.
 // Bounded by bytes: it reads x, r, dy, d(x + r) and w and writes dx, for
-// ~12 flops an element.  A grid of G blocks (the launcher's choice, a few
-// a multiprocessor) walks the rows, a block a row at a time: one pass
-// loads x, r, dy and w, reduces the row's two sums (s^2 and dy * w * s)
-// across the block, a second pass (the row again, from L2) writes dx.
-// Each thread keeps its columns' share of dw in registers over all its
-// rows, and writes it as the block's partial sum; a second kernel adds the
-// G partials of each column in a fixed order.  No float atomics: the
-// result does not depend on the order in which blocks run.
+// ~12 flops an element (16,384 x 1,024 bf16: 168 MB, 50 us at 3.35 TB/s).
+// Two forms, chosen by the launcher from the width, as the forward
+// chooses its two:
+// - the register form, for rows of at most REG_BWD_VECS 16-byte vectors
+//   a lane (1,024 bf16, 512 float32): a warp a row.  A lane loads its
+//   vectors of x, r, dy and d(x + r) once, every load issued before the
+//   row's arithmetic, and keeps them in registers; the two sums (s^2 and
+//   dy w s) are warp shuffles, with no block barrier; dx is written from
+//   the registers.  The warps of a grid of G blocks (as many as fit on
+//   the card at once) walk the rows; with 8 warps a block and ~8 KB of
+//   loads in flight a warp, the resident warps keep enough bytes in
+//   flight to draw the card's bandwidth, so no warp prefetches its next
+//   row.  Each lane keeps its columns of dw in registers sized for its
+//   width (a template on vectors a lane), w once a warp.
+// - the shared-memory form, for wider rows and widths that are not a
+//   multiple of 16 bytes: a block a row, its threads as many as the row
+//   has vectors (up to 256), so none sits idle through the barriers.  One
+//   pass reads x, r and dy once, keeps s and dy in shared memory (float32)
+//   and reduces the two sums across the block; the second pass reads them
+//   back (each thread its own elements) with d(x + r) and writes dx.  w is
+//   read once a block into shared memory, and the block's columns of dw
+//   are summed there.
+// Each block writes its partial dw (the register form sums its warps'
+// shares in shared memory in warp order first); a second kernel adds the
+// G partials of each column in block order.  No float atomics: the
+// result does not depend on the order in which blocks run, and two calls
+// give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -260,90 +281,177 @@ int launch(const void* x, const void* r, const void* w, void* y, void* res,
 // backward
 // ---------------------------------------------------------------------------
 constexpr int MAX_D = 12288;
+constexpr int BWD_WARPS = 8;              // the register form's warps a block
+constexpr int REG_BWD_VECS = 4;           // its 16-byte vectors a lane at most
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
+rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                       const T* __restrict__ w, const T* __restrict__ dy,
+                       const T* __restrict__ dres, T* __restrict__ dx,
+                       float* __restrict__ part, long long T_, int D,
+                       float eps) {
+  extern __shared__ float red[];          // (BWD_WARPS, D): the warps' dw
+  using P = Pack<T, VEC>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool has_r = r != nullptr, has_d = dres != nullptr;
+  // lane's vector j covers columns [(32 j + lane) VEC, + VEC); a lane past
+  // the row's end reads the last vector and adds and stores nothing
+  int col[NV];
+  bool in[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = (32 * j + lane) * VEC;
+    in[j] = i < D;
+    col[j] = min(i, D - VEC);
+  }
+  P wv[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) wv[j] = *reinterpret_cast<const P*>(w + col[j]);
+  float acc[NV][VEC];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
+  const float inv_d = 1.f / (float)D;
+  for (long long row = (long long)blockIdx.x * BWD_WARPS + warp; row < T_;
+       row += (long long)gridDim.x * BWD_WARPS) {
+    const long long off = row * D;
+    P xv[NV], rv[NV], gv[NV], dv[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      xv[j] = *reinterpret_cast<const P*>(x + off + col[j]);
+      gv[j] = *reinterpret_cast<const P*>(dy + off + col[j]);
+      if (has_r) rv[j] = *reinterpret_cast<const P*>(r + off + col[j]);
+      if (has_d) dv[j] = *reinterpret_cast<const P*>(dres + off + col[j]);
+    }
+    float sv[NV][VEC], ss = 0.f, sd = 0.f;   // s, sum s^2, sum dy w s
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = to_f(xv[j].v[e]);
+        if (has_r) v += to_f(rv[j].v[e]);
+        sv[j][e] = v;
+        if (in[j]) {
+          ss += v * v;
+          sd += to_f(gv[j].v[e]) * to_f(wv[j].v[e]) * v;
+        }
+      }
+    ss = warp_sum(ss);
+    sd = warp_sum(sd);
+    const float inv = rsqrtf(ss * inv_d + eps);
+    const float c = inv * inv * inv * sd * inv_d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      P ov;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float g = to_f(gv[j].v[e]);
+        float ds = inv * g * to_f(wv[j].v[e]) - c * sv[j][e];
+        if (has_d) ds += to_f(dv[j].v[e]);
+        ov.v[e] = from_f<T>(ds);
+        acc[j][e] += g * sv[j][e] * inv;
+      }
+      if (in[j]) *reinterpret_cast<P*>(dx + off + col[j]) = ov;
+    }
+  }
+  // the block's dw: its warps' shares added in warp order
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if (in[j])
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[warp * D + col[j] + e] = acc[j][e];
+  __syncthreads();
+  for (int i = threadIdx.x; i < D; i += 32 * BWD_WARPS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < BWD_WARPS; ++k) sum += red[k * D + i];
+    part[(long long)blockIdx.x * D + i] = sum;
+  }
+}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                   const T* __restrict__ w, const T* __restrict__ dy,
-                   const T* __restrict__ dres, T* __restrict__ dx,
-                   float* __restrict__ part, long long T_, int D, float eps) {
-  // vectors a thread covers in a row at the widest D
-  constexpr int NK = (MAX_D + THREADS * VEC - 1) / (THREADS * VEC);
-  __shared__ float red[2][THREADS / 32];
+rmsnorm_bwd_smem_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                        const T* __restrict__ w, const T* __restrict__ dy,
+                        const T* __restrict__ dres, T* __restrict__ dx,
+                        float* __restrict__ part, long long T_, int D,
+                        float eps) {
+  // float32 (D,) each: s and dy of the current row, w, the block's dw
+  extern __shared__ float sm[];
+  float* ss_ = sm;
+  float* gs = sm + D;
+  float* ws = sm + 2 * D;
+  float* acc = sm + 3 * D;
+  __shared__ float red[2][2][THREADS / 32];
   using P = Pack<T, VEC>;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  float acc[NK][VEC];                     // this thread's columns of dw
+  const int t = threadIdx.x, nt = blockDim.x, lane = t & 31, warp = t >> 5;
+  const bool has_r = r != nullptr, has_d = dres != nullptr;
+  for (int i = t * VEC; i < D; i += nt * VEC) {
+    const P wv = *reinterpret_cast<const P*>(w + i);
 #pragma unroll
-  for (int k = 0; k < NK; ++k)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
-  for (long long row = blockIdx.x; row < T_; row += gridDim.x) {
+    for (int e = 0; e < VEC; ++e) {
+      ws[i + e] = to_f(wv.v[e]);
+      acc[i + e] = 0.f;
+    }
+  }
+  const float inv_d = 1.f / (float)D;
+  int par = 0;
+  for (long long row = blockIdx.x; row < T_; row += gridDim.x, par ^= 1) {
     const long long off = row * D;
-    float ss = 0.f, sd = 0.f;             // sum s^2, sum dy * w * s
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      const int i = (k * THREADS + t) * VEC;
-      if (i >= D) break;
+    float ss = 0.f, sd = 0.f;
+    for (int i = t * VEC; i < D; i += nt * VEC) {
       const P xv = *reinterpret_cast<const P*>(x + off + i);
       const P gv = *reinterpret_cast<const P*>(dy + off + i);
-      const P wv = *reinterpret_cast<const P*>(w + i);
       P rv;
-      if (r != nullptr) rv = *reinterpret_cast<const P*>(r + off + i);
+      if (has_r) rv = *reinterpret_cast<const P*>(r + off + i);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         float v = to_f(xv.v[e]);
-        if (r != nullptr) v += to_f(rv.v[e]);
+        if (has_r) v += to_f(rv.v[e]);
+        const float g = to_f(gv.v[e]);
+        ss_[i + e] = v;
+        gs[i + e] = g;
         ss += v * v;
-        sd += to_f(gv.v[e]) * to_f(wv.v[e]) * v;
+        sd += g * ws[i + e] * v;
       }
     }
     ss = warp_sum(ss);
     sd = warp_sum(sd);
     if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = sd;
+      red[par][0][warp] = ss;
+      red[par][1][warp] = sd;
     }
+    // one barrier a row: red alternates between two buffers, and each
+    // thread reads back only the elements of s and dy it wrote
     __syncthreads();
     float tss = 0.f, tsd = 0.f;
-#pragma unroll
-    for (int k = 0; k < THREADS / 32; ++k) {
-      tss += red[0][k];
-      tsd += red[1][k];
+    for (int k = 0; k < (nt + 31) / 32; ++k) {
+      tss += red[par][0][k];
+      tsd += red[par][1][k];
     }
-    __syncthreads();                      // red is free for the next row
-    const float inv = rsqrtf(tss / (float)D + eps);
-    const float c = inv * inv * inv * tsd / (float)D;
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      const int i = (k * THREADS + t) * VEC;
-      if (i >= D) break;
-      const P xv = *reinterpret_cast<const P*>(x + off + i);
-      const P gv = *reinterpret_cast<const P*>(dy + off + i);
-      const P wv = *reinterpret_cast<const P*>(w + i);
-      P rv, dv, ov;
-      if (r != nullptr) rv = *reinterpret_cast<const P*>(r + off + i);
-      if (dres != nullptr) dv = *reinterpret_cast<const P*>(dres + off + i);
+    const float inv = rsqrtf(tss * inv_d + eps);
+    const float c = inv * inv * inv * tsd * inv_d;
+    for (int i = t * VEC; i < D; i += nt * VEC) {
+      P dv, ov;
+      if (has_d) dv = *reinterpret_cast<const P*>(dres + off + i);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        float v = to_f(xv.v[e]);
-        if (r != nullptr) v += to_f(rv.v[e]);
-        const float g = to_f(gv.v[e]);
-        float ds = inv * g * to_f(wv.v[e]) - c * v;
-        if (dres != nullptr) ds += to_f(dv.v[e]);
-        acc[k][e] += g * v * inv;
+        const float v = ss_[i + e], g = gs[i + e];
+        float ds = inv * g * ws[i + e] - c * v;
+        if (has_d) ds += to_f(dv.v[e]);
         ov.v[e] = from_f<T>(ds);
+        acc[i + e] += g * v * inv;
       }
       *reinterpret_cast<P*>(dx + off + i) = ov;
     }
   }
+  // each thread wrote only its own columns of acc
   float* pb = part + (long long)blockIdx.x * D;
+  for (int i = t * VEC; i < D; i += nt * VEC)
 #pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int i = (k * THREADS + t) * VEC;
-    if (i >= D) break;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) pb[i + e] = acc[k][e];
-  }
+    for (int e = 0; e < VEC; ++e) pb[i + e] = acc[i + e];
 }
 
 // dw[i] = the G blocks' partials of column i, added in block order
@@ -357,19 +465,70 @@ __global__ void rmsnorm_dw_kernel(const float* __restrict__ part, int G,
   dw[i] = from_f<T>(s);
 }
 
+// the backward's form for (D, T's vector width): its kernel, threads a
+// block, rows a block at once and shared memory
+struct BwdForm {
+  const void* kernel;
+  int threads, rows;
+  size_t smem;
+};
+
+template <typename T, int VEC, int NV = 1>
+BwdForm reg_form(int nv, int D) {
+  if constexpr (NV < REG_BWD_VECS) {
+    if (nv > NV) return reg_form<T, VEC, NV + 1>(nv, D);
+  }
+  return {(const void*)rmsnorm_bwd_reg_kernel<T, VEC, NV>, 32 * BWD_WARPS,
+          BWD_WARPS, (size_t)BWD_WARPS * D * sizeof(float)};
+}
+
+template <typename T>
+BwdForm bwd_form(int D) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int nv = (D + 32 * VEC - 1) / (32 * VEC);
+  if (D % VEC == 0 && nv <= REG_BWD_VECS) return reg_form<T, VEC>(nv, D);
+  const int vec = D % VEC == 0 ? VEC : 1;
+  const int vecs = D / vec;
+  const int threads = min(THREADS, (vecs + 31) / 32 * 32);
+  return {vec == VEC ? (const void*)rmsnorm_bwd_smem_kernel<T, VEC>
+                     : (const void*)rmsnorm_bwd_smem_kernel<T, 1>,
+          threads, 1, (size_t)4 * D * sizeof(float)};
+}
+
+// blocks of the backward's grid: as many as the card holds at once, and
+// no more than the rows need
+template <typename T>
+int bwd_blocks(long long T_, int D) {
+  const BwdForm f = bwd_form<T>(D);
+  cudaError_t e = cudaFuncSetAttribute(
+      f.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.smem);
+  if (e != cudaSuccess) return -(int)e;
+  int dev = 0, sms = 0, per = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return -(int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return -(int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per, f.kernel, f.threads, f.smem)) != cudaSuccess)
+    return -(int)e;
+  const long long need = (T_ + f.rows - 1) / f.rows;
+  return (int)std::max(1LL, std::min(need, (long long)std::max(per, 1) * sms));
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* r, const void* w, const void* dy,
                const void* dres, void* dx, float* part, void* dw,
                long long T_, int D, int G, float eps, cudaStream_t st) {
-  constexpr int VEC = 16 / sizeof(T);
-  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*,
-                 float*, long long, int, float) =
-      D % VEC == 0 ? rmsnorm_bwd_kernel<T, VEC> : rmsnorm_bwd_kernel<T, 1>;
   if (G > 0) {
-    kernel<<<(unsigned)G, THREADS, 0, st>>>(
-        (const T*)x, (const T*)r, (const T*)w, (const T*)dy,
-        (const T*)dres, (T*)dx, part, T_, D, eps);
-    const cudaError_t err = cudaGetLastError();
+    const BwdForm f = bwd_form<T>(D);
+    cudaError_t err = cudaFuncSetAttribute(
+        f.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.smem);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {(void*)&x, (void*)&r,    (void*)&w, (void*)&dy,
+                    (void*)&dres, (void*)&dx, (void*)&part, (void*)&T_,
+                    (void*)&D,  (void*)&eps};
+    err = cudaLaunchKernel(f.kernel, dim3((unsigned)G), dim3(f.threads),
+                           args, f.smem, st);
     if (err != cudaSuccess) return (int)err;
   }
   rmsnorm_dw_kernel<T><<<(D + THREADS - 1) / THREADS, THREADS, 0, st>>>(
@@ -398,18 +557,28 @@ extern "C" int rmsnorm_fwd(const void* x, const void* r, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// The backward's grid for T rows of width D (dtype 0 = float32, 1 =
+// bfloat16) on the current device: G blocks, so the caller allocates part
+// (G, D); a negative value is -(the CUDA error).
+extern "C" int rmsnorm_bwd_blocks(long long T, int D, int dtype) {
+  if (D <= 0 || D > MAX_D || T <= 0) return 1;
+  if (dtype == 0) return bwd_blocks<float>(T, D);
+  if (dtype == 1) return bwd_blocks<__nv_bfloat16>(T, D);
+  return -(int)cudaErrorInvalidValue;
+}
+
 // The backward: x, dy, dx (T, D); w, dw (D,); r and dres NULL or (T, D)
 // (dres = d(x + r), the gradient of the residual form's second output);
-// part float32 (G, D) scratch, 0 < G <= T (G = 0 only when T = 0).  dx
-// is also d(residual).  Pointers on 16-byte boundaries where D is a
-// multiple of 16 bytes; D <= 12288.  Two kernels on the stream: the rows,
-// then the dw partials' sum.
+// part float32 (G, D) scratch with G = rmsnorm_bwd_blocks(T, D, dtype)
+// (G = 0 when T = 0: dw = 0).  dx is also d(residual).  Pointers on 16-byte
+// boundaries where D is a multiple of 16 bytes; D <= 12288.  Two kernels
+// on the stream: the rows (and the blocks' dw partials), then their sum.
 extern "C" int rmsnorm_bwd(const void* x, const void* r, const void* w,
                            const void* dy, const void* dres, void* dx,
                            void* part, void* dw, long long T, int D, int G,
                            float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 0 || D > MAX_D || G < 0 || (T > 0 && G == 0) || G > T)
+  if (D <= 0 || D > MAX_D || G < 0 || (T > 0 && (G == 0 || G > T)))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_bwd<float>(x, r, w, dy, dres, dx, (float*)part, dw, T, D,

@@ -41,17 +41,26 @@ _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
          + [ctypes.c_longlong] * 12
          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p])
-# q, k, v, o, dO, lse, q_pos, k_pos, kv_head, dq, dk, dv, drow, dead; B, H,
+# q, k, v, o, dO, lse, q_pos, k_pos, kv_head, dq, dk, dv, workspace; B, H,
 # Hkv, Sq, Sk, D; the 24 strides (a host array); scale; causal, window,
 # dtype; stream
-_BWD_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+_BWD_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# B, H, Sq, Sk, D, dtype -> bytes of the backward's workspace
+_BWD_WS_ARGS = [ctypes.c_int] * 6
 BACKWARD = f"{KERNEL}.backward"
 
 _TABLES: dict = {}   # (kv_head, Hkv, device) -> int32 table on the card
 _SCRATCH: dict = {}  # device -> (ws float32, counters int32)
 _SMS: dict = {}      # device -> streaming multiprocessors
+
+
+def bwd_tiles(D: int) -> tuple:
+    """The bf16 backward's tiles at head dim D (``csrc/flash_attention.cu``
+    ``BW<D>::BQ`` and ``BW<D>::BKT``): query rows a tile, keys a block of
+    the fused kernel.  Its dQ turn table is ``ref.dq_turns`` over these."""
+    return (64 if D == 128 else 128), 128
 
 
 def head_map(H: int, Hkv: int, kv_head=None) -> tuple:
@@ -215,8 +224,12 @@ def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
     kp = chk("k_pos", _build.aligned16(k_pos.to(torch.int32)), torch.int32,
              (Sk,), dev)
     dq, dk, dv = (torch.empty_like(t) for t in (qs, ks, vs))
-    drow = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    dead = torch.empty((B, H), dtype=torch.int32, device=dev)
+    # D_i, the rows' table, the tile plan, the dQ turns and the float32 dQ
+    # scratch (bf16: 4 B * H * Sq * D and more), written before read
+    nbytes = _build.bind("flash_attention", "flash_attention_bwd_workspace",
+                         _BWD_WS_ARGS, ctypes.c_longlong)(
+        B, H, Sq, Sk, D, DTYPES[q.dtype])
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     strides = (ctypes.c_longlong * 24)(*[
         s for t in (qs, ks, vs, os_, dos, dq, dk, dv)
         for s in (t.stride(0), t.stride(2), t.stride(1))])
@@ -225,10 +238,10 @@ def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
                   os_.data_ptr(), dos.data_ptr(), ls.data_ptr(),
                   qp.data_ptr(), kp.data_ptr(),
                   _table(kv_head, Hkv, dev).data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), drow.data_ptr(),
-                  dead.data_ptr(), B, H, Hkv, Sq, Sk, D, strides, scale,
-                  int(causal), 0 if window is None else int(window),
-                  DTYPES[q.dtype], _build.stream_ptr(dev))
+                  dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, H, Hkv, Sq,
+                  Sk, D, strides, scale, int(causal),
+                  0 if window is None else int(window), DTYPES[q.dtype],
+                  _build.stream_ptr(dev))
     return dq, dk, dv
 
 

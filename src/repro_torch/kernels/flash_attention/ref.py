@@ -75,3 +75,41 @@ def attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
         q_pos, k_pos, groups=H // Hkv, causal=causal, window=window,
         scale=scale)
     return out.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def dq_turns(q_pos, k_pos, *, causal=True, window=None, block_q=64,
+             block_k=128):
+    """The plain version of the bf16 backward's tile plan
+    (``csrc/flash_attention.cu``, ``plan_row``), which orders the adds into
+    each tile of dQ.  Query tile i holds rows [block_q i, block_q (i + 1))
+    of ``q_pos``, key tile j keys [block_k j, block_k (j + 1)) of
+    ``k_pos``.  Returns (vis, full, rank, count): vis[i, j] when, by the
+    min and max of the tiles' positions (a key's position < 0 is an empty
+    slot), a query of tile i may see a key of tile j; full[i, j] when
+    every query of tile i sees every key of tile j (no empty slot, no
+    ragged end); rank[i, j] the number of visible key tiles above j (-1
+    where j is not visible), the order in which the key tiles add into
+    query tile i; count[i] the number of visible key tiles."""
+    q = [int(x) for x in q_pos.tolist()]
+    k = [int(x) for x in k_pos.tolist()]
+    nq = (len(q) + block_q - 1) // block_q
+    nk = (len(k) + block_k - 1) // block_k
+    vis = torch.zeros((nq, nk), dtype=torch.bool)
+    full = torch.zeros((nq, nk), dtype=torch.bool)
+    for i in range(nq):
+        rows = q[i * block_q:(i + 1) * block_q]
+        qlo, qhi = min(rows), max(rows)
+        for j in range(nk):
+            keys = k[j * block_k:(j + 1) * block_k]
+            valid = [p for p in keys if p >= 0]
+            empty = len(valid) < block_k
+            if not valid:
+                continue
+            lo, hi = min(valid), max(valid)
+            vis[i, j] = ((not causal or lo <= qhi)
+                         and (window is None or hi > qlo - window))
+            full[i, j] = (not empty and (not causal or hi <= qlo)
+                          and (window is None or lo > qhi - window))
+    above = vis.flip(1).int().cumsum(1).flip(1) - vis.int()
+    rank = torch.where(vis, above, torch.full_like(above, -1))
+    return vis, full & vis, rank, vis.int().sum(1)

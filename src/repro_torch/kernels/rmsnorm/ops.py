@@ -20,7 +20,6 @@ KERNEL = "rmsnorm"
 BACKWARD = f"{KERNEL}.backward"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 12288                 # the row's float32 sum in 48 KB of shared memory
-BWD_BLOCKS_PER_SM = 4         # the backward's blocks (its dw partials) an SM
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p]
@@ -28,7 +27,9 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
 _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
                                      ctypes.c_int, ctypes.c_void_p]
-_SMS: dict = {}               # device -> streaming multiprocessors
+# T, D, dtype -> the backward's blocks (its dw partials)
+_BWD_BLOCKS_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+_GRIDS: dict = {}             # (T, D, dtype, device) -> the backward's blocks
 
 
 def rmsnorm(x, w, residual=None, *, eps=1e-5):
@@ -113,11 +114,7 @@ def rmsnorm_backward(dy, dres, x, w, residual=None, *, eps=1e-5):
         if dres is not None:
             dr_ptr = chk("dres", _build.aligned16(dres), x.dtype, x.shape,
                          dev).data_ptr()
-    sms = _SMS.get(dev)
-    if sms is None:
-        sms = _SMS[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    G = min(T, BWD_BLOCKS_PER_SM * sms)
+    G = _bwd_blocks(T, D, x.dtype, dev)
     dx = torch.empty_like(xs)
     dw = torch.empty_like(ws)
     part = torch.empty((max(G, 1), D), dtype=torch.float32, device=dev)
@@ -127,6 +124,25 @@ def rmsnorm_backward(dy, dres, x, w, residual=None, *, eps=1e-5):
                   dw.data_ptr(), T, D, G, float(eps), DTYPES[x.dtype],
                   _build.stream_ptr(dev))
     return dx, dw
+
+
+def _bwd_blocks(T, D, dtype, dev) -> int:
+    """The backward kernel's grid for T rows of width D: as many blocks as
+    the card holds at once (the kernel's occupancy on ``dev``), no more
+    than the rows need; 0 for no rows."""
+    if T == 0:
+        return 0
+    key = (T, D, dtype, dev)
+    G = _GRIDS.get(key)
+    if G is None:
+        f = _build.bind("rmsnorm", "rmsnorm_bwd_blocks", _BWD_BLOCKS_ARGS)
+        with torch.cuda.device(dev):
+            G = f(T, D, DTYPES[dtype])
+        if G <= 0:
+            raise RuntimeError(f"rmsnorm backward: no grid for {T} x {D} "
+                               f"(CUDA error {-G})")
+        _GRIDS[key] = G
+    return G
 
 
 class _RMSNorm(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """GQA attention with partial RoPE, sliding windows and a slot-indexed
 decode cache (the GQA half of ``repro/models/attention.py``; MLA waits for
-ROADMAP Queue 1, item 11).
+ROADMAP Queue 1, item 7c).
 
 Where the JAX model computes attention in XLA (``_attend`` /
 ``chunked_attention``), the port calls the flash-attention kernel:

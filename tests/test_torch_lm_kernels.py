@@ -360,24 +360,31 @@ def test_rms_norm_gradient_matches_jax(with_residual):
         assert rt.grad is None
 
 
-@pytest.mark.parametrize("causal,window,pad", [(True, None, False),
-                                               (True, 12, False),
-                                               (False, None, False),
-                                               (True, 12, True)])
-def test_mha_gradient_matches_jax(causal, window, pad):
+_GRAD_CASES = [pytest.param(True, None, False, 16, id="True-None-False"),
+               pytest.param(True, 12, False, 16, id="True-12-False"),
+               pytest.param(False, None, False, 16, id="False-None-False"),
+               pytest.param(True, 12, True, 16, id="True-12-True")]
+_GRAD_CASES += [pytest.param(True, w, pad, D, id=f"True-{w}-{pad}-D{D}")
+                for D in tfa.HEAD_DIMS[1:]
+                for w, pad in ((None, False), (12, True))]
+
+
+@pytest.mark.parametrize("causal,window,pad,D", _GRAD_CASES)
+def test_mha_gradient_matches_jax(causal, window, pad, D):
     """``ops.mha`` through the flash Function (on the CPU its backward
     differentiates the plain version) against ``jax.grad`` of the JAX
     model's ``_attend`` on K/V expanded by ``expand_kv``: causal, windowed,
     bidirectional, and Hymba's padded head map (32 query heads over 7 kv
-    heads), where dK and dV sum over the irregular group of each kv head.
-    dq, dk, dv within 1e-5 (float32, sums in another order)."""
+    heads), where dK and dV sum over the irregular group of each kv head;
+    at every head dim the kernel takes.  dq, dk, dv within 1e-5 (float32,
+    sums in another order)."""
     rng = np.random.default_rng(13)
     if pad:
         idx = get_arch("hymba-1.5b").kv_index_map()
         H, Hkv = len(idx), max(idx) + 1
     else:
         idx, H, Hkv = None, 4, 2
-    B, S, D = 2, 24, 16
+    B, S = 2, 24
     q, c = (rng.standard_normal((B, S, H, D)).astype(F32) for _ in range(2))
     k, v = (rng.standard_normal((B, S, Hkv, D)).astype(F32)
             for _ in range(2))
