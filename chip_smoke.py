@@ -147,6 +147,18 @@ Phases, in order; any failed check exits non-zero:
    prefill ends); then a prefill, and a prefill
    with 8 decode steps, under ``torch.profiler`` for where the time goes.
 
+12. more configs served (run after phase 7): GLM-4-9B (partial RoPE),
+   StarCoder2-7B (prompts of 6,144 tokens past its 4,096 window: the
+   window mask in prefill, the ring's slot reuse in decode; 36 heads
+   padded to 48 over 6 kv heads) and DBRX-132B (MoE, 16 experts top-4,
+   DBRX_LAYERS of its 40 layers: the most that leave 8 GB of the card
+   free), each at full width: first 2 layers in float32, card against
+   CPU (a prompt, then decode steps; every logit within ``TOL_SERVE``),
+   then a bf16 ``generate`` with random weights (SERVE_CONFIGS: batch,
+   prompt, new tokens), one untimed and CONFIG_RUNS timed, each model
+   freed before the next is built; flash attention and rmsnorm must be
+   launched once a layer a step.  It prints a ``serve_configs`` JSON line.
+
 11. train path: first both backward kernels (the port's own: the JAX
    package differentiates its XLA attention and RMSNorm) against autograd
    through their plain versions run in float32 on the card: rmsnorm's on
@@ -166,6 +178,23 @@ Phases, in order; any failed check exits non-zero:
    replication report, one profiled step and one split by hand.  It
    prints a ``train_path`` JSON line; the kernels line gains the two
    backward rows and the forward rows' launches a training step.
+
+13. Hymba trains (run after phase 11): the SSD scan's backward kernel
+   (the port's own) against autograd through its plain version run in
+   float64 (the float32 sequential recurrence drifts past the bound): a
+   sweep of small shapes (P, N, heads up to 50, with and without the
+   final state's gradient, weak and strong decay, ragged lengths; a
+   state no block holds refused), then Hymba's training shape (400 rows
+   x 2,048 tokens) with the rows of one batch element held to float64,
+   every case called twice and held bit-equal; timed beside the plain
+   version and the bound.  Then Hymba at full width and 2 layers in f32:
+   3 ``Trainer`` steps card against CPU.  Then Hymba-1.5B at full width
+   and depth in bf16, 8 x 2,048 tokens a step: 2 untimed and 8 timed
+   steps (the loss must fall; launches of the SSD, flash-attention and
+   rmsnorm kernels and their backward kernels a step), a revert to the
+   fence (bit-equal) and one profiled step.  It prints a
+   ``train_path_hymba`` JSON line; the kernels line gains the SSD
+   backward's row.
 
 Before phase 2 it times the least kernel, a one-element ``fill_``, by
 torch.profiler (the launch floor).
@@ -205,8 +234,9 @@ It prints the build time, the ``nvidia-smi`` name and power limit, one
 JSON line of kernels (with each STAR kernel's launches in every service
 run, by the read path's lanes and on the cluster path), one of main-path
 figures, one of service-path figures, one of read-path figures, one of
-cluster-path figures, one of serve-path figures, one of train-path
-figures and, last, the
+cluster-path figures, one of serve-path figures, one of the phase-12
+configs, one of train-path figures, one of Hymba's train path and, last,
+the
 ``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
@@ -289,6 +319,29 @@ RMS_BWD_WIDTHS = (1024, 1600, 1601, 12288)
 # largest element; float32: both in float32, sums in another order
 TOL_BF16_BWD = 2e-2
 TOL_F32_BWD = 1e-5
+# phase 12: more configs served at full width, bf16, random weights:
+# (arch, layers (None: the config's), batch, prompt tokens, generated)
+DBRX_LAYERS = 9                   # of 40: the most that leave >= 8 GB free
+SERVE_CONFIGS = (
+    ("glm4-9b", None, 8, 2048, 64),
+    ("starcoder2-7b", None, 2, 6144, 64),     # past the 4,096 window
+    ("dbrx-132b", DBRX_LAYERS, 8, 2048, 16),
+)
+CONFIG_RUNS = 3                   # timed generates a config, after one
+# card against CPU, 2 layers f32 at full width: prompt tokens (past
+# starcoder2's window, so that decode reuses ring slots) and decode steps
+CONFIG_PARITY_PROMPT = {"glm4-9b": 512, "starcoder2-7b": 4160,
+                        "dbrx-132b": 256}
+CONFIG_PARITY_DECODE = 3
+# phase 13: Hymba-1.5B trains (full width and depth, bf16)
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_BATCH, HYMBA_SEQ = 8, 2048          # 16,384 tokens a step
+HYMBA_WARM, HYMBA_TIMED = 2, 8
+# the SSD backward against its plain version in float64, on max |kernel -
+# plain| / max |plain| of each gradient (the float32 sequential recurrence
+# itself drifts past 1e-4, as for TOL_SSD_SWEEP)
+TOL_SSD_BWD = 1e-4
+SSD_BWD_P, SSD_BWD_N, SSD_BWD_HEADS = (16, 32, 64), (8, 16, 32), (1, 3, 50)
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -302,6 +355,7 @@ REPLACES = {
     # differentiates these functions in XLA
     "rmsnorm.backward": "src/repro/models/layers.py:18",
     "flash_attention.backward": "src/repro/models/attention.py:61",
+    "mamba2_ssd.backward": "src/repro/models/mamba2.py:63",
 }
 SOURCE = {
     "scan_window": "src/repro_torch/csrc/scan_window.cu",
@@ -313,6 +367,7 @@ SOURCE = {
     "mamba2_ssd": "src/repro_torch/csrc/ssd.cu",
     "rmsnorm.backward": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention.backward": "src/repro_torch/csrc/flash_attention.cu",
+    "mamba2_ssd.backward": "src/repro_torch/csrc/ssd.cu",
 }
 
 
@@ -2766,42 +2821,6 @@ def lm_kernel_checks(calls):
     return rows
 
 
-def serve_parity(dev):
-    """Hymba at full width, depth cut to 2 layers, float32: one 2,048-token
-    prompt and 8 decode steps on the card (kernels) and on the CPU (plain
-    versions), the same token fed to both at each step.  Returns the
-    largest logit difference."""
-    import dataclasses
-    import torch
-    from repro_torch.configs.base import get_arch
-    from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=PARITY_LAYERS,
-                              dtype="float32")
-    cpu = tf.LM(cfg, seed=0, device="cpu")
-    card = tf.LM(cfg, seed=0, device=dev)
-    card.load_state_dict(cpu.state_dict())
-    prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
-                           generator=torch.Generator().manual_seed(5),
-                           dtype=torch.int32)
-    alloc = SERVE_PROMPT + PARITY_DECODE
-    worst = 0.0
-    with torch.inference_mode():
-        lc, cc = tf.prefill(cpu, {"tokens": prompt}, cfg, alloc_len=alloc)
-        lg, cg = tf.prefill(card, {"tokens": prompt.to(dev)}, cfg,
-                            alloc_len=alloc)
-        for step in range(PARITY_DECODE + 1):
-            err, ok = allclose_err(lg.cpu(), lc, TOL_SERVE)
-            worst = max(worst, err)
-            check(ok, f"serve parity: card and CPU logits differ by {err} "
-                  f"at step {step} (tolerance {TOL_SERVE})")
-            if step == PARITY_DECODE:
-                break
-            tok = lc[:, -1].argmax(-1)[:, None].to(torch.int32)
-            lc, cc = tf.decode_step(cpu, cc, tok, cfg)
-            lg, cg = tf.decode_step(card, cg, tok.to(dev), cfg)
-    return worst
-
-
 def profile_device(fn):
     """Run ``fn()`` under torch.profiler: (wall s, {kernel: (device ms,
     calls)})."""
@@ -2857,7 +2876,7 @@ def serve_path(dev):
 
     # ---- 6. serve parity, card against CPU ------------------------------
     t0 = time.perf_counter()
-    worst = serve_parity(dev)
+    worst = config_parity(dev, SERVE_ARCH, SERVE_PROMPT, PARITY_DECODE)
     print(f"serve parity: {PARITY_LAYERS}-layer full-width {cfg.name}, f32,"
           f" prefill {SERVE_PROMPT} + {PARITY_DECODE} decode steps: max "
           f"logit difference {worst:.3g} (tol {TOL_SERVE}) in "
@@ -2956,6 +2975,153 @@ def serve_path(dev):
     del eng
     torch.cuda.empty_cache()
     return rows, figures
+
+
+# ---------------------------------------------------------------------------
+# phase 12: more configs served (GLM-4-9B, StarCoder2-7B, DBRX-132B)
+# ---------------------------------------------------------------------------
+def config_parity(dev, name, prompt_len, n_decode):
+    """``name`` at full width, depth cut to PARITY_LAYERS, float32: one
+    prompt of ``prompt_len`` tokens and ``n_decode`` decode steps on the
+    card (kernels) and on the CPU (plain versions), the same weights
+    (drawn on the card, copied to the CPU) and the same token fed to both
+    at each step; every logit within TOL_SERVE.  Returns the largest
+    logit difference.  Phases 6 and 12."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch(name), n_layers=PARITY_LAYERS,
+                              dtype="float32")
+    card = tf.LM(cfg, seed=0, device=dev)
+    cpu = tf.LM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                        assign=True)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    alloc = prompt_len + n_decode
+    worst = 0.0
+    with torch.inference_mode():
+        lc, cc = tf.prefill(cpu, {"tokens": prompt}, cfg, alloc_len=alloc)
+        lg, cg = tf.prefill(card, {"tokens": prompt.to(dev)}, cfg,
+                            alloc_len=alloc)
+        for step in range(n_decode + 1):
+            err, ok = allclose_err(lg.cpu(), lc, TOL_SERVE)
+            worst = max(worst, err)
+            check(ok, f"{name} parity: card and CPU logits differ by {err} "
+                  f"at step {step} (tolerance {TOL_SERVE})")
+            if step == n_decode:
+                break
+            tok = lc[:, -1].argmax(-1)[:, None].to(torch.int32)
+            lc, cc = tf.decode_step(cpu, cc, tok, cfg)
+            lg, cg = tf.decode_step(card, cg, tok.to(dev), cfg)
+    del card, cpu, cc, cg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def serve_config(dev, name, layers, batch, prompt_len, gen):
+    """``ServeEngine.generate`` on ``name`` at full width (``layers`` of
+    its depth, or all), bf16, random weights: one untimed generate, then
+    CONFIG_RUNS timed ones; launches of the LM kernels in the first.  The
+    peak is this config's alone: the model before it was freed and the
+    peak reset before this one was built."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine, ServeStats
+    full = get_arch(name)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, LM(cfg, seed=0, device=dev), device=dev,
+                      max_len=prompt_len + gen)
+    gen_ = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen_, device=dev, dtype=torch.int32)
+    eng.generate(prompts, 2)
+    setup_s = time.perf_counter() - t0
+    runs = []
+    for i in range(CONFIG_RUNS):
+        eng.stats = ServeStats()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = eng.generate(prompts, gen)
+        if i == 0:
+            counts = _build.launch_counts()
+            check(tuple(out.shape) == (batch, gen)
+                  and out.dtype == torch.int32,
+                  f"{name}: output shape or type")
+            check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                  f"{name}: a token outside the vocabulary")
+        runs.append(dataclasses.replace(eng.stats))
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    total = torch.cuda.mem_get_info(dev)[1]
+    L = cfg.n_layers
+    need = {"flash_attention.prefill": L, "flash_attention.decode": L * gen,
+            "rmsnorm": (2 * L + 1) * (gen + 1)}
+    for k, n in need.items():
+        check(counts.get(k, 0) == n, f"{name}: {k} launched "
+              f"{counts.get(k, 0)} times, expected {n}")
+    st = sorted(runs, key=lambda r: r.prefill_s + r.decode_s)[len(runs) // 2]
+    fig = {
+        "arch": name, "source": full.source, "layers": L,
+        "layers_of": full.n_layers, "d_model": cfg.d_model,
+        "params": cfg.n_params(), "active_params": cfg.n_active_params(),
+        "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
+        "gen": gen, "window": cfg.sliding_window, "setup_s": setup_s,
+        "prefill_s": st.prefill_s,
+        "prefill_tokens_per_s": st.prefill_tokens / st.prefill_s,
+        "decode_ms_per_step": statistics.median(
+            r.decode_s / r.decode_steps * 1e3 for r in runs),
+        "decode_tokens_per_s": st.decoded_tokens / st.decode_s,
+        "runs": [[r.prefill_s, r.decode_s / r.decode_steps * 1e3]
+                 for r in runs],
+        "peak_mem_gb": peak / 1e9, "peak_reserved_gb": peak_reserved / 1e9,
+        "card_gb": total / 1e9, "free_at_peak_gb": (total - peak_reserved)
+        / 1e9, "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
+    del eng, prompts, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+def serve_configs_phase(dev, rows):
+    """Phase 12: each of SERVE_CONFIGS checked card against CPU (2 layers,
+    f32), then served at full width in bf16.  Adds each config's launches
+    to the flash-attention and rmsnorm rows; returns the serve_configs
+    figures."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, layers, batch, prompt_len, gen in SERVE_CONFIGS:
+        t1 = time.perf_counter()
+        err = config_parity(dev, name, CONFIG_PARITY_PROMPT[name],
+                            CONFIG_PARITY_DECODE)
+        parity_s = time.perf_counter() - t1
+        fig = serve_config(dev, name, layers, batch, prompt_len, gen)
+        fig.update(parity_max_logit_err=err, parity_tolerance=TOL_SERVE,
+                   parity_layers=PARITY_LAYERS,
+                   parity_prompt=CONFIG_PARITY_PROMPT[name],
+                   parity_decode=CONFIG_PARITY_DECODE, parity_s=parity_s)
+        out[name] = fig
+        print(f"serve {name}: {fig['layers']} of {fig['layers_of']} layers, "
+              f"{batch} x {prompt_len} prefill {fig['prefill_s']:.3f} s, "
+              f"decode {fig['decode_ms_per_step']:.1f} ms a step, peak "
+              f"{fig['peak_mem_gb']:.2f} GB; parity {err:.3g}", flush=True)
+        launches = fig["launches"]
+        rows["flash_attention"].setdefault("serve_configs_launches", {})[
+            name] = (launches.get("flash_attention.prefill", 0)
+                     + launches.get("flash_attention.decode", 0))
+        rows["rmsnorm"].setdefault("serve_configs_launches", {})[name] = \
+            launches.get("rmsnorm", 0)
+    return {"configs": out, "phase_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -3298,11 +3464,13 @@ def route_recorder(moe_lib, log, side):
     return lambda: setattr(moe_lib, "route", orig)
 
 
-def train_parity(dev):
-    """Phase 11, step 2: Granite-MoE at full width, depth cut to
+def train_parity(dev, arch=TRAIN_ARCH):
+    """Phase 11, step 2 (and phase 13's, with ``arch`` Hymba): ``arch``
+    at full width, depth cut to
     TRAIN_PARITY_LAYERS, float32 (no TF32 anywhere), TRAIN_PARITY_STEPS
     ``Trainer`` steps on the card (kernels) and on the CPU (plain
-    versions) from the same parameters and batches.  The routing ids are
+    versions) from the same parameters and batches.  For a MoE the
+    routing ids are
     compared first: a token routed otherwise on the two sides must have a
     tie (its k-th and (k+1)-th gates within TOL_ROUTE_GAP).  Then the
     losses (TOL_TRAIN_LOSS relative: float32 sums in another order), the
@@ -3323,8 +3491,9 @@ def train_parity(dev):
     from repro_torch.models import moe as moe_lib
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+    cfg = dataclasses.replace(get_arch(arch),
                               n_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    moe = cfg.block == "attn_moe"
     tcfg = TrainerConfig(seq_len=TRAIN_PARITY_SEQ, batch=TRAIN_PARITY_BATCH,
                          steps_per_epoch=TRAIN_EPOCH,
                          hp=AdamWConfig(lr=TRAIN_LR,
@@ -3333,7 +3502,7 @@ def train_parity(dev):
     card = Trainer(cfg, tcfg, device=dev)
     card.load_state(cpu.params, cpu.opt_state)
     log, side = [], ["cpu"]
-    undo = route_recorder(moe_lib, log, side)
+    undo = route_recorder(moe_lib, log, side) if moe else (lambda: None)
     try:
         for _ in range(TRAIN_PARITY_STEPS):
             side[0] = "cpu"
@@ -3342,23 +3511,25 @@ def train_parity(dev):
             card.run(1)
     finally:
         undo()
-    sides = {t: [(i, g) for d, i, g in log if d == t] for t in ("cpu",
-                                                               "card")}
-    check(len(sides["cpu"]) == len(sides["card"]) > 0,
-          "train parity: route calls differ in number")
-    flips, worst_gap = 0, 0.0
-    for (ic, gc), (ig, _) in zip(sides["cpu"], sides["card"]):
-        bad = (ic != ig).any(-1)
-        flips += int(bad.sum())
-        if bad.any():
-            worst_gap = max(worst_gap, float(gc[bad].max()))
-    check(worst_gap <= TOL_ROUTE_GAP, f"train parity: {flips} tokens routed "
-          f"otherwise on the card, with a gate gap up to {worst_gap} "
-          f"(a tie is <= {TOL_ROUTE_GAP})")
-    out = {"layers": TRAIN_PARITY_LAYERS, "batch": TRAIN_PARITY_BATCH,
-           "seq": TRAIN_PARITY_SEQ, "steps": TRAIN_PARITY_STEPS,
-           "route_calls": len(sides["cpu"]), "routing_flips": flips,
-           "worst_flip_gap": worst_gap}
+    out = {"arch": arch, "layers": TRAIN_PARITY_LAYERS,
+           "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+           "steps": TRAIN_PARITY_STEPS}
+    if moe:
+        sides = {t: [(i, g) for d, i, g in log if d == t]
+                 for t in ("cpu", "card")}
+        check(len(sides["cpu"]) == len(sides["card"]) > 0,
+              "train parity: route calls differ in number")
+        flips, worst_gap = 0, 0.0
+        for (ic, gc_), (ig, _) in zip(sides["cpu"], sides["card"]):
+            bad = (ic != ig).any(-1)
+            flips += int(bad.sum())
+            if bad.any():
+                worst_gap = max(worst_gap, float(gc_[bad].max()))
+        check(worst_gap <= TOL_ROUTE_GAP, f"train parity: {flips} tokens "
+              f"routed otherwise on the card, with a gate gap up to "
+              f"{worst_gap} (a tie is <= {TOL_ROUTE_GAP})")
+        out.update(route_calls=len(sides["cpu"]), routing_flips=flips,
+                   worst_flip_gap=worst_gap)
     for key, tol in (("loss", TOL_TRAIN_LOSS), ("grad_norm",
                                                 TOL_TRAIN_GNORM)):
         a = [m[key] for m in cpu.metrics_history]
@@ -3419,6 +3590,29 @@ def same_as_commit(tr):
         torch.equal(a.detach(), b) for a, b in zip(live, snap))
 
 
+def check_revert(tr, what):
+    """Run ``tr`` to its next fence, two steps past it, then
+    ``inject_failure``: the state must be bit-equal to the fence's.
+    Returns (fence step, the state's digest there, revert s)."""
+    import torch
+    tr.run(tr.tcfg.steps_per_epoch - tr.step % tr.tcfg.steps_per_epoch)
+    fence_step = tr.step
+    digest = state_digest(tr)
+    check(same_as_commit(tr), f"{what}: the fence's snapshot differs from "
+          f"the live state")
+    tr.run(2)
+    check(state_digest(tr) != digest, f"{what}: two steps left the state "
+          f"as it was")
+    t0 = time.perf_counter()
+    back = tr.inject_failure()
+    torch.cuda.synchronize()
+    revert_s = time.perf_counter() - t0
+    check(back == fence_step and same_as_commit(tr)
+          and state_digest(tr) == digest,
+          f"{what}: the revert is not bit-equal to the committed epoch")
+    return fence_step, digest, revert_s
+
+
 def train_path(dev, rows):
     """Phase 11, step 3: ``Trainer`` on Granite-3.0-1B-A400M at full width
     and depth in bf16, TRAIN_BATCH x TRAIN_SEQ tokens a step, remat as the
@@ -3470,21 +3664,8 @@ def train_path(dev, rows):
     med = statistics.median(step_s)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # -- revert: to the fence at step 16, two steps past it, then back
-    tr.run(TRAIN_EPOCH - tr.step % TRAIN_EPOCH)
-    fence_step = tr.step
-    digest = state_digest(tr)
-    check(same_as_commit(tr), "train: the fence's snapshot differs from "
-          "the live state")
-    tr.run(2)
-    check(state_digest(tr) != digest, "train: two steps left the state "
-          "as it was")
-    t0 = time.perf_counter()
-    back = tr.inject_failure()
-    torch.cuda.synchronize()
-    revert_s = time.perf_counter() - t0
-    check(back == fence_step and same_as_commit(tr)
-          and state_digest(tr) == digest,
-          "train: the revert is not bit-equal to the committed epoch")
+    fence_step, digest, revert_s = check_revert(tr, "train")
+    back = fence_step
     # -- checkpoint at the fence, two steps, restore from disk
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -3595,6 +3776,266 @@ def train_phase(dev, rows):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: Hymba trains (the SSD scan's backward kernel)
+# ---------------------------------------------------------------------------
+def ssd_bwd_inputs(gen, BH, S, P, N, heads, decay, dev, hf=True):
+    """dy, dh_final (or None), xdt, logd, Bv, Cv on ``dev``, float32."""
+    import torch
+    scale, shift = {"weak": (0.01, 0.0), "strong": (4.0, 1.0),
+                    "hymba": (None, None)}[decay]
+    xdt = torch.randn((BH, S, P), generator=gen)
+    if scale is None:       # dt = softplus(.), A = -1: logd = -dt
+        logd = -torch.nn.functional.softplus(torch.randn((BH, S),
+                                                         generator=gen))
+        xdt = xdt * 0.7
+    else:
+        logd = -(torch.randn((BH, S), generator=gen).abs() * scale + shift)
+    Bv, Cv = (torch.randn((BH // heads, S, N), generator=gen)
+              for _ in range(2))
+    dy = torch.randn((BH, S, P), generator=gen)
+    dhf = torch.randn((BH, P, N), generator=gen) if hf else None
+    return [None if t is None else t.to(dev)
+            for t in (dy, dhf, xdt, logd, Bv, Cv)]
+
+
+def ssd_bwd_sweep(dev):
+    """The SSD backward kernel against autograd through its plain version
+    run in float64 (the float32 sequential recurrence drifts past the
+    bound): P in SSD_BWD_P x N in SSD_BWD_N x heads in SSD_BWD_HEADS, with
+    and without dh_final, weak and strong decay, S ragged (not a multiple
+    of the kernel's 64-token chunks, one to four chunks); Mamba2-130M's N
+    = 128 (the narrowest block); a state no block holds (N = 512) must be
+    refused.  Every case is called twice and the two results held
+    bit-equal.  Returns the largest relative error."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd.ops import ssd_backward
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_backward_ref
+    gen = torch.Generator().manual_seed(19)
+    cases = [(P, N, heads, hf, d)
+             for P in SSD_BWD_P for N in SSD_BWD_N for heads in SSD_BWD_HEADS
+             for hf in (False, True) for d in ("weak", "strong")]
+    cases.append((64, 128, 1, True, "weak"))
+    worst = 0.0
+    for i, (P, N, heads, hf, d) in enumerate(cases):
+        S = (37, 100, 203)[i % 3]
+        BH = 2 * heads
+        args = ssd_bwd_inputs(gen, BH, S, P, N, heads, d, dev, hf)
+        got = ssd_backward(*args, heads=heads)
+        same_bits(got, ssd_backward(*args, heads=heads),
+                  f"ssd backward P={P} N={N} heads={heads}")
+        want = ssd_backward_ref(*[None if t is None else t.double()
+                                  for t in args], heads=heads)
+        err = grad_err(got, want)
+        check(err <= TOL_SSD_BWD, f"ssd backward sweep P={P} N={N} "
+              f"heads={heads} dh_final={hf} logd {d} S={S}: {err} "
+              f"(tolerance {TOL_SSD_BWD})")
+        worst = max(worst, err)
+    big = ssd_bwd_inputs(gen, 1, 8, 16, 512, 1, "weak", dev)
+    try:
+        ssd_backward(*big)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "ssd backward: a 16 x 512 state, which no block holds, "
+          "ran")
+    print(f"ssd backward sweep: {len(cases)} shapes, max rel err "
+          f"{worst:.3g} (tolerance {TOL_SSD_BWD}), each twice bit-equal",
+          flush=True)
+    return worst, len(cases)
+
+
+def ssd_bwd_row(dev):
+    """Phase 13, step 1: the SSD backward kernel on its sweep, then at
+    Hymba's training shape (HYMBA_BATCH x 50 heads, HYMBA_SEQ tokens, P =
+    64, N = 16, one group of 50 heads a batch row): the whole shape on
+    the kernel, twice (bit-equal), the rows of the first batch element
+    against the plain version in float64; timed by CUDA events and by
+    torch.profiler beside the plain version in float32 and the bound.
+    Returns the kernel row."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_backward
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_backward_ref
+    sweep, n_cases = ssd_bwd_sweep(dev)
+    cfg = get_arch(HYMBA_ARCH)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    BH, S, G = HYMBA_BATCH * H, HYMBA_SEQ, HYMBA_BATCH
+    gen = torch.Generator().manual_seed(23)
+    dy, _, xdt, logd, Bv, Cv = ssd_bwd_inputs(gen, BH, S, P, N, H, "hymba",
+                                              dev, hf=False)
+    got = ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H)
+    same_bits(got, ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H),
+              "ssd backward at the training shape")
+    want = ssd_backward_ref(dy[:H].double(), None, xdt[:H].double(),
+                            logd[:H].double(), Bv[:1].double(),
+                            Cv[:1].double(), heads=H)
+    first = (got[0][:H], got[1][:H], got[2][:1], got[3][:1])
+    err = grad_err(first, want)
+    check(err <= TOL_SSD_BWD, f"ssd backward at the training shape: {err} "
+          f"(tolerance {TOL_SSD_BWD})")
+    abs_err = max(float((g.double() - w).abs().max())
+                  for g, w in zip(first, want))
+    del got, want, first
+    torch.cuda.empty_cache()
+    fig = call_figures(lambda: ssd_backward(dy, None, xdt, logd, Bv, Cv,
+                                            heads=H))
+    # bytes: xdt, logd, B, C, dy read once; dxdt, dlogd, dB, dC written
+    nbytes = 4 * (3 * BH * S * P + 2 * BH * S + 4 * G * S * N)
+    # operations, as the kernel's float32 FMAs do them at 64-token chunks
+    # (pairs on or below each chunk's diagonal; every product of a chunk,
+    # the state recomputation of the first pass included)
+    Q = 64
+    pairs = Q * (Q + 1) // 2
+    flops = BH * (S // Q) * (pairs * (6 * N + 4 * P) + 10 * Q * P * N)
+    b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    b_ops = flops / H100_F32_FLOPS * 1e3
+    row = {
+        "name": "mamba2_ssd.backward", "route": "cuda",
+        "source": SOURCE["mamba2_ssd.backward"],
+        "replaces": REPLACES["mamba2_ssd.backward"],
+        "replaces_note": "no TPU kernel: the port's own backward of "
+                         "ssd_pallas (src/repro/kernels/mamba2_ssd/"
+                         "kernel.py:75); the JAX package differentiates "
+                         "the chunked scan of src/repro/models/mamba2.py:"
+                         "63-118 in XLA",
+        "launches": 0, "max_abs_err": abs_err, "max_rel_err": err,
+        "tolerance": TOL_SSD_BWD, "ms": fig["ms"], "prof_ms": fig["prof_ms"],
+        "kernels_per_call": fig["kernels_per_call"],
+        "plain_ms": cuda_ms(lambda: ssd_backward_ref(
+            dy, None, xdt, logd, Bv, Cv, heads=H), reps=3, warm=1),
+        "plain_note": "autograd through the sequential recurrence, float32",
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "bound_bytes_ms": b_bytes, "bound_f32_ops_ms": b_ops,
+        "bound_tf32x3_ops_ms": 3 * flops / H100_TF32_FLOPS * 1e3,
+        "library_ms": None,
+        "library_note": "none: no PyTorch call computes the SSD scan or "
+                        "its gradient",
+        "shape": [BH, S, P, N, H], "bytes": nbytes, "flops": flops,
+        "sweep_max_rel_err": sweep, "sweep_cases": n_cases,
+        "host_us": fig["host_us"],
+        "forward_ms": cuda_ms(lambda: ssd(xdt, logd, Bv, Cv, chunk=256,
+                                          heads=H))}
+    del dy, xdt, logd, Bv, Cv
+    torch.cuda.empty_cache()
+    return row
+
+
+def hymba_train_path(dev, rows):
+    """Phase 13, step 3: ``Trainer`` on Hymba-1.5B at full width and depth
+    in bf16, HYMBA_BATCH x HYMBA_SEQ tokens a step, remat as the config
+    says: HYMBA_WARM untimed and HYMBA_TIMED timed steps (the loss must
+    fall), launches a step of the LM kernels, then a revert to the fence
+    (bit-equal) and one step under torch.profiler.  Returns the
+    train_path_hymba figures."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_arch(HYMBA_ARCH)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainerConfig(
+        seq_len=HYMBA_SEQ, batch=HYMBA_BATCH, steps_per_epoch=TRAIN_EPOCH,
+        hp=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)), device=dev)
+    setup_s = time.perf_counter() - t0
+    tr.run(HYMBA_WARM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    tr.run(HYMBA_TIMED)
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history[HYMBA_WARM:]
+    losses = [m["loss"] for m in tr.metrics_history]
+    timed = [m["loss"] for m in hist]
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"hymba train: a non-finite loss in {losses}")
+    first, last = (statistics.mean(timed[:4]), statistics.mean(timed[-4:]))
+    check(last < first, f"hymba train: the loss did not fall ({timed})")
+    L = cfg.n_layers
+    names = ("mamba2_ssd", "mamba2_ssd.backward", "flash_attention.prefill",
+             "flash_attention.backward", "rmsnorm", "rmsnorm.backward")
+    per_step = {k: counts.get(k, 0) / HYMBA_TIMED for k in names}
+    # remat: every block's forward kernels run again in the backward; a
+    # block has five norms (norm1, the two branch norms, norm2, the SSD
+    # gate's), the final norm is outside the blocks
+    need = {"mamba2_ssd": 2 * L, "mamba2_ssd.backward": L,
+            "flash_attention.prefill": 2 * L, "flash_attention.backward": L,
+            "rmsnorm": 10 * L + 1, "rmsnorm.backward": 5 * L + 1}
+    for k, n in need.items():
+        check(per_step[k] == n, f"hymba train: {k} launched {per_step[k]} "
+              f"times a step, expected {n}")
+    step_s = [m["step_s"] for m in hist]
+    med = statistics.median(step_s)
+    tokens = HYMBA_BATCH * HYMBA_SEQ
+    fence_step, _, revert_s = check_revert(tr, "hymba train")
+    # where the time goes: one step under the profiler
+    wall, per = profile_device(lambda: tr.run(1))
+    busy = sum(ms for ms, _ in per.values())
+    rows["mamba2_ssd.backward"]["launches"] = per_step["mamba2_ssd.backward"]
+    rows["mamba2_ssd"]["train_launches_per_step"] = per_step["mamba2_ssd"]
+    rows["flash_attention"]["hymba_train_prefill_launches_per_step"] = \
+        per_step["flash_attention.prefill"]
+    rows["flash_attention.backward"]["hymba_train_launches_per_step"] = \
+        per_step["flash_attention.backward"]
+    rows["rmsnorm"]["hymba_train_launches_per_step"] = per_step["rmsnorm"]
+    rows["rmsnorm.backward"]["hymba_train_launches_per_step"] = \
+        per_step["rmsnorm.backward"]
+    figures = {
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
+        "batch": HYMBA_BATCH, "seq": HYMBA_SEQ, "tokens_per_step": tokens,
+        "remat": cfg.remat, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+        "steps_per_epoch": TRAIN_EPOCH, "setup_s": setup_s,
+        "step_ms_median": med * 1e3, "step_ms_min": min(step_s) * 1e3,
+        "step_ms_max": max(step_s) * 1e3,
+        "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": tokens / med,
+        "train_mfu": 6 * cfg.n_active_params() * tokens / med / H100_BF16_FLOPS,
+        "train_mfu_note": "6 x n_active_params x tokens / step s / 989e12: "
+                          "attention's and the scan's FLOPs and remat's "
+                          "recompute left out",
+        "n_params": cfg.n_params(), "peak_mem_gb": peak / 1e9,
+        "losses": losses, "loss_first4_mean": first,
+        "loss_last4_mean": last, "launches_per_step": per_step,
+        "revert_to_step": fence_step, "revert_s": revert_s,
+        "profiled_step": {
+            "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            "top_kernels": [[k, ms, n] for k, (ms, n) in sorted(
+                per.items(), key=lambda kv: -kv[1][0])[:12]]},
+        "fences": tr.commit_log.fences,
+        "straggler_events": tr.straggler_events}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
+def hymba_train_phase(dev, rows):
+    """Phase 13: the SSD backward kernel, Hymba card against CPU, the full
+    Hymba-1.5B.  Adds the SSD backward's row to ``rows``; returns the
+    train_path_hymba figures."""
+    t0 = time.perf_counter()
+    rows["mamba2_ssd.backward"] = ssd_bwd_row(dev)
+    r = rows["mamba2_ssd.backward"]
+    print(f"ssd backward at {r['shape']}: {r['ms']:.4f} ms events, "
+          f"{r['prof_ms']:.4f} ms profiler (bound {r['bound_ms']:.4f}, "
+          f"plain {r['plain_ms']:.1f}), max rel err {r['max_rel_err']:.3g}",
+          flush=True)
+    parity = train_parity(dev, HYMBA_ARCH)
+    print(f"hymba train parity: {json.dumps(parity)}", flush=True)
+    figures = hymba_train_path(dev, rows)
+    figures["parity"] = parity
+    figures["phase_s"] = time.perf_counter() - t0
+    print(f"hymba train path: {figures['step_ms_median']:.1f} ms a step, "
+          f"{figures['tokens_per_s']:.0f} tokens/s, peak "
+          f"{figures['peak_mem_gb']:.2f} GB, phase "
+          f"{figures['phase_s']:.1f} s", flush=True)
+    return figures
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 def nvidia_smi():
@@ -3683,15 +4124,21 @@ def run(dev):
     kernels.update(lm_rows)
     serve.update(device=name, nvidia_smi=smi)
     torch.cuda.empty_cache()
+    configs = serve_configs_phase(dev, kernels)
+    configs.update(device=name, nvidia_smi=smi)
     train = train_phase(dev, kernels)
     train.update(device=name, nvidia_smi=smi)
+    hymba = hymba_train_phase(dev, kernels)
+    hymba.update(device=name, nvidia_smi=smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"service_path": service}))
     print(json.dumps({"read_path": reads}))
     print(json.dumps({"cluster_path": cluster}))
     print(json.dumps({"serve_path": serve}))
+    print(json.dumps({"serve_configs": configs}))
     print(json.dumps({"train_path": train}))
+    print(json.dumps({"train_path_hymba": hymba}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -211,7 +211,8 @@ ALL_ARCHS = [
 ]
 # the archs whose blocks (attn_mlp, attn_moe, mamba2, hymba) the port runs
 PORTED_ARCHS = ["hymba-1.5b", "granite-8b", "mamba2-130m",
-                "granite-moe-1b-a400m"]
+                "granite-moe-1b-a400m", "glm4-9b", "starcoder2-7b",
+                "dbrx-132b"]
 
 
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:
@@ -221,8 +222,9 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
             importlib.import_module(f"repro_torch.configs.{mod}")
         except ModuleNotFoundError as e:
             raise NotImplementedError(
-                f"{name}: config not ported yet (ROADMAP Queue 1, item 7a; "
-                f"ported: {', '.join(PORTED_ARCHS)})") from e
+                f"{name}: config not ported yet (ROADMAP Queue 1, item 7c "
+                f"for minicpm3-4b, item 7d for hubert-xlarge and "
+                f"internvl2-26b; ported: {', '.join(PORTED_ARCHS)})") from e
     spec = _REGISTRY[name]
     return spec.smoke if smoke else spec.full
 

@@ -514,3 +514,471 @@ extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
   }
 #undef SSD_LAUNCH
 }
+
+// ===========================================================================
+// ssd_bwd: the gradient of the scan above, the port's own kernel (the JAX
+// package differentiates its chunked algorithm, src/repro/models/
+// mamba2.py:63-118, in XLA; it has no backward kernel).
+//
+// The function, per row with a_t = exp(logd_t) and h_t = a_t h_{t-1} +
+// xdt_t (x) B_t: with g_t = dy_t (x) C_t + a_{t+1} g_{t+1} the total
+// gradient of h_t (P x N; past the last token, dh_final or zero),
+//   dxdt_t = g_t B_t,   dB_t = g_t^T xdt_t,   dC_t = h_t^T dy_t,
+//   dlogd_t = <g_t, a_t h_{t-1}>,
+// dB and dC summed over the `heads` rows that share them.
+//
+// The chunked form, in chunks of TQB = 64 tokens whatever the forward's
+// chunk (the function is the same): with h0 the state before a chunk, G
+// the gradient of its last state from the tokens after it, L[i][j] =
+// exp(logd_{j+1} + ... + logd_i) for j <= i, din_i = exp(logd_0 + ... +
+// logd_i), e_j = exp(logd_{j+1} + ... + logd_63) and dl = e_{-1},
+//   dX = (CB^T o L)^T dY + e o (B G^T)
+//   dC = din o (dY h0) + Z B,        Z = dY X^T o L
+//   dB = Z^T C + e o (X G)
+//   dlogd_i = sum_{j < i <= k} W[k][j] + sum_{k >= i} u_k
+//             + sum_{j < i} v_j + dl <G, h0>
+//       with W = Z o CB^T, u_k = din_k <C_k, (dY h0)_k>,
+//       v_j = e_j <B_j, (X G)_j>
+//   G <- dl G + dY^T (din o C)   (the gradient of h0: the previous
+//                                 chunk's G)
+// (the products L[k][i] L[i][j] = L[k][j], L[k][i] din_i = din_k and e_i
+// L[i][j] = e_j fold a_i h_{i-1} and g_i into these sums).
+//
+// Three passes.
+// 1. ssd_bwd_states: one block per (row, block of PB state rows p) walks
+//    the chunks forward and writes the state at each chunk's start into
+//    scratch (BH, chunks, P, N): h <- dl h + X^T (e o B).
+// 2. ssd_bwd_chunks: the same blocks walk the chunks backward, carrying G
+//    in shared memory, and form the four gradients of the chunk from its
+//    tiles (X, dY, B, C, logd, h0) as above; dX is final, dlogd, dB and
+//    dC are this block's part (its state rows p; its row, not yet summed
+//    over heads) and go to scratch.
+// 3. ssd_bwd_reduce: dB and dC summed over the heads and the p blocks,
+//    dlogd over the p blocks, each output by one thread in a fixed order.
+//    No atomics anywhere: two calls give the same bits.
+//
+// Precision (plain float32 FMAs, no tensor cores): no decay is a
+// difference of two long sums.  L's exponents are running sums from key
+// j + 1 (one thread a key), din and e a prefix and a suffix scan, so an
+// exponent's error scales with the exponent itself and the factor's
+// relative error stays ~ulp(|exponent|), negligible where the factor is
+// not.  dlogd is a sum of signed terms that cancel after strong decay:
+// its pair term is formed as nested sums of W (each row's exclusive
+// prefix, then each column's suffix over rows), never as a difference of
+// prefix sums, so its error is relative to the terms' own magnitudes,
+// as the plain version's.  Held at <= 1e-4 of each gradient's largest
+// magnitude against the plain version's autograd in float64.
+//
+// Bound at Hymba's training shape (400 rows x 2,048 tokens, P = 64,
+// N = 16): operations.  The chunked products, counting the pairs on or
+// below each chunk's diagonal, are 17.8 GFLOP a call, 0.27 ms at the 67
+// TFLOP/s of float32 outside the tensor cores; the bytes (xdt, dy and
+// dxdt at 210 MB each, logd, dlogd, B, C, dB and dC: 0.64 GB) take 0.19
+// ms at 3.35 TB/s.  This simple design computes whole 64 x 64 tiles
+// (about twice the triangle's work) from shared memory, half a load or
+// more a multiply-add, and also moves the state scratch (52 MB out and
+// in) and the partials (105 MB out and in); the tensor cores (the
+// forward's 3xTF32 products) are untried here.
+//
+// Shared memory of a pass-2 block, in floats: X and dY (64 x PB), B, C
+// and the two (64 x N) products kept for u and v, h0 and G (PB x N),
+// three 64 x 64 tiles (L, then W and its prefixes; CB, then M; dY X^T,
+// then Z), rows padded to an odd length so that the column walks hit
+// distinct banks.  At PB = 64, N = 16 that is 108 KB: two blocks an SM.
+// A block takes the widest PB of 64, 32, 16 that fits; a state whose N
+// no block holds (N above 148) is refused (cudaErrorInvalidValue).
+// ===========================================================================
+namespace {
+
+constexpr int TQB = 64;           // tokens a chunk of the backward
+constexpr int BT = 256;           // threads a block, passes 1 and 2
+
+// floats of shared memory: pass 1 and pass 2 at PB state rows, NP
+// (N rounded up to 4) state columns
+long long states_floats(int PB, int NP) {
+  return (long long)TQB * (PB + 1) + (long long)TQB * (NP + 1) +
+         (long long)PB * (NP + 1) + TQB + 8;
+}
+long long chunks_floats(int PB, int NP) {
+  const long long LDP = PB + 1, LDN = NP + 1, LDQ = TQB + 1;
+  return 2 * TQB * LDP + 4 * TQB * LDN + 2LL * PB * LDN + 3 * TQB * LDQ +
+         5 * TQB + 16;
+}
+
+// out(i, j, acc1, acc2) for each output of an (M x Nn) tile grid, with
+// acc1 = sum_k<K1 a1(i, k) b1(k, j) and acc2 likewise over K2.  A thread
+// takes TM consecutive rows i and TN columns j strided by Nn / TN, so
+// that the lanes of a warp read consecutive columns.  M % TM == 0 and
+// Nn % TN == 0 (the tiles are padded with zeros).
+template <int TM, int TN, typename A1, typename B1, typename A2, typename B2,
+          typename O>
+__device__ __forceinline__ void mm2(int M, int Nn, int K1, A1 a1, B1 b1,
+                                    int K2, A2 a2, B2 b2, O out) {
+  const int TJ = Nn / TN, tiles = (M / TM) * TJ;
+  for (int t = threadIdx.x; t < tiles; t += BT) {
+    const int i0 = (t / TJ) * TM, tj = t % TJ;
+    float c1[TM][TN], c2[TM][TN];
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int v = 0; v < TN; ++v) c1[u][v] = c2[u][v] = 0.f;
+    for (int k = 0; k < K1; ++k) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int u = 0; u < TM; ++u) av[u] = a1(i0 + u, k);
+#pragma unroll
+      for (int v = 0; v < TN; ++v) bv[v] = b1(k, tj + v * TJ);
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v) c1[u][v] = fmaf(av[u], bv[v], c1[u][v]);
+    }
+    for (int k = 0; k < K2; ++k) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int u = 0; u < TM; ++u) av[u] = a2(i0 + u, k);
+#pragma unroll
+      for (int v = 0; v < TN; ++v) bv[v] = b2(k, tj + v * TJ);
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v) c2[u][v] = fmaf(av[u], bv[v], c2[u][v]);
+    }
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int v = 0; v < TN; ++v) out(i0 + u, tj + v * TJ, c1[u][v], c2[u][v]);
+  }
+}
+struct None {            // an empty second product
+  __device__ float operator()(int, int) const { return 0.f; }
+};
+
+// rows [s0, s0 + Q) x columns [c0, c0 + cols) of a row-major source with
+// `ld` words a row into a (TQB x width) tile with `lds` words a row,
+// zeros elsewhere
+__device__ __forceinline__ void load_rows(float* dst, int lds, int width,
+                                          const float* src, long long ld,
+                                          int Q, int cols) {
+  for (int e = threadIdx.x; e < TQB * width; e += BT) {
+    const int r = e / width, c = e - r * width;
+    dst[r * lds + c] = (r < Q && c < cols) ? src[r * ld + c] : 0.f;
+  }
+}
+
+// Pass 1: the state at the start of every chunk, into hst (BH, nch, P, N).
+__global__ void __launch_bounds__(BT)
+ssd_bwd_states(const float* __restrict__ xdt, const float* __restrict__ logd,
+               const float* __restrict__ Bv, float* __restrict__ hst, int S,
+               int P, int N, int heads, int PB) {
+  extern __shared__ __align__(16) float sm[];
+  const int NP = (N + 3) & ~3, LDP = PB + 1, LDN = NP + 1;
+  float* Xs = sm;                      // TQB x LDP
+  float* Bs = Xs + TQB * LDP;          // TQB x LDN
+  float* hs = Bs + TQB * LDN;          // PB x LDN
+  float* es = hs + PB * LDN;           // TQB: e_j
+  float* dls = es + TQB;               // dl
+  const long long bh = blockIdx.x, bc = bh / heads;
+  const int pb0 = blockIdx.y * PB, pcols = min(PB, P - pb0);
+  const int nch = (S + TQB - 1) / TQB;
+  for (int e = threadIdx.x; e < PB * LDN; e += BT) hs[e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    const int s0 = c * TQB, Q = min(TQB, S - s0);
+    __syncthreads();                   // the last update of h is done
+    float* ho = hst + ((bh * nch + c) * P + pb0) * N;
+    for (int e = threadIdx.x; e < pcols * N; e += BT)
+      ho[e] = hs[(e / N) * LDN + e % N];
+    load_rows(Xs, LDP, PB, xdt + (bh * S + s0) * P + pb0, P, Q, pcols);
+    load_rows(Bs, LDN, NP, Bv + (bc * S + s0) * N, N, Q, N);
+    if (threadIdx.x == 0) {            // e_j = exp(sum over keys > j)
+      float s = 0.f;
+      for (int j = TQB - 1; j >= 0; --j) {
+        es[j] = expf(s);
+        s += j < Q ? logd[bh * S + s0 + j] : 0.f;
+      }
+      dls[0] = expf(s);
+    }
+    __syncthreads();
+    const float dl = dls[0];
+    mm2<4, 2>(PB, NP, TQB,
+              [&](int p, int k) { return Xs[k * LDP + p] * es[k]; },
+              [&](int k, int n) { return Bs[k * LDN + n]; }, 0, None(), None(),
+              [&](int p, int n, float a, float) {
+                hs[p * LDN + n] = fmaf(dl, hs[p * LDN + n], a);
+              });
+  }
+}
+
+// Pass 2: the chunks backward.  dX final; dlogd, dB, dC this block's part.
+__global__ void __launch_bounds__(BT, 2)
+ssd_bwd_chunks(const float* __restrict__ xdt, const float* __restrict__ logd,
+               const float* __restrict__ Bv, const float* __restrict__ Cv,
+               const float* __restrict__ dy, const float* __restrict__ dhf,
+               const float* __restrict__ hst, float* __restrict__ dxdt,
+               float* __restrict__ dlp, float* __restrict__ dBp,
+               float* __restrict__ dCp, int S, int P, int N, int heads,
+               int PB) {
+  extern __shared__ __align__(16) float sm[];
+  const int NP = (N + 3) & ~3, LDP = PB + 1, LDN = NP + 1, LDQ = TQB + 1;
+  float* Xs = sm;                      // TQB x LDP: xdt
+  float* Ys = Xs + TQB * LDP;          // TQB x LDP: dy
+  float* Bs = Ys + TQB * LDP;          // TQB x LDN
+  float* Cs = Bs + TQB * LDN;          // TQB x LDN
+  float* T1 = Cs + TQB * LDN;          // TQB x LDN: dY h0
+  float* T2 = T1 + TQB * LDN;          // TQB x LDN: X G
+  float* H0 = T2 + TQB * LDN;          // PB x LDN
+  float* Gs = H0 + PB * LDN;           // PB x LDN
+  float* Lm = Gs + PB * LDN;           // TQB x LDQ: L, then W's prefixes
+  float* Mm = Lm + TQB * LDQ;          // TQB x LDQ: CB^T, then M
+  float* Zm = Mm + TQB * LDQ;          // TQB x LDQ: dY X^T, then Z
+  float* ls = Zm + TQB * LDQ;          // TQB: logd
+  float* din = ls + TQB;               // TQB
+  float* es = din + TQB;               // TQB
+  float* us = es + TQB;                // TQB
+  float* vs = us + TQB;                // TQB
+  float* red = vs + TQB;               // 8 warps' <G, h0>, then dl
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long bh = blockIdx.x, bc = bh / heads;
+  const int npb = gridDim.y, pb = blockIdx.y;
+  const int pb0 = pb * PB, pcols = min(PB, P - pb0);
+  const int nch = (S + TQB - 1) / TQB;
+  for (int e = tid; e < PB * LDN; e += BT) {
+    const int p = e / LDN, n = e - p * LDN;
+    Gs[e] = (dhf && p < pcols && n < N) ? dhf[(bh * P + pb0 + p) * N + n]
+                                        : 0.f;
+  }
+  for (int c = nch - 1; c >= 0; --c) {
+    const int s0 = c * TQB, Q = min(TQB, S - s0);
+    __syncthreads();                   // the previous chunk is done
+    load_rows(Xs, LDP, PB, xdt + (bh * S + s0) * P + pb0, P, Q, pcols);
+    load_rows(Ys, LDP, PB, dy + (bh * S + s0) * P + pb0, P, Q, pcols);
+    load_rows(Bs, LDN, NP, Bv + (bc * S + s0) * N, N, Q, N);
+    load_rows(Cs, LDN, NP, Cv + (bc * S + s0) * N, N, Q, N);
+    const float* hp = hst + ((bh * nch + c) * P + pb0) * N;
+    for (int e = tid; e < PB * LDN; e += BT) {
+      const int p = e / LDN, n = e - p * LDN;
+      H0[e] = (p < pcols && n < N) ? hp[p * N + n] : 0.f;
+    }
+    if (tid < TQB) ls[tid] = tid < Q ? logd[bh * S + s0 + tid] : 0.f;
+    __syncthreads();
+
+    // -- decays: L's column j by thread j; din and e by one thread each
+    if (tid < TQB) {
+      const int j = tid;
+      float s = 0.f;
+      for (int i = 0; i < j; ++i) Lm[i * LDQ + j] = 0.f;
+      Lm[j * LDQ + j] = 1.f;
+      for (int i = j + 1; i < TQB; ++i) {
+        s += ls[i];
+        Lm[i * LDQ + j] = expf(s);
+      }
+    } else if (tid == TQB) {
+      float s = 0.f;
+      for (int i = 0; i < TQB; ++i) {
+        s += ls[i];
+        din[i] = expf(s);
+      }
+    } else if (tid == 2 * TQB) {
+      float s = 0.f;
+      for (int j = TQB - 1; j >= 0; --j) {
+        es[j] = expf(s);
+        s += ls[j];
+      }
+      red[8] = expf(s);
+    }
+    // CB^T (C_i . B_j) and dY X^T (dy_i . x_j)
+    mm2<4, 4>(TQB, TQB, NP, [&](int i, int k) { return Cs[i * LDN + k]; },
+              [&](int k, int j) { return Bs[j * LDN + k]; }, PB,
+              [&](int i, int k) { return Ys[i * LDP + k]; },
+              [&](int k, int j) { return Xs[j * LDP + k]; },
+              [&](int i, int j, float cb, float yx) {
+                Mm[i * LDQ + j] = cb;
+                Zm[i * LDQ + j] = yx;
+              });
+    __syncthreads();
+    for (int e = tid; e < TQB * TQB; e += BT) {
+      const int i = e / TQB, j = e - i * TQB;
+      const float l = Lm[i * LDQ + j], cb = Mm[i * LDQ + j];
+      const float z = Zm[i * LDQ + j] * l;
+      Mm[i * LDQ + j] = cb * l;
+      Zm[i * LDQ + j] = z;
+      Lm[i * LDQ + j] = j < i ? z * cb : 0.f;      // W
+    }
+    __syncthreads();
+    const float dl = red[8];
+
+    // -- dX = M^T dY + e o (B G^T)
+    float* dxo = dxdt + (bh * S + s0) * P + pb0;
+    mm2<4, 4>(TQB, PB, TQB, [&](int j, int k) { return Mm[k * LDQ + j]; },
+              [&](int k, int p) { return Ys[k * LDP + p]; }, NP,
+              [&](int j, int n) { return Bs[j * LDN + n]; },
+              [&](int n, int p) { return Gs[p * LDN + n]; },
+              [&](int j, int p, float a, float b) {
+                if (j < Q && p < pcols)
+                  dxo[(long long)j * P + p] = fmaf(es[j], b, a);
+              });
+    // -- dC = din o (dY h0) + Z B, keeping dY h0
+    float* dco = dCp + ((bh * npb + pb) * S + s0) * N;
+    mm2<4, 2>(TQB, NP, PB, [&](int i, int k) { return Ys[i * LDP + k]; },
+              [&](int k, int n) { return H0[k * LDN + n]; }, TQB,
+              [&](int i, int k) { return Zm[i * LDQ + k]; },
+              [&](int k, int n) { return Bs[k * LDN + n]; },
+              [&](int i, int n, float t1, float zb) {
+                T1[i * LDN + n] = t1;
+                if (i < Q && n < N)
+                  dco[(long long)i * N + n] = fmaf(din[i], t1, zb);
+              });
+    // -- dB = Z^T C + e o (X G), keeping X G
+    float* dbo = dBp + ((bh * npb + pb) * S + s0) * N;
+    mm2<4, 2>(TQB, NP, PB, [&](int j, int k) { return Xs[j * LDP + k]; },
+              [&](int k, int n) { return Gs[k * LDN + n]; }, TQB,
+              [&](int j, int k) { return Zm[k * LDQ + j]; },
+              [&](int k, int n) { return Cs[k * LDN + n]; },
+              [&](int j, int n, float t2, float zc) {
+                T2[j * LDN + n] = t2;
+                if (j < Q && n < N)
+                  dbo[(long long)j * N + n] = fmaf(es[j], t2, zc);
+              });
+    // <G, h0>: each warp's part
+    {
+      float s = 0.f;
+      for (int e = tid; e < PB * LDN; e += BT) s = fmaf(Gs[e], H0[e], s);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) red[warp] = s;
+    }
+    // W's rows: exclusive prefix sums over j, in place (row k by thread
+    // 128 + k): Lm[k][i] = sum_{j < i} W[k][j] for i <= k
+    if (tid >= 2 * TQB && tid < 3 * TQB) {
+      const int k = tid - 2 * TQB;
+      float s = 0.f;
+      for (int i = 0; i <= k; ++i) {
+        const float w = Lm[k * LDQ + i];
+        Lm[k * LDQ + i] = s;
+        s += w;
+      }
+    }
+    __syncthreads();
+    if (tid < TQB) {                   // u_k = din_k <C_k, (dY h0)_k>
+      float s = 0.f;
+      for (int n = 0; n < NP; ++n) s = fmaf(Cs[tid * LDN + n], T1[tid * LDN + n], s);
+      us[tid] = din[tid] * s;
+    } else if (tid < 2 * TQB) {        // v_j = e_j <B_j, (X G)_j>
+      const int j = tid - TQB;
+      float s = 0.f;
+      for (int n = 0; n < NP; ++n) s = fmaf(Bs[j * LDN + n], T2[j * LDN + n], s);
+      vs[j] = es[j] * s;
+    }
+    __syncthreads();
+    // -- dlogd_i = sum_{k >= i} (W's prefix)[k][i] + sum_{k >= i} u_k
+    //             + sum_{j < i} v_j + dl <G, h0>
+    if (tid < TQB) {
+      const int i = tid;
+      float pw = 0.f, su = 0.f, sv = 0.f, gh = 0.f;
+      for (int k = TQB - 1; k >= i; --k) {
+        pw += Lm[k * LDQ + i];
+        su += us[k];
+      }
+      for (int j = 0; j < i; ++j) sv += vs[j];
+      for (int w = 0; w < BT / 32; ++w) gh += red[w];
+      if (i < Q) dlp[(bh * npb + pb) * S + s0 + i] = pw + su + sv + dl * gh;
+    }
+    // -- G <- dl G + dY^T (din o C): the gradient of h0
+    mm2<4, 2>(PB, NP, TQB,
+              [&](int p, int k) { return Ys[k * LDP + p] * din[k]; },
+              [&](int k, int n) { return Cs[k * LDN + n]; }, 0, None(), None(),
+              [&](int p, int n, float a, float) {
+                Gs[p * LDN + n] = fmaf(dl, Gs[p * LDN + n], a);
+              });
+  }
+}
+
+// Pass 3: dB, dC summed over the heads and the p blocks; dlogd over the p
+// blocks.  One thread an output, in a fixed order.
+__global__ void ssd_bwd_reduce(const float* __restrict__ dlp,
+                               const float* __restrict__ dBp,
+                               const float* __restrict__ dCp,
+                               float* __restrict__ dlogd,
+                               float* __restrict__ dB, float* __restrict__ dC,
+                               long long BH, long long S, int N, int heads,
+                               int npb) {
+  const long long nb = BH / heads * S * N, nl = BH * S, SN = S * N;
+  const long long total = 2 * nb + nl;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    if (e < 2 * nb) {
+      const bool isc = e >= nb;
+      const long long o = isc ? e - nb : e;
+      const long long g = o / SN, r = o - g * SN;
+      const float* src = (isc ? dCp : dBp) + g * heads * npb * SN + r;
+      float s = 0.f;
+      for (int h = 0; h < heads * npb; ++h) s += src[h * SN];
+      (isc ? dC : dB)[o] = s;
+    } else {
+      const long long o = e - 2 * nb;
+      const long long bh = o / S, t = o - bh * S;
+      const float* src = dlp + bh * npb * S + t;
+      float s = 0.f;
+      for (int q = 0; q < npb; ++q) s += src[q * S];
+      dlogd[o] = s;
+    }
+  }
+}
+
+}  // namespace
+
+// The state rows p a block of the backward takes for these widths: the
+// widest of 64, 32 and 16, not wider than P rounded up to 16, whose
+// tiles fit shared memory; 0 when none does (the state is too wide).
+extern "C" int ssd_bwd_pblock(int P, int N) {
+  if (P <= 0 || N <= 0) return 0;
+  const int NP = (N + 3) & ~3;
+  for (int pb = 64; pb >= 16; pb /= 2)
+    if (pb <= (P + 15) / 16 * 16 && 4 * chunks_floats(pb, NP) <= SMEM_LIMIT &&
+        4 * states_floats(pb, NP) <= SMEM_LIMIT)
+      return pb;
+  return 0;
+}
+
+// The gradient of ssd_fwd.  Inputs as ssd_fwd's, dy (BH, S, P) and
+// dh_final (BH, P, N) or NULL (zero).  Outputs dxdt (BH, S, P), dlogd
+// (BH, S), dB and dC (BH / heads, S, N).  Scratch, all float32: hst (BH,
+// ceil(S / 64), P, N); dlp (BH, npb, S), dBp and dCp (BH, npb, S, N),
+// with npb = ceil(P / ssd_bwd_pblock(P, N)).  Three kernels on `stream`.
+extern "C" int ssd_bwd(const void* xdt, const void* logd, const void* B,
+                       const void* C, const void* dy, const void* dh_final,
+                       void* dxdt, void* dlogd, void* dB, void* dC,
+                       void* hst, void* dlp, void* dBp, void* dCp, int BH,
+                       int S, int P, int N, int heads, void* stream) {
+  if (BH <= 0 || S <= 0) return (int)cudaGetLastError();
+  if (P <= 0 || N <= 0 || heads <= 0 || BH % heads)
+    return (int)cudaErrorInvalidValue;
+  const int PB = ssd_bwd_pblock(P, N);
+  if (!PB) return (int)cudaErrorInvalidValue;
+  const int NP = (N + 3) & ~3, npb = (P + PB - 1) / PB;
+  const size_t sm1 = 4 * states_floats(PB, NP), sm2 = 4 * chunks_floats(PB, NP);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_bwd_states, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_bwd_chunks,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm2);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(BH, npb);
+  ssd_bwd_states<<<grid, BT, sm1, s>>>((const float*)xdt, (const float*)logd,
+                                       (const float*)B, (float*)hst, S, P, N,
+                                       heads, PB);
+  ssd_bwd_chunks<<<grid, BT, sm2, s>>>(
+      (const float*)xdt, (const float*)logd, (const float*)B,
+      (const float*)C, (const float*)dy, (const float*)dh_final,
+      (const float*)hst, (float*)dxdt, (float*)dlp, (float*)dBp, (float*)dCp,
+      S, P, N, heads, PB);
+  const long long total = 2LL * (BH / heads) * S * N + (long long)BH * S;
+  const long long want = (total + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  ssd_bwd_reduce<<<blocks, 256, 0, s>>>(
+      (const float*)dlp, (const float*)dBp, (const float*)dCp, (float*)dlogd,
+      (float*)dB, (float*)dC, BH, S, N, heads, npb);
+  return (int)cudaGetLastError();
+}

@@ -5,7 +5,7 @@ Batches are drawn with numpy from the same seeds as the JAX package's, so
 tokens and labels are bit-equal to it; they are returned as CPU tensors
 (host data: the trainer moves each batch to its device).  The frontends'
 inputs (audio frames, image patches) wait for the frontends (ROADMAP
-Queue 1, item 7).  ``input_specs``, the dry-run's shape stand-ins, has no
+Queue 1, item 7d).  ``input_specs``, the dry-run's shape stand-ins, has no
 counterpart: the port lowers nothing ahead of time.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ def make_batch(cfg: ArchConfig, kind: str, seq_len: int, batch: int,
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend's inputs are not "
-            f"ported yet (ROADMAP Queue 1, item 7)")
+            f"ported yet (ROADMAP Queue 1, item 7d)")
     rng = np.random.default_rng(seed)
     toks, labels = _affine_chain(rng, batch, 1 if kind == "decode"
                                  else seq_len, cfg.vocab_size)

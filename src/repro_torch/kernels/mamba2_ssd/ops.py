@@ -1,5 +1,11 @@
-"""Dispatch for the SSD kernel: ``csrc/ssd.cu`` for CUDA tensors, the
-plain version (``ref.ssd_ref``) for CPU tensors."""
+"""Dispatch for the SSD kernels: ``csrc/ssd.cu`` for CUDA tensors, the
+plain version (``ref.ssd_ref``, ``ref.ssd_backward_ref``) for CPU tensors.
+
+:func:`ssd` is differentiable: where grad mode is on and an input wants a
+gradient it goes through :class:`_SSD`, whose backward is the backward
+kernel (``ssd_bwd``: dxdt, dlogd, dB, dC) or, for CPU tensors, autograd
+through the plain version.  Otherwise (serving) it is the forward kernel
+alone, as before."""
 from __future__ import annotations
 
 import ctypes
@@ -7,11 +13,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
+from repro_torch.kernels.mamba2_ssd.ref import ssd_backward_ref, ssd_ref
 from repro_torch.obs.trace import kernel_launch
 
 KERNEL = "mamba2_ssd"
+BACKWARD = f"{KERNEL}.backward"
+CHUNK_BWD = 64                # tokens a chunk of the backward kernel
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# xdt, logd, B, C, dy, dh_final, dxdt, dlogd, dB, dC, hst, dlp, dBp, dCp;
+# BH, S, P, N, heads; stream
+_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
@@ -21,6 +32,13 @@ def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
     not copy them per head.  Returns y (BH, S, P) without the D skip, and
     the final state (BH, P, N).  On the card a chunk runs as chunks of at
     most 64 tokens (the same function; see ``csrc/ssd.cu``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, logd, Bv, Cv)):
+        return _SSD.apply(xdt, logd, Bv, Cv, chunk, heads)
+    return _forward(xdt, logd, Bv, Cv, chunk, heads)
+
+
+def _forward(xdt, logd, Bv, Cv, chunk, heads):
     BH, S, P = xdt.shape
     N = Bv.shape[-1]
     chunk = min(chunk, S)
@@ -43,3 +61,72 @@ def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
                   hfin.data_ptr(), BH, S, P, N, chunk, heads,
                   _build.stream_ptr(dev))
     return y, hfin
+
+
+def ssd_backward(dy, dh_final, xdt, logd, Bv, Cv, *, heads=1):
+    """The gradient of :func:`ssd` from ``dy`` (BH, S, P) and ``dh_final``
+    (BH, P, N; None counts as zero): ``(dxdt, dlogd, dB, dC)``, dB and dC
+    (BH // heads, S, N) summed over the ``heads`` rows that share them.
+    CUDA tensors run the backward kernel; CPU tensors differentiate the
+    plain version."""
+    BH, S, P = xdt.shape
+    N = Bv.shape[-1]
+    kernel_launch(BACKWARD, backend=xdt.device.type, heads=BH, seq=S)
+    if xdt.device.type == "cpu":
+        return ssd_backward_ref(dy, dh_final, xdt, logd, Bv, Cv, heads=heads)
+    if BH % heads:
+        raise ValueError(f"ssd backward: {BH} rows are not groups of "
+                         f"{heads} heads")
+    dev = xdt.device
+    f32 = torch.float32
+    chk = _build.checked
+    G = BH // heads
+    ins = [chk("xdt", xdt.contiguous(), f32, (BH, S, P), dev),
+           chk("logd", logd.contiguous(), f32, (BH, S), dev),
+           chk("Bv", Bv.contiguous(), f32, (G, S, N), dev),
+           chk("Cv", Cv.contiguous(), f32, (G, S, N), dev),
+           chk("dy", dy.contiguous(), f32, (BH, S, P), dev)]
+    dhf = None if dh_final is None else chk(
+        "dh_final", dh_final.contiguous(), f32, (BH, P, N), dev)
+    pb = _build.bind("ssd", "ssd_bwd_pblock", [ctypes.c_int] * 2)(P, N)
+    if pb <= 0:
+        raise ValueError(f"ssd backward: a {P} x {N} state does not fit "
+                         f"a block of the kernel (N <= 148)")
+    npb = -(-P // pb)
+    nch = -(-S // CHUNK_BWD)
+    dxdt = torch.empty((BH, S, P), dtype=f32, device=dev)
+    dlogd = torch.empty((BH, S), dtype=f32, device=dev)
+    dB, dC = torch.empty((2, G, S, N), dtype=f32, device=dev).unbind(0)
+    hst = torch.empty((BH, nch, P, N), dtype=f32, device=dev)
+    dlp = torch.empty((BH, npb, S), dtype=f32, device=dev)
+    dBp, dCp = torch.empty((2, BH, npb, S, N), dtype=f32,
+                           device=dev).unbind(0)
+    f = _build.bind("ssd", "ssd_bwd", _BWD_ARGS)
+    _build.launch(BACKWARD, f, *[t.data_ptr() for t in ins],
+                  None if dhf is None else dhf.data_ptr(),
+                  *[t.data_ptr() for t in (dxdt, dlogd, dB, dC, hst, dlp,
+                                           dBp, dCp)],
+                  BH, S, P, N, heads, _build.stream_ptr(dev))
+    return dxdt, dlogd, dB, dC
+
+
+class _SSD(torch.autograd.Function):
+    """ssd with the backward kernel as its gradient.  The contiguous
+    copies the kernels take are made inside, so the caller's graph
+    reaches xdt, logd, Bv and Cv as they are."""
+
+    @staticmethod
+    def forward(ctx, xdt, logd, Bv, Cv, chunk, heads):
+        y, hfin = _forward(xdt, logd, Bv, Cv, chunk, heads)
+        ctx.save_for_backward(xdt, logd, Bv, Cv)
+        ctx.heads = heads
+        return y, hfin
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        xdt, logd, Bv, Cv = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xdt)
+        dxdt, dlogd, dB, dC = ssd_backward(dy, dh_final, xdt, logd, Bv, Cv,
+                                           heads=ctx.heads)
+        return dxdt, dlogd, dB, dC, None, None

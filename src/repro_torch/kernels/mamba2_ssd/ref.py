@@ -1,6 +1,6 @@
-"""Plain PyTorch version of the SSD kernel (``csrc/ssd.cu``): the
+"""Plain PyTorch version of the SSD kernels (``csrc/ssd.cu``): the
 sequential token-by-token recurrence, mirroring
-``repro/kernels/mamba2_ssd/ref.py``.
+``repro/kernels/mamba2_ssd/ref.py``, and its gradient by autograd.
 
 h_t = h_{t-1} * exp(logd_t) + (x_t * dt_t) ⊗ B_t;   y_t = C_t · h_t
 """
@@ -25,3 +25,17 @@ def ssd_ref(xdt, logd, Bv, Cv, heads=1):
              + xdt[:, t, :, None] * Bv[:, t, None, :])
         ys.append(torch.einsum("bpn,bn->bp", h, Cv[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def ssd_backward_ref(dy, dh_final, xdt, logd, Bv, Cv, heads=1):
+    """The gradient of :func:`ssd_ref` by autograd through it, in the
+    inputs' dtype: from dy (BH, S, P) and dh_final (BH, P, N) or None
+    (zero), returns (dxdt (BH, S, P), dlogd (BH, S), dB, dC (BH // heads,
+    S, N): summed over the ``heads`` rows that share them)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (xdt, logd, Bv, Cv)]
+        y, h = ssd_ref(*leaves, heads=heads)
+        outs, grads = (y,), (dy,)
+        if dh_final is not None:
+            outs, grads = (y, h), (dy, dh_final)
+        return torch.autograd.grad(outs, leaves, grads)

@@ -6,7 +6,7 @@ experts, capacity-bounded dispatch, partial-sum combine; ``moe_forward``
 runs it on one device with the full expert set (the JAX package's
 single-device branch).  The expert-parallel branch, experts over the
 ``model`` mesh axis with a ``psum`` combine, waits for the
-``torch.distributed`` slice (ROADMAP Queue 1, item 7).
+``torch.distributed`` slice (ROADMAP Queue 1, item 7e).
 
 The expert products are batched matrix products (``torch.einsum``), as
 the JAX package leaves them to XLA: no kernel of this repository computes

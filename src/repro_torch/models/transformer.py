@@ -39,7 +39,7 @@ from repro_torch.models.layers import (const_init, cross_entropy, init_mlp,
                                        mlp_forward, normal_init, rms_norm)
 
 NOT_PORTED = {
-    BLOCK_MLA_MLP: "MLA attention (ROADMAP Queue 1, item 7)",
+    BLOCK_MLA_MLP: "MLA attention (ROADMAP Queue 1, item 7c)",
 }
 ATTN_BLOCKS = (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)    # GQA then an FFN
 
@@ -52,7 +52,7 @@ def _check_ported(cfg: ArchConfig):
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP Queue 1, item 7)")
+            f"(ROADMAP Queue 1, item 7d)")
     if cfg.block not in (*ATTN_BLOCKS, BLOCK_MAMBA2, BLOCK_HYMBA):
         raise ValueError(cfg.block)
 

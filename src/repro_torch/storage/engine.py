@@ -16,6 +16,8 @@ snapshot, nor one store another.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -24,6 +26,89 @@ from repro_torch.storage.index import (SCAN_L, IndexSpec, apply_index_ops,
                                        make_index, segment_scan)
 
 FIELDS = ("key", "prow", "tid")
+EPOCH_MOD = 1 << 32        # ``_epoch`` wraps as the JAX uint32 does
+
+
+# ---------------------------------------------------------------------------
+# free-function tables (``db/table.py``'s names): a database is a dict of
+# two-version tables.  The JAX functions return the working arrays
+# themselves as the new snapshot; here every snapshot is a copy, so a
+# later in-place write to the working tensors cannot reach it.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TableSpec:
+    name: str
+    capacity: int            # rows per partition
+    n_cols: int              # int32 words per row
+
+
+Database = dict   # {table: {"val","tid","val_prev","tid_prev"}, "_epoch"}
+
+
+def make_table(spec: TableSpec, n_partitions: int, device=None):
+    """``val (P, capacity, n_cols) int32`` and ``tid (P, capacity)``
+    (int64 holding the uint32 TID), zero, with a snapshot of each."""
+    dev = resolve_device(device)
+    val = torch.zeros((n_partitions, spec.capacity, spec.n_cols),
+                      dtype=torch.int32, device=dev)
+    tid = torch.zeros((n_partitions, spec.capacity), dtype=torch.int64,
+                      device=dev)
+    return {"val": val, "tid": tid, "val_prev": val.clone(),
+            "tid_prev": tid.clone()}
+
+
+def make_database(specs: list[TableSpec], n_partitions: int,
+                  device=None) -> Database:
+    """One table a spec, and ``_epoch`` = 1 (a 0-d int64 tensor)."""
+    dev = resolve_device(device)
+    db = {s.name: make_table(s, n_partitions, dev) for s in specs}
+    db["_epoch"] = torch.tensor(1, dtype=torch.int64, device=dev)
+    return db
+
+
+def snapshot_commit(db: Database) -> Database:
+    """Promote the working version to the committed snapshot (a copy) and
+    advance ``_epoch`` (mod 2^32).  Returns a new database; the working
+    tensors are carried over, not copied."""
+    out = {}
+    for k, t in db.items():
+        if k == "_epoch":
+            out[k] = (t + 1) % EPOCH_MOD
+        else:
+            out[k] = {"val": t["val"], "tid": t["tid"],
+                      "val_prev": t["val"].clone(),
+                      "tid_prev": t["tid"].clone()}
+    return out
+
+
+def revert_to_snapshot(db: Database) -> Database:
+    """Failure: discard everything written in the current (uncommitted)
+    epoch.  The new working tensors are copies of the snapshot, which the
+    returned database keeps as it was."""
+    out = {}
+    for k, t in db.items():
+        if k == "_epoch":
+            out[k] = t
+        else:
+            out[k] = {"val": t["val_prev"].clone(),
+                      "tid": t["tid_prev"].clone(),
+                      "val_prev": t["val_prev"], "tid_prev": t["tid_prev"]}
+    return out
+
+
+def flat_val(table):
+    """The (P * capacity, n_cols) view the single-master phase sees."""
+    P, cap, C = table["val"].shape
+    return table["val"].reshape(P * cap, C)
+
+
+def flat_tid(table):
+    P, cap = table["tid"].shape
+    return table["tid"].reshape(P * cap)
+
+
+def global_key(partition, idx, capacity):
+    return partition * capacity + idx
 
 
 def _clone_state(state):

@@ -10,9 +10,10 @@
   median are counted.
 
 One device, no mesh: elastic ``reshard`` and expert parallelism wait for
-the ``torch.distributed`` slice (ROADMAP Queue 1, item 7).  Blocks that
-run the SSD scan (``mamba2``, ``hymba``) cannot train yet: the scan has no
-backward kernel (ROADMAP Queue 2).
+the ``torch.distributed`` slice (ROADMAP Queue 1, item 7e).  Every block
+the port runs trains, the SSD scan's (``mamba2``, ``hymba``) through its
+backward kernel; the blocks not ported yet (MLA, the frontends) are
+refused by the model itself.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, BLOCK_HYMBA, BLOCK_MAMBA2
+from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_fn
@@ -48,10 +49,6 @@ class Trainer:
     which must be present)."""
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, device=None):
-        if cfg.block in (BLOCK_MAMBA2, BLOCK_HYMBA):
-            raise NotImplementedError(
-                f"{cfg.name}: training block {cfg.block!r} needs the SSD "
-                f"scan's backward kernel, not written yet (ROADMAP Queue 2)")
         self.device = resolve_device(device)
         self.cfg, self.tcfg = cfg, tcfg
         self.model = tf.LM(cfg, seed=0, device=self.device)
@@ -148,7 +145,7 @@ class Trainer:
     def reshard(self, new_mesh):
         raise NotImplementedError(
             "reshard needs a mesh of several cards: it waits for the "
-            "torch.distributed slice (ROADMAP Queue 1, item 7)")
+            "torch.distributed slice (ROADMAP Queue 1, item 7e)")
 
     def replication_report(self):
         """Hybrid replication accounting on the current gradient (the

@@ -1,7 +1,10 @@
 """Parity of the PyTorch port's LM serving slice with the JAX package:
 layers, the GQA and Mamba-2 mixers, and ``ServeEngine.generate`` on the
-SMOKE configs of Hymba-1.5B, Granite-8B and Mamba2-130M in float32, with
-the JAX parameters carried across by ``convert.params_from_jax``.
+SMOKE configs of Hymba-1.5B, Granite-8B, Mamba2-130M, GLM-4-9B (partial
+RoPE), StarCoder2-7B (a 32-token window under 40-token prompts: the ring
+cache; an un-gated gelu MLP) and DBRX-132B (MoE, 4 experts top-2) in
+float32, with the JAX parameters carried across by
+``convert.params_from_jax``.
 
 The port computes attention, the SSD scan and RMSNorm through its kernel
 wrappers (their plain versions on the CPU) where the JAX model computes
@@ -33,7 +36,8 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serve.engine import ServeEngine
 
 F32 = np.float32
-ARCHS = ("hymba-1.5b", "granite-8b", "mamba2-130m")
+ARCHS = ("hymba-1.5b", "granite-8b", "mamba2-130m", "glm4-9b",
+         "starcoder2-7b", "dbrx-132b")
 
 
 def _cfgs(name, **kw):
@@ -90,14 +94,15 @@ def test_init_cache_matches_jax(name):
 
 
 def test_unported_blocks_raise():
-    """MLA is not ported: its block and glm4-9b's config raise.  The MoE
-    block is (tests/test_torch_moe.py): an ``attn_moe`` config builds."""
+    """MLA is not ported: its block and minicpm3-4b's config raise.  The
+    MoE block is (tests/test_torch_moe.py): an ``attn_moe`` config
+    builds."""
     from repro_torch.configs.base import ArchConfig
     cfg = ArchConfig(name="x", family="dense", source="-", block="mla_mlp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("glm4-9b")
+        get_arch("minicpm3-4b")
     moe = ArchConfig(name="x", family="moe", source="-", block="attn_moe",
                      n_experts=4, top_k=2)
     assert len(ttf.LM(moe, device="cpu").layers[0].moe) == 4

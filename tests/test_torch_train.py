@@ -68,6 +68,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 F32 = np.float32
 MOE, DENSE = "granite-moe-1b-a400m", "granite-8b"
+HYMBA, MAMBA2 = "hymba-1.5b", "mamba2-130m"
 
 
 def _cfgs(name, **kw):
@@ -233,11 +234,14 @@ def test_chunked_ce_matches_jax(S):
                                atol=1e-5 * float(np.abs(jg).max()))
 
 
-@pytest.mark.parametrize("name", [MOE, DENSE])
+@pytest.mark.parametrize("name", [MOE, DENSE, "glm4-9b", HYMBA, MAMBA2])
 def test_loss_fn_and_gradients_match_jax(name):
     """``loss_fn`` (embed, every block under remat, the final norm, the
     chunked CE; MoE's aux loss) and the gradient of every parameter,
-    against ``jax.value_and_grad(tf.loss_fn)``, on 2 x 64 tokens."""
+    against ``jax.value_and_grad(tf.loss_fn)``, on 2 x 64 tokens: GLM-4's
+    partial RoPE, and the SSD scan's gradient (the port's ``ssd``
+    Function over its plain version here; the JAX model differentiates
+    its chunked algorithm) in the Hymba and Mamba-2 blocks."""
     jcfg, tcfg = _cfgs(name)
     jp = jtf.init_params(jcfg, jax.random.key(0))
     batch = jmake_batch(jcfg, "train", 64, 2, seed=3)
@@ -297,7 +301,7 @@ def test_adamw_update_matches_jax():
 # ---------------------------------------------------------------------------
 # the trainer
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", [MOE, DENSE])
+@pytest.mark.parametrize("name", [MOE, DENSE, HYMBA, MAMBA2])
 def test_trainer_steps_match_jax(name):
     K = 4
     jt, tt = _pair(name)
@@ -529,11 +533,27 @@ def test_entry_points_default_to_cuda(capsys):
     assert "done on cpu: 3 steps, 2 epoch fences" in capsys.readouterr().out
 
 
+def test_train_entry_point_trains_hymba(capsys):
+    """``python -m repro_torch.launch.train --arch hymba-1.5b --smoke
+    --device cpu``: the Hymba block (attention and the SSD scan) trains
+    through the entry point, and its loss falls."""
+    from repro_torch.launch import train
+    tr = train.main(["--arch", HYMBA, "--smoke", "--device", "cpu",
+                     "--steps", "6", "--steps-per-epoch", "3", "--seq",
+                     "32", "--batch", "2"])
+    losses = [m["loss"] for m in tr.metrics_history]
+    assert tr.step == 6 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    assert "done on cpu: 6 steps, 3 epoch fences" in capsys.readouterr().out
+
+
 def test_untrainable_configs_raise():
-    for name in ("hymba-1.5b", "mamba2-130m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(get_arch(name, smoke=True), TrainerConfig(),
-                    device="cpu")
+    """What is not ported is refused by name: an MLA config (its block)
+    and ``reshard`` (several cards)."""
+    mla = dataclasses.replace(get_arch(HYMBA, smoke=True), name="mla",
+                              block="mla_mlp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(mla, TrainerConfig(), device="cpu")
     _, cfg = _cfgs(MOE)
     tr = Trainer(cfg, TrainerConfig(seq_len=16, batch=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
