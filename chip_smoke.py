@@ -3613,6 +3613,76 @@ def check_revert(tr, what):
     return fence_step, digest, revert_s
 
 
+def timed_training(dev, arch, batch, seq, warm, timed, need):
+    """``Trainer`` on ``arch`` at full width and depth in bf16, ``batch`` x
+    ``seq`` tokens a step, remat as the config says: ``warm`` untimed
+    steps, then ``timed`` timed ones, the launch counts and the peak
+    memory reset between.  The loss must be finite and fall (the mean of
+    the first 4 timed steps against the last 4), and each kernel of
+    ``need`` must launch exactly that many times a step.  Returns (the
+    trainer, the figures every train path prints)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainerConfig(
+        seq_len=seq, batch=batch, steps_per_epoch=TRAIN_EPOCH,
+        hp=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)), device=dev)
+    setup_s = time.perf_counter() - t0
+    tr.run(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    tr.run(timed)
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history[warm:]
+    losses = [m["loss"] for m in tr.metrics_history]
+    tl = [m["loss"] for m in hist]
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"{arch} train: a non-finite loss in {losses}")
+    first, last = (statistics.mean(tl[:4]), statistics.mean(tl[-4:]))
+    check(last < first, f"{arch} train: the loss did not fall ({tl})")
+    per_step = {k: counts.get(k, 0) / timed for k in need}
+    for k, n in need.items():
+        check(per_step[k] == n, f"{arch} train: {k} launched {per_step[k]} "
+              f"times a step, expected {n}")
+    step_s = [m["step_s"] for m in hist]
+    med = statistics.median(step_s)
+    tokens = batch * seq
+    return tr, {
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "batch": batch, "seq": seq, "tokens_per_step": tokens,
+        "remat": cfg.remat, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+        "steps_per_epoch": TRAIN_EPOCH, "setup_s": setup_s,
+        "step_ms_median": med * 1e3, "step_ms_min": min(step_s) * 1e3,
+        "step_ms_max": max(step_s) * 1e3,
+        "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": tokens / med,
+        "train_mfu": 6 * cfg.n_active_params() * tokens / med / H100_BF16_FLOPS,
+        "train_mfu_note": "6 x n_active_params x tokens / step s / 989e12: "
+                          "attention's and the scan's FLOPs and remat's "
+                          "recompute left out",
+        "n_active_params": cfg.n_active_params(), "n_params": cfg.n_params(),
+        "peak_mem_gb": peak / 1e9, "losses": losses,
+        "loss_first4_mean": first, "loss_last4_mean": last,
+        "launches_per_step": per_step}
+
+
+def profiled_step(tr, top):
+    """One ``tr`` step under torch.profiler: wall, device busy time and
+    its ``top`` kernels."""
+    wall, per = profile_device(lambda: tr.run(1))
+    busy = sum(ms for ms, _ in per.values())
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            "top_kernels": [[k, ms, n] for k, (ms, n) in sorted(
+                per.items(), key=lambda kv: -kv[1][0])[:top]]}
+
+
 def train_path(dev, rows):
     """Phase 11, step 3: ``Trainer`` on Granite-3.0-1B-A400M at full width
     and depth in bf16, TRAIN_BATCH x TRAIN_SEQ tokens a step, remat as the
@@ -3623,49 +3693,21 @@ def train_path(dev, rows):
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.kernels import _build
     from repro_torch.models import transformer as tf
     from repro_torch.train.checkpoint import save_checkpoint
-    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.star_dp import EpochCommitLog
-    from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_arch(TRAIN_ARCH)
-    t0 = time.perf_counter()
-    tr = Trainer(cfg, TrainerConfig(
-        seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, steps_per_epoch=TRAIN_EPOCH,
-        hp=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)), device=dev)
-    setup_s = time.perf_counter() - t0
-    tr.run(TRAIN_WARM)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    tr.run(TRAIN_TIMED)
-    counts = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    hist = tr.metrics_history[TRAIN_WARM:]
-    losses = [m["loss"] for m in tr.metrics_history]
-    timed = [m["loss"] for m in hist]
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          f"train: a non-finite loss in {losses}")
-    first, last = (statistics.mean(timed[:4]), statistics.mean(timed[-4:]))
-    check(last < first, f"train: the loss did not fall ({timed})")
     L = cfg.n_layers
-    per_step = {k: counts.get(k, 0) / TRAIN_TIMED for k in (
-        "flash_attention.prefill", "flash_attention.backward", "rmsnorm",
-        "rmsnorm.backward")}
     # remat: every block's forward kernels run again in the backward (the
     # final norm is outside the blocks: once)
     need = {"flash_attention.prefill": 2 * L, "flash_attention.backward": L,
             "rmsnorm": 4 * L + 1, "rmsnorm.backward": 2 * L + 1}
-    for k, n in need.items():
-        check(per_step[k] == n, f"train: {k} launched {per_step[k]} times "
-              f"a step, expected {n}")
-    step_s = [m["step_s"] for m in hist]
-    med = statistics.median(step_s)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tr, figures = timed_training(dev, TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                                 TRAIN_WARM, TRAIN_TIMED, need)
+    per_step = figures["launches_per_step"]
     # -- revert: to the fence at step 16, two steps past it, then back
     fence_step, digest, revert_s = check_revert(tr, "train")
-    back = fence_step
     # -- checkpoint at the fence, two steps, restore from disk
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -3690,8 +3732,7 @@ def train_path(dev, rows):
     # -- hybrid replication accounting on a gradient
     rep = tr.replication_report()
     # -- one step under the profiler, then one split by hand
-    wall, per = profile_device(lambda: tr.run(1))
-    busy = sum(ms for ms, _ in per.values())
+    prof = profiled_step(tr, 10)
     batch = {k: v.to(dev) for k, v in make_batch(
         cfg, "train", TRAIN_SEQ, TRAIN_BATCH, seed=tr.step).items()}
     split = {}
@@ -3724,29 +3765,12 @@ def train_path(dev, rows):
     rows["flash_attention.backward"]["launches"] = \
         per_step["flash_attention.backward"]
     rows["rmsnorm.backward"]["launches"] = per_step["rmsnorm.backward"]
-    figures = {
-        "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
-        "remat": cfg.remat, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
-        "steps_per_epoch": TRAIN_EPOCH, "setup_s": setup_s,
-        "step_ms_median": med * 1e3, "step_ms": [t * 1e3 for t in step_s],
-        "tokens_per_s": tokens / med,
-        "train_mfu": 6 * cfg.n_active_params() * tokens / med / H100_BF16_FLOPS,
-        "train_mfu_note": "6 x n_active_params x tokens / step s / 989e12: "
-                          "attention's FLOPs and remat's recompute left out",
-        "n_active_params": cfg.n_active_params(), "n_params": cfg.n_params(),
-        "peak_mem_gb": peak / 1e9, "losses": losses,
-        "loss_first4_mean": first, "loss_last4_mean": last,
-        "launches_per_step": per_step, "revert_to_step": back,
-        "checkpoint_bytes": ck_bytes, "replication_value_bytes":
-        rep.value_bytes, "replication_op_bytes": rep.op_bytes,
-        "split": split, "profiled_step": {
-            "wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "busy_share": busy / (wall * 1e3),
-            "top_kernels": [[k, ms, n] for k, (ms, n) in sorted(
-                per.items(), key=lambda kv: -kv[1][0])[:10]]},
-        "straggler_events": tr.straggler_events,
-        "fences": tr.commit_log.fences}
+    figures.update(
+        revert_to_step=fence_step, checkpoint_bytes=ck_bytes,
+        replication_value_bytes=rep.value_bytes,
+        replication_op_bytes=rep.op_bytes, split=split,
+        profiled_step=prof, straggler_events=tr.straggler_events,
+        fences=tr.commit_log.fences)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -3930,49 +3954,17 @@ def hymba_train_path(dev, rows):
     train_path_hymba figures."""
     import torch
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels import _build
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = get_arch(HYMBA_ARCH)
-    t0 = time.perf_counter()
-    tr = Trainer(cfg, TrainerConfig(
-        seq_len=HYMBA_SEQ, batch=HYMBA_BATCH, steps_per_epoch=TRAIN_EPOCH,
-        hp=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)), device=dev)
-    setup_s = time.perf_counter() - t0
-    tr.run(HYMBA_WARM)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    tr.run(HYMBA_TIMED)
-    counts = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    hist = tr.metrics_history[HYMBA_WARM:]
-    losses = [m["loss"] for m in tr.metrics_history]
-    timed = [m["loss"] for m in hist]
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          f"hymba train: a non-finite loss in {losses}")
-    first, last = (statistics.mean(timed[:4]), statistics.mean(timed[-4:]))
-    check(last < first, f"hymba train: the loss did not fall ({timed})")
-    L = cfg.n_layers
-    names = ("mamba2_ssd", "mamba2_ssd.backward", "flash_attention.prefill",
-             "flash_attention.backward", "rmsnorm", "rmsnorm.backward")
-    per_step = {k: counts.get(k, 0) / HYMBA_TIMED for k in names}
+    L = get_arch(HYMBA_ARCH).n_layers
     # remat: every block's forward kernels run again in the backward; a
     # block has five norms (norm1, the two branch norms, norm2, the SSD
     # gate's), the final norm is outside the blocks
     need = {"mamba2_ssd": 2 * L, "mamba2_ssd.backward": L,
             "flash_attention.prefill": 2 * L, "flash_attention.backward": L,
             "rmsnorm": 10 * L + 1, "rmsnorm.backward": 5 * L + 1}
-    for k, n in need.items():
-        check(per_step[k] == n, f"hymba train: {k} launched {per_step[k]} "
-              f"times a step, expected {n}")
-    step_s = [m["step_s"] for m in hist]
-    med = statistics.median(step_s)
-    tokens = HYMBA_BATCH * HYMBA_SEQ
+    tr, figures = timed_training(dev, HYMBA_ARCH, HYMBA_BATCH, HYMBA_SEQ,
+                                 HYMBA_WARM, HYMBA_TIMED, need)
+    per_step = figures["launches_per_step"]
     fence_step, _, revert_s = check_revert(tr, "hymba train")
-    # where the time goes: one step under the profiler
-    wall, per = profile_device(lambda: tr.run(1))
-    busy = sum(ms for ms, _ in per.values())
     rows["mamba2_ssd.backward"]["launches"] = per_step["mamba2_ssd.backward"]
     rows["mamba2_ssd"]["train_launches_per_step"] = per_step["mamba2_ssd"]
     rows["flash_attention"]["hymba_train_prefill_launches_per_step"] = \
@@ -3982,30 +3974,10 @@ def hymba_train_path(dev, rows):
     rows["rmsnorm"]["hymba_train_launches_per_step"] = per_step["rmsnorm"]
     rows["rmsnorm.backward"]["hymba_train_launches_per_step"] = \
         per_step["rmsnorm.backward"]
-    figures = {
-        "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
-        "batch": HYMBA_BATCH, "seq": HYMBA_SEQ, "tokens_per_step": tokens,
-        "remat": cfg.remat, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
-        "steps_per_epoch": TRAIN_EPOCH, "setup_s": setup_s,
-        "step_ms_median": med * 1e3, "step_ms_min": min(step_s) * 1e3,
-        "step_ms_max": max(step_s) * 1e3,
-        "step_ms": [t * 1e3 for t in step_s],
-        "tokens_per_s": tokens / med,
-        "train_mfu": 6 * cfg.n_active_params() * tokens / med / H100_BF16_FLOPS,
-        "train_mfu_note": "6 x n_active_params x tokens / step s / 989e12: "
-                          "attention's and the scan's FLOPs and remat's "
-                          "recompute left out",
-        "n_params": cfg.n_params(), "peak_mem_gb": peak / 1e9,
-        "losses": losses, "loss_first4_mean": first,
-        "loss_last4_mean": last, "launches_per_step": per_step,
-        "revert_to_step": fence_step, "revert_s": revert_s,
-        "profiled_step": {
-            "wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "busy_share": busy / (wall * 1e3),
-            "top_kernels": [[k, ms, n] for k, (ms, n) in sorted(
-                per.items(), key=lambda kv: -kv[1][0])[:12]]},
-        "fences": tr.commit_log.fences,
-        "straggler_events": tr.straggler_events}
+    figures.update(
+        revert_to_step=fence_step, revert_s=revert_s,
+        profiled_step=profiled_step(tr, 12), fences=tr.commit_log.fences,
+        straggler_events=tr.straggler_events)
     del tr
     gc.collect()
     torch.cuda.empty_cache()

@@ -124,9 +124,8 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh_final):
+        # autograd hands zeros for an output that no gradient reached
         xdt, logd, Bv, Cv = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(xdt)
         dxdt, dlogd, dB, dC = ssd_backward(dy, dh_final, xdt, logd, Bv, Cv,
                                            heads=ctx.heads)
         return dxdt, dlogd, dB, dC, None, None
