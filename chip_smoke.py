@@ -241,6 +241,7 @@ the
 card and the repository around it; without either it exits non-zero and
 prints no result.
 """
+import contextlib
 import gc
 import json
 import statistics
@@ -568,13 +569,31 @@ def sort_gather(ik, ip, it):
     return ik.gather(1, o), ip.gather(1, o), it.gather(1, o)
 
 
+def window_whole(spin, tail):
+    """Whether a profiled window of :func:`device_kernels` holds every
+    kernel of its body, from its kernels in time order (True for a spin):
+    a spin recorded on each side of the body's kernels, or with none of
+    them, more spins than either side alone holds (33 before, ``tail``
+    after)."""
+    kern = [i for i, sp in enumerate(spin) if not sp]
+    if not kern:
+        return sum(spin) > max(33, tail)
+    return any(spin[:kern[0]]) and any(spin[kern[-1] + 1:])
+
+
 def device_kernels(body):
     """torch.profiler's kernels for ``body()``: {name: (device µs, count)}.
-    Spin kernels run before the body (a 20 ms one, then 32 short ones)
-    and after it (32 short ones) inside the profiled window and are left
-    out: the profiler can miss a few kernels of a window (in some
-    processes it counted 0 for the one kernel of a wrapper call, and 46
-    of 50 calls, most often after a long profiled window)."""
+    Spin kernels run before the body (a long one, then 32 short ones) and
+    after it (``tail`` short ones) inside the profiled window and are left
+    out.  They witness the window: the profiler loses records at its ends
+    (the first record in a fresh process; in a long one, up to a third
+    of the lead, the whole tail with the body's last kernels, or the
+    whole window, where it once counted 0 for the three kernels of a
+    wrapper call).  A window is whole when a spin before its first body
+    kernel and one after its last were recorded (with no body kernel:
+    more spins than either side alone holds; :func:`window_whole`
+    judges); else it runs again with a longer lead and tail, and a third
+    lost window fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,21 +601,30 @@ def device_kernels(body):
         for _ in range(n):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(int(0.02 * H100_MAX_CLOCK_HZ))
-        spins(32)
-        body()
+    for lead, tail in ((0.02, 32), (0.2, 256), (1.0, 1024)):
         torch.cuda.synchronize()
-        spins(32)
-    out = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "spin_kernel" not in e.key):
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-            out[e.key] = (us, e.count)
-    return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(lead * H100_MAX_CLOCK_HZ))
+            spins(32)
+            body()
+            torch.cuda.synchronize()
+            spins(tail)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        spin = ["spin_kernel" in e.name for e in evs]
+        kern = [i for i, sp in enumerate(spin) if not sp]
+        out = {}
+        for i in kern:
+            us, n = out.get(evs[i].name, (0.0, 0))
+            out[evs[i].name] = (us + evs[i].time_range.elapsed_us(), n + 1)
+        if window_whole(spin, tail):
+            return out
+        print(f"torch.profiler: a window with a {lead * 1e3:.0f} ms lead "
+              f"recorded {sum(spin)} of its {33 + tail} spins and "
+              f"{len(kern)} other kernels, without a spin on each side of "
+              f"them", flush=True)
+    raise Failure("torch.profiler lost records of three windows in a row")
 
 
 def kernels_in(fn):
@@ -2844,15 +2872,54 @@ def profile_device(fn):
     return wall, per
 
 
+def timed_generate(eng, prompts, gen, runs, name,
+                   first=contextlib.nullcontext):
+    """Phases 7 and 12: one untimed ``eng.generate(prompts, 2)`` (the
+    first prefill after the allocator's cache was emptied pays for its
+    allocations), then ``runs`` timed generates of ``gen`` tokens, each
+    from zeroed stats and launch counts.  The first timed one runs inside
+    ``first()``; its output is checked (shape, type, vocabulary) and its
+    launch counts are returned with the figures: prefill s and decode ms
+    a step, each the median over the runs, and every run's pair."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import ServeStats
+    eng.generate(prompts, 2)
+    stats = []
+    for i in range(runs):
+        eng.stats = ServeStats()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with first() if i == 0 else contextlib.nullcontext():
+            out = eng.generate(prompts, gen)
+        if i == 0:
+            counts = _build.launch_counts()
+            check(tuple(out.shape) == (prompts.shape[0], gen)
+                  and out.dtype == torch.int32,
+                  f"{name}: output shape or type")
+            check(bool(((out >= 0) & (out < eng.cfg.vocab_size)).all()),
+                  f"{name}: a token outside the vocabulary")
+        stats.append(dataclasses.replace(eng.stats))
+    pre_s = statistics.median(r.prefill_s for r in stats)
+    step_s = statistics.median(r.decode_s / r.decode_steps for r in stats)
+    st = stats[0]
+    return counts, {
+        "prefill_s": pre_s, "prefill_tokens_per_s": st.prefill_tokens / pre_s,
+        "decode_ms_per_step": step_s * 1e3,
+        "decode_tokens_per_s": st.decoded_tokens / st.decode_steps / step_s,
+        "runs": [[r.prefill_s, r.decode_s / r.decode_steps * 1e3]
+                 for r in stats]}
+
+
 def serve_path(dev):
     """Phases 5-7.  Returns (kernel rows, serve_path figures)."""
-    import dataclasses
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models.transformer import LM
-    from repro_torch.serve.engine import ServeEngine, ServeStats
+    from repro_torch.serve.engine import ServeEngine
     expand = fa_ref.expand_kv
 
     # ---- 5. LM kernels on the serve path's own arguments ---------------
@@ -2883,41 +2950,32 @@ def serve_path(dev):
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 7. the serve path, measured ------------------------------------
-    # an untimed generate first: the phases above emptied the allocator's
-    # cache, and the first prefill after that pays for its allocations
-    eng.generate(prompts, 2)
-    runs = []
     expansions = []          # calls of the plain version's K/V expansion
-    fa_ref.expand_kv = lambda *a, **k: expansions.append(1) or expand(*a,
-                                                                      **k)
-    for i in range(SERVE_RUNS):
-        eng.stats = ServeStats()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        if i == 0:
-            # the counts where this generate's prefill ends, at its first
-            # synchronise
-            sync, at_prefill = eng._sync, []
+    at_prefill = []          # the counts where the first prefill ends
 
-            def marked_sync():
-                sync()
-                if not at_prefill:
-                    at_prefill.append(_build.launch_counts())
-            eng._sync = marked_sync
-        out = eng.generate(prompts, SERVE_GEN)
-        vars(eng).pop("_sync", None)
-        fa_ref.expand_kv = expand
-        runs.append(dataclasses.replace(eng.stats))
-        if i == 0:       # the counts and the checks of one generate
-            counts = _build.launch_counts()
-            peak = torch.cuda.max_memory_allocated()
-            check(tuple(out.shape) == (SERVE_BATCH, SERVE_GEN)
-                  and out.dtype == torch.int32,
-                  "serve: output shape or type")
-            check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-                  "serve: a token outside the vocabulary")
-    st = sorted(runs, key=lambda r: r.prefill_s + r.decode_s)[len(runs) // 2]
+    @contextlib.contextmanager
+    def first():
+        # the counts where this generate's prefill ends, at its first
+        # synchronise; any K/V expansion of the plain version
+        sync = eng._sync
+
+        def marked_sync():
+            sync()
+            if not at_prefill:
+                at_prefill.append(_build.launch_counts())
+        eng._sync = marked_sync
+        fa_ref.expand_kv = lambda *a, **k: expansions.append(1) or expand(
+            *a, **k)
+        try:
+            yield
+        finally:
+            vars(eng).pop("_sync", None)
+            fa_ref.expand_kv = expand
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, timed = timed_generate(eng, prompts, SERVE_GEN, SERVE_RUNS,
+                                   "serve", first)
+    peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
     need = {"flash_attention.prefill": L,
             "flash_attention.decode": L * SERVE_GEN,
@@ -2939,10 +2997,10 @@ def serve_path(dev):
     fl["decode"]["launches"] = counts.get("flash_attention.decode", 0)
     fl["prefill_launches"] = counts.get("flash_attention.prefill", 0)
     fl["launches"] = fl["prefill_launches"] + fl["decode"]["launches"]
-    for r in runs:
+    for pre_s, dec_ms in timed["runs"]:
         print(f"serve: {SERVE_BATCH} x {SERVE_PROMPT} prefill in "
-              f"{r.prefill_s:.3f} s, {SERVE_GEN} decode steps in "
-              f"{r.decode_s:.3f} s")
+              f"{pre_s:.3f} s, {SERVE_GEN} decode steps at {dec_ms:.2f} ms "
+              f"a step")
 
     # where the time goes: a prefill alone, then a prefill and 8 decode
     # steps, under the profiler; decode = the difference
@@ -2960,13 +3018,7 @@ def serve_path(dev):
                     per.items(), key=lambda kv: -kv[1][0])[:8]]}
     figures = {
         "arch": cfg.name, "dtype": cfg.dtype, "batch": SERVE_BATCH,
-        "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
-        "prefill_s": st.prefill_s,
-        "prefill_tokens_per_s": st.prefill_tokens / st.prefill_s,
-        "decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
-        "decode_tokens_per_s": st.decoded_tokens / st.decode_s,
-        "runs": [[r.prefill_s, r.decode_s / r.decode_steps * 1e3]
-                 for r in runs],
+        "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, **timed,
         "peak_mem_gb": peak / 1e9, "launches": {
             k: counts.get(k, 0) for k in need},
         "parity_max_logit_err": worst,
@@ -3024,16 +3076,15 @@ def config_parity(dev, name, prompt_len, n_decode):
 
 def serve_config(dev, name, layers, batch, prompt_len, gen):
     """``ServeEngine.generate`` on ``name`` at full width (``layers`` of
-    its depth, or all), bf16, random weights: one untimed generate, then
-    CONFIG_RUNS timed ones; launches of the LM kernels in the first.  The
+    its depth, or all), bf16, random weights, through
+    :func:`timed_generate` (CONFIG_RUNS timed generates).  The
     peak is this config's alone: the model before it was freed and the
     peak reset before this one was built."""
     import dataclasses
     import torch
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels import _build
     from repro_torch.models.transformer import LM
-    from repro_torch.serve.engine import ServeEngine, ServeStats
+    from repro_torch.serve.engine import ServeEngine
     full = get_arch(name)
     cfg = full if layers is None else dataclasses.replace(full,
                                                           n_layers=layers)
@@ -3045,22 +3096,8 @@ def serve_config(dev, name, layers, batch, prompt_len, gen):
     gen_ = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen_, device=dev, dtype=torch.int32)
-    eng.generate(prompts, 2)
     setup_s = time.perf_counter() - t0
-    runs = []
-    for i in range(CONFIG_RUNS):
-        eng.stats = ServeStats()
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        out = eng.generate(prompts, gen)
-        if i == 0:
-            counts = _build.launch_counts()
-            check(tuple(out.shape) == (batch, gen)
-                  and out.dtype == torch.int32,
-                  f"{name}: output shape or type")
-            check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-                  f"{name}: a token outside the vocabulary")
-        runs.append(dataclasses.replace(eng.stats))
+    counts, timed = timed_generate(eng, prompts, gen, CONFIG_RUNS, name)
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     total = torch.cuda.mem_get_info(dev)[1]
@@ -3070,24 +3107,17 @@ def serve_config(dev, name, layers, batch, prompt_len, gen):
     for k, n in need.items():
         check(counts.get(k, 0) == n, f"{name}: {k} launched "
               f"{counts.get(k, 0)} times, expected {n}")
-    st = sorted(runs, key=lambda r: r.prefill_s + r.decode_s)[len(runs) // 2]
     fig = {
         "arch": name, "source": full.source, "layers": L,
         "layers_of": full.n_layers, "d_model": cfg.d_model,
         "params": cfg.n_params(), "active_params": cfg.n_active_params(),
         "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
         "gen": gen, "window": cfg.sliding_window, "setup_s": setup_s,
-        "prefill_s": st.prefill_s,
-        "prefill_tokens_per_s": st.prefill_tokens / st.prefill_s,
-        "decode_ms_per_step": statistics.median(
-            r.decode_s / r.decode_steps * 1e3 for r in runs),
-        "decode_tokens_per_s": st.decoded_tokens / st.decode_s,
-        "runs": [[r.prefill_s, r.decode_s / r.decode_steps * 1e3]
-                 for r in runs],
+        **timed,
         "peak_mem_gb": peak / 1e9, "peak_reserved_gb": peak_reserved / 1e9,
         "card_gb": total / 1e9, "free_at_peak_gb": (total - peak_reserved)
         / 1e9, "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
-    del eng, prompts, out
+    del eng, prompts
     gc.collect()
     torch.cuda.empty_cache()
     return fig
@@ -3905,14 +3935,18 @@ def ssd_bwd_row(dev):
                                             heads=H))
     # bytes: xdt, logd, B, C, dy read once; dxdt, dlogd, dB, dC written
     nbytes = 4 * (3 * BH * S * P + 2 * BH * S + 4 * G * S * N)
-    # operations, as the kernel's float32 FMAs do them at 64-token chunks
-    # (pairs on or below each chunk's diagonal; every product of a chunk,
-    # the state recomputation of the first pass included)
+    # operations the function needs, per row and token on the P x N state:
+    # six products of two operations an element (h's update, g's update,
+    # and the contractions for dxdt, dB, dC and dlogd), at the float32
+    # rate of the tensor cores (3xTF32, as row mamba2_ssd is bounded)
+    flops = 12 * BH * S * P * N
+    # what this kernel's 64-token chunks do in float32 FMAs (the pairs on
+    # or below each chunk's diagonal, the states' recomputation included)
     Q = 64
     pairs = Q * (Q + 1) // 2
-    flops = BH * (S // Q) * (pairs * (6 * N + 4 * P) + 10 * Q * P * N)
+    kernel_flops = BH * (S // Q) * (pairs * (6 * N + 4 * P) + 10 * Q * P * N)
     b_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    b_ops = flops / H100_F32_FLOPS * 1e3
+    b_ops = 3 * flops / H100_TF32_FLOPS * 1e3
     row = {
         "name": "mamba2_ssd.backward", "route": "cuda",
         "source": SOURCE["mamba2_ssd.backward"],
@@ -3930,12 +3964,14 @@ def ssd_bwd_row(dev):
         "plain_note": "autograd through the sequential recurrence, float32",
         "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "bound_bytes_ms": b_bytes, "bound_f32_ops_ms": b_ops,
-        "bound_tf32x3_ops_ms": 3 * flops / H100_TF32_FLOPS * 1e3,
+        "bound_bytes_ms": b_bytes, "bound_tf32x3_ops_ms": b_ops,
+        "kernel_f32_ops_ms": kernel_flops / H100_F32_FLOPS * 1e3,
         "library_ms": None,
         "library_note": "none: no PyTorch call computes the SSD scan or "
                         "its gradient",
         "shape": [BH, S, P, N, H], "bytes": nbytes, "flops": flops,
+        "kernel_flops": kernel_flops,
+        "prof_kernels_per_call": fig["prof_kernels_per_call"],
         "sweep_max_rel_err": sweep, "sweep_cases": n_cases,
         "host_us": fig["host_us"],
         "forward_ms": cuda_ms(lambda: ssd(xdt, logd, Bv, Cv, chunk=256,

@@ -570,15 +570,17 @@ extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
 // magnitude against the plain version's autograd in float64.
 //
 // Bound at Hymba's training shape (400 rows x 2,048 tokens, P = 64,
-// N = 16): operations.  The chunked products, counting the pairs on or
-// below each chunk's diagonal, are 17.8 GFLOP a call, 0.27 ms at the 67
-// TFLOP/s of float32 outside the tensor cores; the bytes (xdt, dy and
-// dxdt at 210 MB each, logd, dlogd, B, C, dB and dC: 0.64 GB) take 0.19
-// ms at 3.35 TB/s.  This simple design computes whole 64 x 64 tiles
-// (about twice the triangle's work) from shared memory, half a load or
-// more a multiply-add, and also moves the state scratch (52 MB out and
-// in) and the partials (105 MB out and in); the tensor cores (the
-// forward's 3xTF32 products) are untried here.
+// N = 16): bytes.  xdt, dy and dxdt at 210 MB each, logd, dlogd, B, C,
+// dB and dC: 0.64 GB, 0.19 ms at 3.35 TB/s.  The function needs six
+// products over the P x N state a token (h's and g's updates, the
+// contractions for dxdt, dB, dC and dlogd): 12 S P N a row, 10.1 GFLOP a
+// call, 0.06 ms as 3xTF32 on the tensor cores.  This simple design does
+// 17.8 GFLOP in float32 FMAs (0.27 ms at the 67 TFLOP/s outside the
+// tensor cores): it computes whole 64 x 64 tiles (about twice the
+// triangle's work) from shared memory, half a load or more a
+// multiply-add, recomputes the states, and also moves the state scratch
+// (52 MB out and in) and the partials (105 MB out and in); the tensor
+// cores (the forward's 3xTF32 products) are untried here.
 //
 // Shared memory of a pass-2 block, in floats: X and dY (64 x PB), B, C
 // and the two (64 x N) products kept for u and v, h0 and G (PB x N),
@@ -925,12 +927,10 @@ __global__ void ssd_bwd_reduce(const float* __restrict__ dlp,
   }
 }
 
-}  // namespace
-
 // The state rows p a block of the backward takes for these widths: the
 // widest of 64, 32 and 16, not wider than P rounded up to 16, whose
 // tiles fit shared memory; 0 when none does (the state is too wide).
-extern "C" int ssd_bwd_pblock(int P, int N) {
+int bwd_pblock(int P, int N) {
   if (P <= 0 || N <= 0) return 0;
   const int NP = (N + 3) & ~3;
   for (int pb = 64; pb >= 16; pb /= 2)
@@ -940,22 +940,58 @@ extern "C" int ssd_bwd_pblock(int P, int N) {
   return 0;
 }
 
+// The backward's scratch, all float32, each part 256-byte aligned: hst
+// (BH, ceil(S / 64), P, N), the chunk-start states; dlp (BH, npb, S), dBp
+// and dCp (BH, npb, S, N), each block's partials, with npb = ceil(P /
+// PB).  Sets the pointers into ws (when not NULL); returns its bytes.
+struct BwdScratch {
+  float *hst, *dlp, *dBp, *dCp;
+};
+
+size_t bwd_scratch(int BH, int S, int P, int N, int PB, char* ws,
+                   BwdScratch* out) {
+  const size_t npb = (P + PB - 1) / PB, nch = (S + TQB - 1) / TQB;
+  size_t off = 0;
+  auto take = [&](size_t floats) {
+    float* p = ws == nullptr ? nullptr : (float*)(ws + off);
+    off += (4 * floats + 255) / 256 * 256;
+    return p;
+  };
+  out->hst = take((size_t)BH * nch * P * N);
+  out->dlp = take((size_t)BH * npb * S);
+  out->dBp = take((size_t)BH * npb * S * N);
+  out->dCp = take((size_t)BH * npb * S * N);
+  return off;
+}
+
+}  // namespace
+
+// Bytes of ssd_bwd's workspace for these shapes; -1 when a P x N state
+// fits no block of the kernel (N above 148).
+extern "C" long long ssd_bwd_workspace(int BH, int S, int P, int N) {
+  const int PB = bwd_pblock(P, N);
+  if (!PB) return -1;
+  BwdScratch sc;
+  return (long long)bwd_scratch(BH, S, P, N, PB, nullptr, &sc);
+}
+
 // The gradient of ssd_fwd.  Inputs as ssd_fwd's, dy (BH, S, P) and
 // dh_final (BH, P, N) or NULL (zero).  Outputs dxdt (BH, S, P), dlogd
-// (BH, S), dB and dC (BH / heads, S, N).  Scratch, all float32: hst (BH,
-// ceil(S / 64), P, N); dlp (BH, npb, S), dBp and dCp (BH, npb, S, N),
-// with npb = ceil(P / ssd_bwd_pblock(P, N)).  Three kernels on `stream`.
+// (BH, S), dB and dC (BH / heads, S, N).  ws: ssd_bwd_workspace(BH, S,
+// P, N) bytes on the card, every byte written before it is read.  Three
+// kernels on `stream`.
 extern "C" int ssd_bwd(const void* xdt, const void* logd, const void* B,
                        const void* C, const void* dy, const void* dh_final,
-                       void* dxdt, void* dlogd, void* dB, void* dC,
-                       void* hst, void* dlp, void* dBp, void* dCp, int BH,
-                       int S, int P, int N, int heads, void* stream) {
+                       void* dxdt, void* dlogd, void* dB, void* dC, void* ws,
+                       int BH, int S, int P, int N, int heads, void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaGetLastError();
   if (P <= 0 || N <= 0 || heads <= 0 || BH % heads)
     return (int)cudaErrorInvalidValue;
-  const int PB = ssd_bwd_pblock(P, N);
+  const int PB = bwd_pblock(P, N);
   if (!PB) return (int)cudaErrorInvalidValue;
   const int NP = (N + 3) & ~3, npb = (P + PB - 1) / PB;
+  BwdScratch sc;
+  bwd_scratch(BH, S, P, N, PB, (char*)ws, &sc);
   const size_t sm1 = 4 * states_floats(PB, NP), sm2 = 4 * chunks_floats(PB, NP);
   cudaError_t e = cudaFuncSetAttribute(
       ssd_bwd_states, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
@@ -967,18 +1003,17 @@ extern "C" int ssd_bwd(const void* xdt, const void* logd, const void* B,
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(BH, npb);
   ssd_bwd_states<<<grid, BT, sm1, s>>>((const float*)xdt, (const float*)logd,
-                                       (const float*)B, (float*)hst, S, P, N,
+                                       (const float*)B, sc.hst, S, P, N,
                                        heads, PB);
   ssd_bwd_chunks<<<grid, BT, sm2, s>>>(
       (const float*)xdt, (const float*)logd, (const float*)B,
-      (const float*)C, (const float*)dy, (const float*)dh_final,
-      (const float*)hst, (float*)dxdt, (float*)dlp, (float*)dBp, (float*)dCp,
-      S, P, N, heads, PB);
+      (const float*)C, (const float*)dy, (const float*)dh_final, sc.hst,
+      (float*)dxdt, sc.dlp, sc.dBp, sc.dCp, S, P, N, heads, PB);
   const long long total = 2LL * (BH / heads) * S * N + (long long)BH * S;
   const long long want = (total + 255) / 256;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  ssd_bwd_reduce<<<blocks, 256, 0, s>>>(
-      (const float*)dlp, (const float*)dBp, (const float*)dCp, (float*)dlogd,
-      (float*)dB, (float*)dC, BH, S, N, heads, npb);
+  ssd_bwd_reduce<<<blocks, 256, 0, s>>>(sc.dlp, sc.dBp, sc.dCp,
+                                        (float*)dlogd, (float*)dB, (float*)dC,
+                                        BH, S, N, heads, npb);
   return (int)cudaGetLastError();
 }

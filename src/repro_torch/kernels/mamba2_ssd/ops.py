@@ -18,11 +18,13 @@ from repro_torch.obs.trace import kernel_launch
 
 KERNEL = "mamba2_ssd"
 BACKWARD = f"{KERNEL}.backward"
-CHUNK_BWD = 64                # tokens a chunk of the backward kernel
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-# xdt, logd, B, C, dy, dh_final, dxdt, dlogd, dB, dC, hst, dlp, dBp, dCp;
-# BH, S, P, N, heads; stream
-_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# xdt, logd, B, C, dy, dh_final, dxdt, dlogd, dB, dC, workspace; BH, S,
+# P, N, heads; stream
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# BH, S, P, N -> bytes of the backward's workspace (-1: the state is too
+# wide for a block)
+_BWD_WS_ARGS = [ctypes.c_int] * 4
 
 
 def ssd(xdt, logd, Bv, Cv, *, chunk=128, heads=1):
@@ -88,24 +90,20 @@ def ssd_backward(dy, dh_final, xdt, logd, Bv, Cv, *, heads=1):
            chk("dy", dy.contiguous(), f32, (BH, S, P), dev)]
     dhf = None if dh_final is None else chk(
         "dh_final", dh_final.contiguous(), f32, (BH, P, N), dev)
-    pb = _build.bind("ssd", "ssd_bwd_pblock", [ctypes.c_int] * 2)(P, N)
-    if pb <= 0:
+    # the chunk-start states and each block's partials, written before read
+    nbytes = _build.bind("ssd", "ssd_bwd_workspace", _BWD_WS_ARGS,
+                         ctypes.c_longlong)(BH, S, P, N)
+    if nbytes < 0:
         raise ValueError(f"ssd backward: a {P} x {N} state does not fit "
                          f"a block of the kernel (N <= 148)")
-    npb = -(-P // pb)
-    nch = -(-S // CHUNK_BWD)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     dxdt = torch.empty((BH, S, P), dtype=f32, device=dev)
     dlogd = torch.empty((BH, S), dtype=f32, device=dev)
     dB, dC = torch.empty((2, G, S, N), dtype=f32, device=dev).unbind(0)
-    hst = torch.empty((BH, nch, P, N), dtype=f32, device=dev)
-    dlp = torch.empty((BH, npb, S), dtype=f32, device=dev)
-    dBp, dCp = torch.empty((2, BH, npb, S, N), dtype=f32,
-                           device=dev).unbind(0)
     f = _build.bind("ssd", "ssd_bwd", _BWD_ARGS)
     _build.launch(BACKWARD, f, *[t.data_ptr() for t in ins],
                   None if dhf is None else dhf.data_ptr(),
-                  *[t.data_ptr() for t in (dxdt, dlogd, dB, dC, hst, dlp,
-                                           dBp, dCp)],
+                  *[t.data_ptr() for t in (dxdt, dlogd, dB, dC, ws)],
                   BH, S, P, N, heads, _build.stream_ptr(dev))
     return dxdt, dlogd, dB, dC
 

@@ -176,6 +176,34 @@ def test_chip_smoke_fails_without_a_card(argv):
     assert "no CUDA device" in r.stderr
 
 
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+S, K = True, False      # a spin kernel, a kernel of the profiled body
+
+
+@pytest.mark.parametrize("spin,tail,whole", [
+    ([S] * 32 + [K] * 3 + [S] * 32, 32, True),   # the first record lost
+    ([S] * 22 + [K] * 50 + [S] * 32, 32, True),  # 11 lost
+    ([], 32, False),                             # the whole window lost
+    ([K] * 2 + [S] * 32, 32, False),             # the loss reached the body
+    ([S] * 33 + [K] * 3, 32, False),             # the tail lost
+    ([S] * 64, 32, True),                        # a body with no kernel
+    ([S] * 32, 32, False),                       # ... or its lead lost
+    ([S] * 256, 256, False),
+])
+def test_profiled_window_is_whole(spin, tail, whole):
+    """chip_smoke's profiler windows count a body's kernels only when a
+    spin kernel was recorded on each side of them."""
+    assert _chip_smoke().window_whole(spin, tail) is whole
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")

@@ -203,8 +203,8 @@ def kernel_model(dy, dhf, xdt, logd, B, C, heads, pb=64):
 def test_model_constants_match_the_kernel():
     src = SSD_CU.read_text()
     assert re.search(r"constexpr int TQB = (\d+);", src).group(1) == str(TQB)
-    assert ops.CHUNK_BWD == TQB
     assert 'extern "C" int ssd_bwd(' in src
+    assert 'extern "C" long long ssd_bwd_workspace(' in src
 
 
 @pytest.mark.parametrize("BH,S,P,N,heads,decay,with_hf,pb", [
