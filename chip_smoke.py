@@ -184,10 +184,14 @@ Phases, in order; any failed check exits non-zero:
    float64 (the float32 sequential recurrence drifts past the bound): a
    sweep of small shapes (P, N, heads up to 50, with and without the
    final state's gradient, weak and strong decay, ragged lengths; a
-   state no block holds refused), then Hymba's training shape (400 rows
-   x 2,048 tokens) with the rows of one batch element held to float64,
-   every case called twice and held bit-equal; timed beside the plain
-   version and the bound.  Then Hymba at full width and 2 layers in f32:
+   state no block holds refused), each on the chunk-start states the
+   forward kernel hands over and on states computed inside the wrapper,
+   then Hymba's training shape (400 rows x 2,048 tokens) with the rows
+   of one batch element held to float64, every case called twice and
+   held bit-equal; timed beside the plain version and the bound.  The
+   rmsnorm backward is timed at Hymba's widths (1,600 with and without
+   the residual, 3,200) beside its bound and ``F.rms_norm``'s backward.
+   Then Hymba at full width and 2 layers in f32:
    3 ``Trainer`` steps card against CPU.  Then Hymba-1.5B at full width
    and depth in bf16, 8 x 2,048 tokens a step: 2 untimed and 8 timed
    steps (the loss must fall; launches of the SSD, flash-attention and
@@ -220,9 +224,11 @@ arguments its warm epoch recorded, and rmsnorm at the decode shape:
 device time by CUDA events and by torch.profiler, kernels, aten
 operators and host time a call, and the decode chain of
 :func:`norm_chain`; and rmsnorm at the prefill shape and at the row
-counts of RMS_AB_ROWS (D = 1,600) by CUDA events; and both backward
+counts of RMS_AB_ROWS (D = 1,600) by CUDA events; both backward
 kernels (flash attention's and rmsnorm's) at the train path's shapes,
-by CUDA events and by torch.profiler.  It prints the card's name and
+and the SSD backward at Hymba's training shape (as a training step
+calls it, and with the states computed inside), by CUDA events and by
+torch.profiler.  It prints the card's name and
 power limit, then one ``AB {...}`` JSON line a process.
 
 ``python3 chip_smoke.py --lanes N`` runs phase 8's TPC-C service run
@@ -573,27 +579,31 @@ def window_whole(spin, tail):
     """Whether a profiled window of :func:`device_kernels` holds every
     kernel of its body, from its kernels in time order (True for a spin):
     a spin recorded on each side of the body's kernels, or with none of
-    them, more spins than either side alone holds (33 before, ``tail``
-    after)."""
+    them, more spins than either side alone holds (``tail`` + 1 before,
+    ``tail`` after)."""
     kern = [i for i, sp in enumerate(spin) if not sp]
     if not kern:
-        return sum(spin) > max(33, tail)
+        return sum(spin) > tail + 1
     return any(spin[:kern[0]]) and any(spin[kern[-1] + 1:])
 
 
 def device_kernels(body):
     """torch.profiler's kernels for ``body()``: {name: (device µs, count)}.
-    Spin kernels run before the body (a long one, then 32 short ones) and
-    after it (``tail`` short ones) inside the profiled window and are left
-    out.  They witness the window: the profiler loses records at its ends
-    (the first record in a fresh process; in a long one, up to a third
-    of the lead, the whole tail with the body's last kernels, or the
-    whole window, where it once counted 0 for the three kernels of a
-    wrapper call).  A window is whole when a spin before its first body
-    kernel and one after its last were recorded (with no body kernel:
-    more spins than either side alone holds; :func:`window_whole`
-    judges); else it runs again with a longer lead and tail, and a third
-    lost window fails the run."""
+    Spin kernels run before the body (a long one, then as many short ones
+    as after it) and after it (32, 256, 1,024, 2,048, then 4,096 short
+    ones) inside the profiled window and are left out.  They witness the
+    window: the profiler loses records at its ends (the first record in
+    a fresh process; in a long one, up to a third of the lead, the whole
+    tail with the body's last kernels, the whole window, where it once
+    counted 0 for the three kernels of a wrapper call, or the first ~90
+    records whatever the lead's length, the whole lead and a third of a
+    150-kernel body).  A window is whole
+    when a spin before its first body kernel and one after its last were
+    recorded (with no body kernel: more spins than either side alone
+    holds; :func:`window_whole` judges); else it runs again with a longer
+    lead and more spins on each side, and a fifth lost window in a row
+    fails the run (a chip run of the whole script lost 16 windows, one of
+    them twice in a row)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -601,11 +611,12 @@ def device_kernels(body):
         for _ in range(n):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    for lead, tail in ((0.02, 32), (0.2, 256), (1.0, 1024)):
+    for lead, tail in ((0.02, 32), (0.2, 256), (1.0, 1024), (1.0, 2048),
+                       (2.0, 4096)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(int(lead * H100_MAX_CLOCK_HZ))
-            spins(32)
+            spins(tail)
             body()
             torch.cuda.synchronize()
             spins(tail)
@@ -621,10 +632,10 @@ def device_kernels(body):
         if window_whole(spin, tail):
             return out
         print(f"torch.profiler: a window with a {lead * 1e3:.0f} ms lead "
-              f"recorded {sum(spin)} of its {33 + tail} spins and "
+              f"recorded {sum(spin)} of its {2 * tail + 1} spins and "
               f"{len(kern)} other kernels, without a spin on each side of "
               f"them", flush=True)
-    raise Failure("torch.profiler lost records of three windows in a row")
+    raise Failure("torch.profiler lost records of five windows in a row")
 
 
 def kernels_in(fn):
@@ -3858,11 +3869,14 @@ def ssd_bwd_sweep(dev):
     bound): P in SSD_BWD_P x N in SSD_BWD_N x heads in SSD_BWD_HEADS, with
     and without dh_final, weak and strong decay, S ragged (not a multiple
     of the kernel's 64-token chunks, one to four chunks); Mamba2-130M's N
-    = 128 (the narrowest block); a state no block holds (N = 512) must be
-    refused.  Every case is called twice and the two results held
-    bit-equal.  Returns the largest relative error."""
+    = 128 (N in groups of 32 columns); a state no block holds (N = 512)
+    must be refused.  Every case runs on both routes, the chunk-start
+    states computed inside ``ssd_backward`` (called twice) and handed
+    over from the forward kernel as the autograd Function does, and the
+    three results are held bit-equal.  Returns the largest relative
+    error."""
     import torch
-    from repro_torch.kernels.mamba2_ssd.ops import ssd_backward
+    from repro_torch.kernels.mamba2_ssd.ops import _forward, ssd_backward
     from repro_torch.kernels.mamba2_ssd.ref import ssd_backward_ref
     gen = torch.Generator().manual_seed(19)
     cases = [(P, N, heads, hf, d)
@@ -3877,6 +3891,10 @@ def ssd_bwd_sweep(dev):
         got = ssd_backward(*args, heads=heads)
         same_bits(got, ssd_backward(*args, heads=heads),
                   f"ssd backward P={P} N={N} heads={heads}")
+        states = _forward(*args[2:], 64, heads, states=True)[2]
+        same_bits(got, ssd_backward(*args, heads=heads, states=states),
+                  f"ssd backward P={P} N={N} heads={heads}, states from "
+                  f"the forward")
         want = ssd_backward_ref(*[None if t is None else t.double()
                                   for t in args], heads=heads)
         err = grad_err(got, want)
@@ -3902,13 +3920,16 @@ def ssd_bwd_row(dev):
     """Phase 13, step 1: the SSD backward kernel on its sweep, then at
     Hymba's training shape (HYMBA_BATCH x 50 heads, HYMBA_SEQ tokens, P =
     64, N = 16, one group of 50 heads a batch row): the whole shape on
-    the kernel, twice (bit-equal), the rows of the first batch element
+    the kernel on the chunk-start states of the forward kernel, as a
+    training step calls it, twice (bit-equal, and equal to a call that
+    computes the states inside), the rows of the first batch element
     against the plain version in float64; timed by CUDA events and by
     torch.profiler beside the plain version in float32 and the bound.
     Returns the kernel row."""
     import torch
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_backward
+    from repro_torch.kernels.mamba2_ssd.ops import (_forward, ssd,
+                                                    ssd_backward)
     from repro_torch.kernels.mamba2_ssd.ref import ssd_backward_ref
     sweep, n_cases = ssd_bwd_sweep(dev)
     cfg = get_arch(HYMBA_ARCH)
@@ -3917,9 +3938,13 @@ def ssd_bwd_row(dev):
     gen = torch.Generator().manual_seed(23)
     dy, _, xdt, logd, Bv, Cv = ssd_bwd_inputs(gen, BH, S, P, N, H, "hymba",
                                               dev, hf=False)
-    got = ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H)
-    same_bits(got, ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H),
+    hst = _forward(xdt, logd, Bv, Cv, 64, H, states=True)[2]
+    got = ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H, states=hst)
+    same_bits(got, ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H,
+                                states=hst),
               "ssd backward at the training shape")
+    same_bits(got, ssd_backward(dy, None, xdt, logd, Bv, Cv, heads=H),
+              "ssd backward at the training shape, states inside")
     want = ssd_backward_ref(dy[:H].double(), None, xdt[:H].double(),
                             logd[:H].double(), Bv[:1].double(),
                             Cv[:1].double(), heads=H)
@@ -3932,7 +3957,9 @@ def ssd_bwd_row(dev):
     del got, want, first
     torch.cuda.empty_cache()
     fig = call_figures(lambda: ssd_backward(dy, None, xdt, logd, Bv, Cv,
-                                            heads=H))
+                                            heads=H, states=hst))
+    whole = call_figures(lambda: ssd_backward(dy, None, xdt, logd, Bv, Cv,
+                                              heads=H))
     # bytes: xdt, logd, B, C, dy read once; dxdt, dlogd, dB, dC written
     nbytes = 4 * (3 * BH * S * P + 2 * BH * S + 4 * G * S * N)
     # operations the function needs, per row and token on the P x N state:
@@ -3940,11 +3967,11 @@ def ssd_bwd_row(dev):
     # and the contractions for dxdt, dB, dC and dlogd), at the float32
     # rate of the tensor cores (3xTF32, as row mamba2_ssd is bounded)
     flops = 12 * BH * S * P * N
-    # what this kernel's 64-token chunks do in float32 FMAs (the pairs on
-    # or below each chunk's diagonal, the states' recomputation included)
-    Q = 64
-    pairs = Q * (Q + 1) // 2
-    kernel_flops = BH * (S // Q) * (pairs * (6 * N + 4 * P) + 10 * Q * P * N)
+    # what this kernel issues: its m16n8k8 products (2 * 16 * 8 * 8
+    # operations each) over the tiles it computes, three TF32 products
+    # each, in blocks of 64 state rows (csrc/ssd.cu, BWD_PB)
+    kernel_flops = (3 * 2048 * ssd_bwd_products(64, N) * BH * -(-P // 64)
+                    * -(-S // 64))
     b_bytes = nbytes / H100_BYTES_PER_S * 1e3
     b_ops = 3 * flops / H100_TF32_FLOPS * 1e3
     row = {
@@ -3965,7 +3992,7 @@ def ssd_bwd_row(dev):
         "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "bound_bytes_ms": b_bytes, "bound_tf32x3_ops_ms": b_ops,
-        "kernel_f32_ops_ms": kernel_flops / H100_F32_FLOPS * 1e3,
+        "kernel_tf32x3_ops_ms": kernel_flops / H100_TF32_FLOPS * 1e3,
         "library_ms": None,
         "library_note": "none: no PyTorch call computes the SSD scan or "
                         "its gradient",
@@ -3974,11 +4001,81 @@ def ssd_bwd_row(dev):
         "prof_kernels_per_call": fig["prof_kernels_per_call"],
         "sweep_max_rel_err": sweep, "sweep_cases": n_cases,
         "host_us": fig["host_us"],
+        "states_inside": {k: whole[k] for k in ("ms", "prof_ms",
+                                                "kernels_per_call")},
         "forward_ms": cuda_ms(lambda: ssd(xdt, logd, Bv, Cv, chunk=256,
-                                          heads=H))}
+                                          heads=H)),
+        "forward_with_states_ms": cuda_ms(lambda: _forward(
+            xdt, logd, Bv, Cv, 64, H, states=True)),
+        "forward_prof_ms": prof_ms(lambda: ssd(xdt, logd, Bv, Cv, chunk=256,
+                                               heads=H))[0],
+        "forward_with_states_prof_ms": prof_ms(lambda: _forward(
+            xdt, logd, Bv, Cv, 64, H, states=True))[0]}
     del dy, xdt, logd, Bv, Cv
     torch.cuda.empty_cache()
     return row
+
+
+def ssd_bwd_products(PB, N):
+    """m16n8k8 products (each run as three TF32 products) that
+    ``ssd_bwd_kernel`` issues for one (row, block of PB state rows,
+    64-token chunk): on the 20 of 32 tiles of a 64 x 64 chunk on or below
+    its diagonal, M^T (both halves), dX, Z^T and Z; on all of N, the
+    state parts of dX, dB and dC; dB's and dC's own products; the G
+    update."""
+    n8, pk, tri = -(-N // 8), PB // 8, 20
+    return (2 * tri * n8 + tri * pk + 4 * n8 * pk + 2 * tri * pk
+            + 2 * 4 * pk * n8 + 2 * tri * n8 + (PB // 16) * n8 * 8)
+
+
+def rmsnorm_bwd_hymba(dev):
+    """Row 7b at Hymba's widths (measured, not changed): the rmsnorm
+    backward at HYMBA_BATCH x HYMBA_SEQ rows in bf16, at d_model (1,600:
+    norm2's residual form and norm1's plain form) and at the SSM's inner
+    width (3,200: the gate norm): against autograd through its plain
+    version, by CUDA events and torch.profiler beside its bound (bytes)
+    and ``F.rms_norm``'s autograd backward on the pre-added sum.  Returns
+    {form: figures}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_backward
+    cfg = get_arch(HYMBA_ARCH)
+    T = HYMBA_BATCH * HYMBA_SEQ
+    gen = torch.Generator(device=dev).manual_seed(37)
+    out = {}
+    for D, res in ((cfg.d_model, True), (cfg.d_model, False),
+                   (cfg.n_ssm_heads * cfg.ssm_head_dim, False)):
+        x, dy, r, dres = (torch.randn((T, D), generator=gen, device=dev)
+                          .to(torch.bfloat16) for _ in range(4))
+        if not res:
+            r = dres = None
+        w = torch.randn((D,), generator=gen, device=dev).to(torch.bfloat16)
+        got = rmsnorm_backward(dy, dres, x, w, r)
+        err = grad_err(got, rmsnorm_grad_plain(dy, dres, x, w, r))
+        check(err <= TOL_BF16_BWD, f"rmsnorm backward at {T} x {D}: {err} "
+              f"(tolerance {TOL_BF16_BWD})")
+        del got
+        s = (x if r is None else (x.float() + r.float()).to(x.dtype))
+        s = s.detach().requires_grad_()
+        wl = w.detach().clone().requires_grad_()
+        ys = F.rms_norm(s, (D,), wl, 1e-5)
+        # x (and r, d(residual)) and dy in, dx out; w in and dw out
+        nbytes = 2 * ((5 if res else 3) * T * D + 2 * D)
+        fig = call_figures(lambda: rmsnorm_backward(dy, dres, x, w, r))
+        out[f"{T}x{D}" + (" residual" if res else "")] = {
+            "ms": fig["ms"], "prof_ms": fig["prof_ms"],
+            "kernels_per_call": fig["kernels_per_call"],
+            "max_rel_err": err,
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes,
+            "plain_ms": cuda_ms(lambda: rmsnorm_grad_plain(dy, dres, x, w, r),
+                                reps=5),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                ys, (s, wl), dy, retain_graph=True))}
+        del x, dy, r, dres, w, s, wl, ys
+        torch.cuda.empty_cache()
+    return out
 
 
 def hymba_train_path(dev, rows):
@@ -4028,8 +4125,13 @@ def hymba_train_phase(dev, rows):
     rows["mamba2_ssd.backward"] = ssd_bwd_row(dev)
     r = rows["mamba2_ssd.backward"]
     print(f"ssd backward at {r['shape']}: {r['ms']:.4f} ms events, "
-          f"{r['prof_ms']:.4f} ms profiler (bound {r['bound_ms']:.4f}, "
-          f"plain {r['plain_ms']:.1f}), max rel err {r['max_rel_err']:.3g}",
+          f"{r['prof_ms']:.4f} ms profiler, {r['kernels_per_call']} "
+          f"kernels a call (bound {r['bound_ms']:.4f}, plain "
+          f"{r['plain_ms']:.1f}), max rel err {r['max_rel_err']:.3g}",
+          flush=True)
+    rms = rmsnorm_bwd_hymba(dev)
+    rows["rmsnorm.backward"]["hymba_widths"] = rms
+    print("rmsnorm backward at Hymba's widths: " + json.dumps(rms),
           flush=True)
     parity = train_parity(dev, HYMBA_ARCH)
     print(f"hymba train parity: {json.dumps(parity)}", flush=True)
@@ -4462,7 +4564,36 @@ def ab_side(tree, dev):
     del se, args, kw
     torch.cuda.empty_cache()
     out.update(train_backward_calls(dev))
+    out.update(ssd_backward_calls(dev))
     print("AB " + json.dumps(out), flush=True)
+
+
+def ssd_backward_calls(dev):
+    """The SSD backward through the tree's wrapper at Hymba's training
+    shape (HYMBA_BATCH x 50 heads, HYMBA_SEQ tokens, P = 64, N = 16):
+    ``ssd_backward`` as a training step calls it (on the forward kernel's
+    chunk-start states where the tree's wrapper takes them, else as the
+    wrapper is), and whole (states computed inside where it takes them):
+    :func:`call_figures` of each."""
+    import inspect
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.mamba2_ssd import ops
+    cfg = get_arch(HYMBA_ARCH)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator().manual_seed(23)
+    dy, _, xdt, logd, Bv, Cv = ssd_bwd_inputs(
+        gen, HYMBA_BATCH * H, HYMBA_SEQ, P, N, H, "hymba", dev, hf=False)
+    whole = call_figures(lambda: ops.ssd_backward(dy, None, xdt, logd, Bv, Cv,
+                                                  heads=H))
+    step = whole
+    if "states" in inspect.signature(ops.ssd_backward).parameters:
+        hst = ops._forward(xdt, logd, Bv, Cv, 64, H, states=True)[2]
+        step = call_figures(lambda: ops.ssd_backward(
+            dy, None, xdt, logd, Bv, Cv, heads=H, states=hst))
+    del dy, xdt, logd, Bv, Cv
+    torch.cuda.empty_cache()
+    return {"ssd_backward": step, "ssd_backward_whole": whole}
 
 
 def train_backward_calls(dev):

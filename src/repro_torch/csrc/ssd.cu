@@ -7,7 +7,9 @@
 //   y_i = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) xdt_j
 //         + exp(cs_i) (C_i . h)                       (h: carried (P, N))
 //   h'  = h exp(cs_last) + sum_j exp(cs_last - cs_j) xdt_j (x) B_j
-// and returns y (without the D skip) and the final state.  All float32.
+// and returns y (without the D skip) and the final state, and, when asked
+// (training), the state at the start of every 64-token tile, which the
+// backward below reads instead of recomputing it.  All float32.
 // B and C may be shared by `heads` consecutive rows (Mamba-2's ngroups =
 // 1): row bh reads B and C row bh / heads.  The chunked form is exact for
 // any chunk length, so a chunk longer than 64 tokens runs as chunks of 64
@@ -202,13 +204,15 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
 }
 
 // NT: n-tiles of 8 state rows p that one warp's column half holds (PB/16);
-// CACHED: N <= 8 KC, C's fragments stay in registers for an m-tile
-template <int NT, bool CACHED>
+// CACHED: N <= 8 KC, C's fragments stay in registers for an m-tile;
+// STATES: hst is written (serving runs the kernel without that code)
+template <int NT, bool CACHED, bool STATES>
 __global__ void __launch_bounds__(THREADS, CACHED ? 4 : 1)
 ssd_kernel(const float* __restrict__ xdt, const float* __restrict__ logd,
            const float* __restrict__ Bv, const float* __restrict__ Cv,
-           float* __restrict__ y, float* __restrict__ hfin, int S, int P,
-           int N, int chunk, int heads, int stages, int vec) {
+           float* __restrict__ y, float* __restrict__ hfin,
+           float* __restrict__ hst, int S, int P, int N, int chunk,
+           int heads, int stages, int vec) {
   constexpr int PB = 16 * NT;
   extern __shared__ __align__(16) float sm[];
   const int N8 = (N + 7) & ~7, LDN = N8 + 4, LDX = PB + 4;
@@ -255,6 +259,19 @@ ssd_kernel(const float* __restrict__ xdt, const float* __restrict__ logd,
     const int s0 = c * Qc, Q = min(Qc, S - s0);
     const int st = stages == 2 ? (c & 1) : 0;
     __syncthreads();            // chunk c - 1 is done with h and its stage
+    if constexpr (STATES) {     // the state at this tile's start
+      float* ho = hst + ((bh * nch + c) * P + pb0) * N;
+      if ((N & 3) == 0 && (reinterpret_cast<uintptr_t>(hst) & 15) == 0) {
+        for (int e = 4 * tid; e < pcols * N; e += 4 * THREADS) {
+          const int p = e / N, n = e - p * N;
+          *reinterpret_cast<float4*>(ho + e) =
+              *reinterpret_cast<const float4*>(hs + p * N8 + n);
+        }
+      } else {
+        for (int e = tid; e < pcols * N; e += THREADS)
+          ho[e] = hs[(e / N) * N8 + e % N];
+      }
+    }
     if (stages == 1) {
       load_chunk(c, 0, true);
       cp_async_wait<0>();
@@ -444,19 +461,20 @@ ssd_kernel(const float* __restrict__ xdt, const float* __restrict__ logd,
     hf[e] = hs[(e / N) * N8 + e % N];
 }
 
-template <int NT, bool CACHED>
+template <int NT, bool CACHED, bool STATES>
 int launch(const float* xdt, const float* logd, const float* B,
-           const float* C, float* y, float* hfin, int BH, int S, int P, int N,
-           int chunk, int heads, int stages, int vec, size_t smem,
-           cudaStream_t stream) {
+           const float* C, float* y, float* hfin, float* hst, int BH, int S,
+           int P, int N, int chunk, int heads, int stages, int vec,
+           size_t smem, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      ssd_kernel<NT, CACHED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_kernel<NT, CACHED, STATES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int PB = 16 * NT;
   const dim3 grid(BH, (P + PB - 1) / PB);
-  ssd_kernel<NT, CACHED><<<grid, THREADS, smem, stream>>>(
-      xdt, logd, B, C, y, hfin, S, P, N, chunk, heads, stages, vec);
+  ssd_kernel<NT, CACHED, STATES><<<grid, THREADS, smem, stream>>>(
+      xdt, logd, B, C, y, hfin, hst, S, P, N, chunk, heads, stages, vec);
   return (int)cudaGetLastError();
 }
 
@@ -471,15 +489,21 @@ long long smem_bytes(int p_block, int N, int stages) {
 }  // namespace
 
 // xdt (BH, S, P), logd (BH, S), B and C (BH / heads, S, N), y (BH, S, P),
-// hfin (BH, P, N); all float32, contiguous.  A block takes the widest of
-// 64, 32 and 16 state rows not wider than P rounded up to 16, with two
-// chunk tiles in the load ring where they fit in shared memory, else one;
-// a state that no block holds is refused (cudaErrorInvalidValue).
+// hfin (BH, P, N); all float32, contiguous.  hst: NULL (serving), or
+// (BH, ceil(S / 64), P, N) for the state at each 64-token tile's start,
+// which needs tiles of 64 tokens (chunk >= 64, or one chunk: chunk >= S).
+// A block takes the widest of 64, 32 and 16 state rows not wider than P
+// rounded up to 16, with two chunk tiles in the load ring where they fit
+// in shared memory, else one; a state that no block holds is refused
+// (cudaErrorInvalidValue).
 extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
-                       const void* C, void* y, void* hfin, int BH, int S,
-                       int P, int N, int chunk, int heads, void* stream) {
+                       const void* C, void* y, void* hfin, void* hst, int BH,
+                       int S, int P, int N, int chunk, int heads,
+                       void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaGetLastError();
   if (P <= 0 || N <= 0 || chunk <= 0 || heads <= 0 || BH % heads)
+    return (int)cudaErrorInvalidValue;
+  if (hst != nullptr && chunk < TQ && chunk < S)
     return (int)cudaErrorInvalidValue;
   int p_block = 0, stages = 0;
   for (int pb = 64; pb >= 16 && !p_block; pb /= 2)
@@ -494,14 +518,18 @@ extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
   const int vec = P % 4 == 0 && N % 4 == 0 && al(xdt) && al(B) && al(C);
   const float *x = (const float*)xdt, *l = (const float*)logd,
               *b = (const float*)B, *c = (const float*)C;
-  float *yy = (float*)y, *h = (float*)hfin;
+  float *yy = (float*)y, *h = (float*)hfin, *hs = (float*)hst;
   cudaStream_t s = (cudaStream_t)stream;
   const bool cached = ((N + 7) & ~7) <= 8 * KC;
-#define SSD_LAUNCH(NT)                                                     \
-  return cached ? launch<NT, true>(x, l, b, c, yy, h, BH, S, P, N, chunk,  \
-                                   heads, stages, vec, smem, s)           \
-                : launch<NT, false>(x, l, b, c, yy, h, BH, S, P, N, chunk, \
-                                    heads, stages, vec, smem, s)
+#define SSD_LAUNCH1(NT, ST)                                                \
+  return cached ? launch<NT, true, ST>(x, l, b, c, yy, h, hs, BH, S, P, N, \
+                                       chunk, heads, stages, vec, smem, s) \
+                : launch<NT, false, ST>(x, l, b, c, yy, h, hs, BH, S, P,   \
+                                        N, chunk, heads, stages, vec,      \
+                                        smem, s)
+#define SSD_LAUNCH(NT)           \
+  if (hs) SSD_LAUNCH1(NT, true); \
+  SSD_LAUNCH1(NT, false)
   switch (p_block) {
     case 16:
       SSD_LAUNCH(1);
@@ -513,7 +541,9 @@ extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
       return (int)cudaErrorInvalidValue;
   }
 #undef SSD_LAUNCH
+#undef SSD_LAUNCH1
 }
+
 
 // ===========================================================================
 // ssd_bwd: the gradient of the scan above, the port's own kernel (the JAX
@@ -527,376 +557,948 @@ extern "C" int ssd_fwd(const void* xdt, const void* logd, const void* B,
 //   dlogd_t = <g_t, a_t h_{t-1}>,
 // dB and dC summed over the `heads` rows that share them.
 //
-// The chunked form, in chunks of TQB = 64 tokens whatever the forward's
-// chunk (the function is the same): with h0 the state before a chunk, G
-// the gradient of its last state from the tokens after it, L[i][j] =
-// exp(logd_{j+1} + ... + logd_i) for j <= i, din_i = exp(logd_0 + ... +
-// logd_i), e_j = exp(logd_{j+1} + ... + logd_63) and dl = e_{-1},
-//   dX = (CB^T o L)^T dY + e o (B G^T)
+// The chunked form, in chunks of TQB = 64 tokens (the function is the
+// same for any chunk): with h0 the state before a chunk, G the gradient of
+// its last state from the tokens after it, L[i][j] = exp(logd_{j+1} + ...
+// + logd_i) for j <= i, din_i = exp(logd_0 + ... + logd_i), e_j =
+// exp(logd_{j+1} + ... + logd_63) and dl = e_{-1},
+//   dX = M^T dY + e o (B G^T),       M = C B^T o L
 //   dC = din o (dY h0) + Z B,        Z = dY X^T o L
 //   dB = Z^T C + e o (X G)
 //   dlogd_i = sum_{j < i <= k} W[k][j] + sum_{k >= i} u_k
 //             + sum_{j < i} v_j + dl <G, h0>
-//       with W = Z o CB^T, u_k = din_k <C_k, (dY h0)_k>,
+//       with W = Z o C B^T, u_k = din_k <C_k, (dY h0)_k>,
 //       v_j = e_j <B_j, (X G)_j>
 //   G <- dl G + dY^T (din o C)   (the gradient of h0: the previous
 //                                 chunk's G)
 // (the products L[k][i] L[i][j] = L[k][j], L[k][i] din_i = din_k and e_i
 // L[i][j] = e_j fold a_i h_{i-1} and g_i into these sums).
 //
-// Three passes.
-// 1. ssd_bwd_states: one block per (row, block of PB state rows p) walks
-//    the chunks forward and writes the state at each chunk's start into
-//    scratch (BH, chunks, P, N): h <- dl h + X^T (e o B).
-// 2. ssd_bwd_chunks: the same blocks walk the chunks backward, carrying G
-//    in shared memory, and form the four gradients of the chunk from its
-//    tiles (X, dY, B, C, logd, h0) as above; dX is final, dlogd, dB and
-//    dC are this block's part (its state rows p; its row, not yet summed
-//    over heads) and go to scratch.
-// 3. ssd_bwd_reduce: dB and dC summed over the heads and the p blocks,
-//    dlogd over the p blocks, each output by one thread in a fixed order.
-//    No atomics anywhere: two calls give the same bits.
+// What bounds it on the H100: bytes.  At Hymba's training shape (400 rows
+// x 2,048 tokens, P = 64, N = 16) it must read xdt and dy and write dxdt,
+// 210 MB each, and move logd, dlogd, B, C, dB and dC: 0.64 GB, 0.19 ms at
+// 3.35 TB/s.  The products it issues, over the triangles it computes, are
+// 896 m16n8k8 products a 64-token chunk and block of state rows, each as
+// three TF32 products: 70.5 GFLOP a call, 0.14 ms at 495 TFLOP/s.  It
+// also reads the forward's chunk-start states (52 MB) and moves each
+// row's dB and dC (105 MB out and back) to be summed over the heads.
 //
-// Precision (plain float32 FMAs, no tensor cores): no decay is a
-// difference of two long sums.  L's exponents are running sums from key
-// j + 1 (one thread a key), din and e a prefix and a suffix scan, so an
-// exponent's error scales with the exponent itself and the factor's
-// relative error stays ~ulp(|exponent|), negligible where the factor is
-// not.  dlogd is a sum of signed terms that cancel after strong decay:
-// its pair term is formed as nested sums of W (each row's exclusive
-// prefix, then each column's suffix over rows), never as a difference of
-// prefix sums, so its error is relative to the terms' own magnitudes,
-// as the plain version's.  Held at <= 1e-4 of each gradient's largest
-// magnitude against the plain version's autograd in float64.
+// Two kernels.
+// 1. ssd_bwd_kernel: one block of 4 warps per (row, block of PB state rows
+//    p) walks the chunks backward, carrying G in shared memory.  A chunk's
+//    X, dY (64 x PB), B, C (64 x N), logd and h0 (PB x N, the forward's
+//    state at the chunk's start, `hst`) come by cp.async, issued for the
+//    next chunk as soon as this one's last read of them is done; the
+//    chunk's dlogd is written by one warp while the next chunk's tiles
+//    land.  dX is final; dlogd, dB and dC are this block's part.
+// 2. ssd_bwd_reduce (only when heads > 1 or P > 64): dB and dC summed over
+//    the heads and the p blocks, dlogd over the p blocks, each output by
+//    one thread in a fixed order.
+// No atomics anywhere: two calls give the same bits.
 //
-// Bound at Hymba's training shape (400 rows x 2,048 tokens, P = 64,
-// N = 16): bytes.  xdt, dy and dxdt at 210 MB each, logd, dlogd, B, C,
-// dB and dC: 0.64 GB, 0.19 ms at 3.35 TB/s.  The function needs six
-// products over the P x N state a token (h's and g's updates, the
-// contractions for dxdt, dB, dC and dlogd): 12 S P N a row, 10.1 GFLOP a
-// call, 0.06 ms as 3xTF32 on the tensor cores.  This simple design does
-// 17.8 GFLOP in float32 FMAs (0.27 ms at the 67 TFLOP/s outside the
-// tensor cores): it computes whole 64 x 64 tiles (about twice the
-// triangle's work) from shared memory, half a load or more a
-// multiply-add, recomputes the states, and also moves the state scratch
-// (52 MB out and in) and the partials (105 MB out and in); the tensor
-// cores (the forward's 3xTF32 products) are untried here.
+// The design, for the tensor cores and one full wave:
+// - Every product runs on mma.sync.m16n8k8 TF32 in 3xTF32 (big.big +
+//   big.small + small.big, the small terms first).  The split is big = a
+//   rounded to TF32 by integer operations and small = a - big exactly,
+//   handed to the tensor cores as it is (they read its top 19 bits):
+//   three full-rate ALU operations an operand where cvt.rna takes two
+//   conversions (2.00 against 2.10 ms in a trial run on the H100), ~2^-21
+//   of |a| against ~2^-22.  The three products go straight into the
+//   accumulator: a temporary summed from zero and then added, as the
+//   forward's mma3, took 1.50 against 1.39 ms (more registers, spills).
+// - Only tiles on or below the diagonal of each 64 x 64 chunk are
+//   computed: of 32 m16n8 tiles of a square, 20, in pairs of 8-key tiles
+//   that share their A fragments.
+// - The warps split the work into two halves x two sets of 16-row tiles,
+//   {0, 3} and {1, 2} (10 of the 20 triangle tiles each, as the forward).
+//   Both halves compute M^T on their j tiles (j rows x i columns, k over
+//   N: cheaper than sharing it) and dX on their share of the p columns.
+//   Half 0 also computes Z^T (j x i, k over p), dB = Z^T C + e o (X G), W
+//   and v; half 1 computes Z (i x j), dC = Z B + din o (dY h0), u and the
+//   G update's products dY^T (din o C), which it writes after the chunk's
+//   last read of the old G.  An accumulator is contracted only over its
+//   columns, so Z is computed in both layouts rather than moved through
+//   shared memory, which has no room for a 64 x 64 tile at four blocks an
+//   SM.  A masked accumulator feeds the next product as its A operand
+//   with no shuffle (the forward's key permutation: column 2q at k = q,
+//   2q + 1 at k = q + 4, and the B operand's rows read likewise).
+// - dX's columns go 2 of 8 n-tiles to half 0 and 6 to half 1, which has
+//   no W to form: 1.094 ms against 1.310 for 3 and 5, 1.206 for 1 and 7
+//   in a trial run.
+// - Registers: four blocks an SM leave 128 a thread, and their shared
+//   memory leaves ~28 KB of L1, so a spill goes to L2 and costs a key
+//   tile 2-3 thousand cycles (clock counters in a trial run).  Hence no
+//   8-tile arrays in registers (the key tiles go in pairs), device
+//   functions rather than lambdas (which left a 152-byte stack), and N's
+//   width and each warp's row tiles as template arguments, so that
+//   strides and loop bounds fold (N = 16: 8 bytes of spill, from 232).
+//   Unrolling the k loops, or two accumulator chains for them, spilled
+//   or issued more and was slower (1.51 and 1.27 against 1.09 ms).
+// - Shared memory at PB = 64, N = 16: X and dY 16 KB each, their rows
+//   swizzled (word c of row r at c ^ 4 (r & 7)) rather than padded, so
+//   that the fragment loads hit 32 banks; B, C, G with rows of N + 4
+//   words, h0 unpadded, and 64-word vectors: 56,608 bytes, four blocks an
+//   SM at 128 registers a thread (launch bounds).  The 400 blocks of
+//   Hymba's shape then run as one wave on 132 SMs (528 slots); at three an
+//   SM (396) the last 4 would run alone as a second wave (without spills
+//   at 168 registers: 1.45 against 1.38 ms in a trial run).
+// - The walk stays one block a row: in a trial run 132 rows (a block an
+//   SM) took 0.75 ms and 400 rows (three or four an SM) 1.10, so the
+//   blocks of an SM already share its issue slots; Mamba-2's
+//   chunk-parallel form would add blocks but no issue slots, and ~0.13 ms
+//   of bytes (dY read twice, the chunk states of G out and back).
+// - Other widths take the same kernel: a block holds 64 state rows (a
+//   narrower P padded with zeros, P > 64 in several blocks); N of 8, 16
+//   or 32 keeps dB's
+//   and dC's accumulators for all of N in registers, any other N runs
+//   them in groups of 32 columns over the same Z tiles (N = 128: one
+//   block an SM).  A state whose tiles do not fit shared memory is
+//   refused.
 //
-// Shared memory of a pass-2 block, in floats: X and dY (64 x PB), B, C
-// and the two (64 x N) products kept for u and v, h0 and G (PB x N),
-// three 64 x 64 tiles (L, then W and its prefixes; CB, then M; dY X^T,
-// then Z), rows padded to an odd length so that the column walks hit
-// distinct banks.  At PB = 64, N = 16 that is 108 KB: two blocks an SM.
-// A block takes the widest PB of 64, 32, 16 that fits; a state whose N
-// no block holds (N above 148) is refused (cudaErrorInvalidValue).
+// Precision (held at <= 1e-4 of each gradient's largest magnitude against
+// float64 autograd): no decay is a difference of two long sums.  L's
+// exponent is R[i][kt] - R[j][kt], both sums from the first row of j's
+// 8-key tile (the forward's R, one warp-scan a key tile): one of the two
+// has at most 8 terms, so the exponent's error is ~ulp of the exponent
+// itself.  din and e are a prefix and a suffix scan.  dlogd is a sum of
+// signed terms that cancel after strong decay: its pair term is formed as
+// nested sums of W, each row j's suffix over the keys k >= i (a running
+// sum from the right, in registers and quad shuffles), then each column
+// i's sum over the rows j < i (shuffles, then the four row tiles in
+// order), never as a difference of prefix sums, so its error stays
+// relative to the terms' own magnitudes.
 // ===========================================================================
 namespace {
 
-constexpr int TQB = 64;           // tokens a chunk of the backward
-constexpr int BT = 256;           // threads a block, passes 1 and 2
+constexpr int TQB = 64;           // tokens a chunk of the backward (= TQ)
+constexpr int BT = 128;           // threads a block: 4 warps
+constexpr int BLDR = 8;           // row of the decay sums: one a key tile
 
-// floats of shared memory: pass 1 and pass 2 at PB state rows, NP
-// (N rounded up to 4) state columns
-long long states_floats(int PB, int NP) {
-  return (long long)TQB * (PB + 1) + (long long)TQB * (NP + 1) +
-         (long long)PB * (NP + 1) + TQB + 8;
+// a = big + small: big rounded to TF32 (ties away from zero) by integer
+// operations, small = a - big exactly, read as TF32 by the tensor cores
+__device__ __forceinline__ void split2(float a, uint32_t& big,
+                                       uint32_t& small) {
+  const uint32_t b = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  big = b;
+  small = __float_as_uint(a - __uint_as_float(b));
 }
-long long chunks_floats(int PB, int NP) {
-  const long long LDP = PB + 1, LDN = NP + 1, LDQ = TQB + 1;
-  return 2 * TQB * LDP + 4 * TQB * LDN + 2LL * PB * LDN + 3 * TQB * LDQ +
-         5 * TQB + 16;
+// The A operand of one m16n8k8 product, split.
+struct Frag {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    split2(a0, hi[0], lo[0]);
+    split2(a1, hi[1], lo[1]);
+    split2(a2, hi[2], lo[2]);
+    split2(a3, hi[3], lo[3]);
+  }
+  // from an m16n8 accumulator, its columns the k axis permuted: column
+  // 2q at k = q, 2q + 1 at k = q + 4
+  __device__ __forceinline__ void set_acc(const float (&c)[4]) {
+    set(c[0], c[2], c[1], c[3]);
+  }
+};
+// c += a * b in 3xTF32, the small terms first, each added by the tensor
+// cores' float32 accumulation (a temporary summed from zero and then
+// added, as mma3 does, was slower here: more registers, spills)
+__device__ __forceinline__ void mma3b(float (&c)[4], const Frag& a, float b0,
+                                      float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split2(b0, bh0, bl0);
+  split2(b1, bh1, bl1);
+  mma_tf32(c, a.lo, bh0, bh1);
+  mma_tf32(c, a.hi, bl0, bl1);
+  mma_tf32(c, a.hi, bh0, bh1);
+}
+__device__ __forceinline__ void zero4(float (&c)[4]) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
 }
 
-// out(i, j, acc1, acc2) for each output of an (M x Nn) tile grid, with
-// acc1 = sum_k<K1 a1(i, k) b1(k, j) and acc2 likewise over K2.  A thread
-// takes TM consecutive rows i and TN columns j strided by Nn / TN, so
-// that the lanes of a warp read consecutive columns.  M % TM == 0 and
-// Nn % TN == 0 (the tiles are padded with zeros).
-template <int TM, int TN, typename A1, typename B1, typename A2, typename B2,
-          typename O>
-__device__ __forceinline__ void mm2(int M, int Nn, int K1, A1 a1, B1 b1,
-                                    int K2, A2 a2, B2 b2, O out) {
-  const int TJ = Nn / TN, tiles = (M / TM) * TJ;
-  for (int t = threadIdx.x; t < tiles; t += BT) {
-    const int i0 = (t / TJ) * TM, tj = t % TJ;
-    float c1[TM][TN], c2[TM][TN];
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int v = 0; v < TN; ++v) c1[u][v] = c2[u][v] = 0.f;
-    for (int k = 0; k < K1; ++k) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int u = 0; u < TM; ++u) av[u] = a1(i0 + u, k);
-#pragma unroll
-      for (int v = 0; v < TN; ++v) bv[v] = b1(k, tj + v * TJ);
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-#pragma unroll
-        for (int v = 0; v < TN; ++v) c1[u][v] = fmaf(av[u], bv[v], c1[u][v]);
+// word c of row r of a swizzled TQB x PB tile
+template <int PB>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * PB + (c ^ ((r & 7) << 2));
+}
+
+// A tile of `trows` rows x `width` words (a multiple of 4) into dst, row r
+// at r * ld (swizzled when SW, ld = width), from rows of `lds` words; rows
+// past `rows` and words past `cols` are zero.
+template <bool SW>
+__device__ __forceinline__ void load_bwd(float* dst, int ld, int trows,
+                                         int width, const float* src,
+                                         long long lds, int rows, int cols,
+                                         bool vec) {
+  const auto at = [&](int r, int c) {
+    return r * ld + (SW ? (c ^ ((r & 7) << 2)) : c);
+  };
+  if (vec) {
+    const int per = width >> 2;
+    for (int e = threadIdx.x; e < trows * per; e += BT) {
+      const int r = e / per, c = (e - r * per) << 2;
+      const int nb = r < rows ? 4 * max(0, min(cols - c, 4)) : 0;
+      cp_async16(dst + at(r, c), nb ? src + r * lds + c : src, nb);
     }
-    for (int k = 0; k < K2; ++k) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int u = 0; u < TM; ++u) av[u] = a2(i0 + u, k);
-#pragma unroll
-      for (int v = 0; v < TN; ++v) bv[v] = b2(k, tj + v * TJ);
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-#pragma unroll
-        for (int v = 0; v < TN; ++v) c2[u][v] = fmaf(av[u], bv[v], c2[u][v]);
+  } else {
+    for (int e = threadIdx.x; e < trows * width; e += BT) {
+      const int r = e / width, c = e - r * width;
+      const bool ok = r < rows && c < cols;
+      cp_async4(dst + at(r, c), ok ? src + r * lds + c : src, ok);
     }
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int v = 0; v < TN; ++v) out(i0 + u, tj + v * TJ, c1[u][v], c2[u][v]);
   }
 }
-struct None {            // an empty second product
-  __device__ float operator()(int, int) const { return 0.f; }
+
+// Floats of shared memory of a block: PB state rows, N8 state columns.
+long long bwd_floats(int PB, int N8) {
+  const long long LDN = N8 + 4;
+  return 2LL * TQB * PB + 2 * TQB * LDN + (long long)PB * N8 + PB * LDN +
+         TQB * (BLDR + 9) + 8;
+}
+
+// What the device functions of one block share: its tiles in shared
+// memory, its place and the lane's place in its warp.  N8C: N rounded up
+// to 8 where it is fixed at compile time (0: read N8 at run time).
+template <int N8C>
+struct Bwd {
+  float *Xs, *Ys, *Bs, *Cs, *Hs, *Gs, *R, *ev, *din, *us, *vs, *cs;
+  int N, N8, LDN, g, q, S, P, pcols, pb0;
+  long long bh, orow;
+  __device__ __forceinline__ int n8() const { return N8C ? N8C : N8; }
+  __device__ __forceinline__ int ldn() const { return N8C ? N8C + 4 : LDN; }
 };
 
-// rows [s0, s0 + Q) x columns [c0, c0 + cols) of a row-major source with
-// `ld` words a row into a (TQB x width) tile with `lds` words a row,
-// zeros elsewhere
-__device__ __forceinline__ void load_rows(float* dst, int lds, int width,
-                                          const float* src, long long ld,
-                                          int Q, int cols) {
-  for (int e = threadIdx.x; e < TQB * width; e += BT) {
-    const int r = e / width, c = e - r * width;
-    dst[r * lds + c] = (r < Q && c < cols) ? src[r * ld + c] : 0.f;
-  }
+// Rows r0, r0 + 8 of a swizzled tile (k over p) as an A operand
+template <int PB>
+__device__ __forceinline__ void sw_rows(Frag& a, const float* T, int r0,
+                                        int kb, int q) {
+  a.set(T[swz<PB>(r0, kb + q)], T[swz<PB>(r0 + 8, kb + q)],
+        T[swz<PB>(r0, kb + q + 4)], T[swz<PB>(r0 + 8, kb + q + 4)]);
+}
+// Rows j0, j0 + 8 of B (k over N) as an A operand
+template <class K>
+__device__ __forceinline__ void b_rows(const K& k, Frag& a, int j0,
+                                       int kb) {
+  const float* b = k.Bs + j0 * k.ldn() + kb + k.q;
+  a.set(b[0], b[8 * k.ldn()], b[4], b[8 * k.ldn() + 4]);
+}
+// L on an m16n8 tile of (j rows, i columns) of row tile jt: the lane's
+// (j0, i0), (j0, i0 + 1), (j0 + 8, i0), (j0 + 8, i0 + 1); 0 where i < j.
+// The exponents are sums from the first row of j's 8-key tile.
+template <class K>
+__device__ __forceinline__ void decay_ji(const K& k, float (&l)[4], int jt,
+                                         int it) {
+  const int j0 = 16 * jt + k.g, j1 = j0 + 8, i0 = 8 * it + 2 * k.q;
+  const int i1 = i0 + 1, k0 = 2 * jt, k1 = k0 + 1;
+  const float r0 = k.R[j0 * BLDR + k0], r1 = k.R[j1 * BLDR + k1];
+  const bool dg = it <= k1;
+  l[0] = (dg && i0 < j0) ? 0.f : ex2(k.R[i0 * BLDR + k0] - r0);
+  l[1] = (dg && i1 < j0) ? 0.f : ex2(k.R[i1 * BLDR + k0] - r0);
+  l[2] = (dg && i0 < j1) ? 0.f : ex2(k.R[i0 * BLDR + k1] - r1);
+  l[3] = (dg && i1 < j1) ? 0.f : ex2(k.R[i1 * BLDR + k1] - r1);
 }
 
-// Pass 1: the state at the start of every chunk, into hst (BH, nch, P, N).
-__global__ void __launch_bounds__(BT)
-ssd_bwd_states(const float* __restrict__ xdt, const float* __restrict__ logd,
-               const float* __restrict__ Bv, float* __restrict__ hst, int S,
-               int P, int N, int heads, int PB) {
-  extern __shared__ __align__(16) float sm[];
-  const int NP = (N + 3) & ~3, LDP = PB + 1, LDN = NP + 1;
-  float* Xs = sm;                      // TQB x LDP
-  float* Bs = Xs + TQB * LDP;          // TQB x LDN
-  float* hs = Bs + TQB * LDN;          // PB x LDN
-  float* es = hs + PB * LDN;           // TQB: e_j
-  float* dls = es + TQB;               // dl
-  const long long bh = blockIdx.x, bc = bh / heads;
-  const int pb0 = blockIdx.y * PB, pcols = min(PB, P - pb0);
-  const int nch = (S + TQB - 1) / TQB;
-  for (int e = threadIdx.x; e < PB * LDN; e += BT) hs[e] = 0.f;
-  for (int c = 0; c < nch; ++c) {
-    const int s0 = c * TQB, Q = min(TQB, S - s0);
-    __syncthreads();                   // the last update of h is done
-    float* ho = hst + ((bh * nch + c) * P + pb0) * N;
-    for (int e = threadIdx.x; e < pcols * N; e += BT)
-      ho[e] = hs[(e / N) * LDN + e % N];
-    load_rows(Xs, LDP, PB, xdt + (bh * S + s0) * P + pb0, P, Q, pcols);
-    load_rows(Bs, LDN, NP, Bv + (bc * S + s0) * N, N, Q, N);
-    if (threadIdx.x == 0) {            // e_j = exp(sum over keys > j)
-      float s = 0.f;
-      for (int j = TQB - 1; j >= 0; --j) {
-        es[j] = expf(s);
-        s += j < Q ? logd[bh * S + s0 + j] : 0.f;
-      }
-      dls[0] = expf(s);
+// A pair of m16n8 tiles of X^T-or-dY^T products on rows r0, r0 + 8 of
+// tile T (A operand, k over p) against rows 8 ta + g and 8 tb + g of tile
+// U (B operand): both from the same A fragments
+template <int PB, class K>
+__device__ __forceinline__ void pair_p(const K& k, float (&za)[4],
+                                       float (&zb)[4], const float* T,
+                                       const float* U, int r0, int ta,
+                                       int tb) {
+  const int g = k.g, q = k.q;
+  zero4(za);
+  zero4(zb);
+  for (int kb = 0; kb < PB; kb += 8) {
+    Frag a;
+    sw_rows<PB>(a, T, r0, kb, q);
+    mma3b(za, a, U[swz<PB>(8 * ta + g, kb + q)],
+          U[swz<PB>(8 * ta + g, kb + q + 4)]);
+    mma3b(zb, a, U[swz<PB>(8 * tb + g, kb + q)],
+          U[swz<PB>(8 * tb + g, kb + q + 4)]);
+  }
+}
+// B C^T on rows j0, j0 + 8 against the keys of tiles ta and tb (k over N)
+template <class K>
+__device__ __forceinline__ void pair_bc(const K& k, float (&ma)[4],
+                                        float (&mb)[4], int j0, int ta,
+                                        int tb) {
+  const int g = k.g, q = k.q, LDN = k.ldn();
+  zero4(ma);
+  zero4(mb);
+  for (int kb = 0; kb < k.n8(); kb += 8) {
+    Frag a;
+    b_rows(k, a, j0, kb);
+    const float* ca = k.Cs + (8 * ta + g) * LDN + kb + q;
+    const float* cb = k.Cs + (8 * tb + g) * LDN + kb + q;
+    mma3b(ma, a, ca[0], ca[4]);
+    mma3b(mb, a, cb[0], cb[4]);
+  }
+}
+// acc (rows r0, r0 + 8; the half's NT n-tiles of p from cb) = e o (B G^T)
+template <int NT, class K>
+__device__ __forceinline__ void dx_state(const K& k, float (&ax)[NT][4],
+                                         int cb, int j0) {
+  const int g = k.g, q = k.q, LDN = k.ldn();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) zero4(ax[nt]);
+  for (int kb = 0; kb < k.n8(); kb += 8) {
+    Frag a;
+    b_rows(k, a, j0, kb);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* gr = k.Gs + (cb + 8 * nt + g) * LDN + kb + q;
+      mma3b(ax[nt], a, gr[0], gr[4]);
     }
-    __syncthreads();
-    const float dl = dls[0];
-    mm2<4, 2>(PB, NP, TQB,
-              [&](int p, int k) { return Xs[k * LDP + p] * es[k]; },
-              [&](int k, int n) { return Bs[k * LDN + n]; }, 0, None(), None(),
-              [&](int p, int n, float a, float) {
-                hs[p * LDN + n] = fmaf(dl, hs[p * LDN + n], a);
-              });
+  }
+  const float e0 = k.ev[j0], e1 = k.ev[j0 + 8];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    ax[nt][0] *= e0;
+    ax[nt][1] *= e0;
+    ax[nt][2] *= e1;
+    ax[nt][3] *= e1;
+  }
+}
+// dX += (M^T)(j, i) dY(i, p) on key tile it and NT n-tiles of p from cb,
+// M^T = B C^T o L^T: the keys permuted as in the forward
+template <int PB, int NT, class K>
+__device__ __forceinline__ void dx_tile(const K& k, float (&ax)[NT][4],
+                                        int cb, int it, const float (&m)[4],
+                                        const float (&l)[4]) {
+  float mm[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) mm[e] = m[e] * l[e];
+  Frag pa;
+  pa.set_acc(mm);
+  const int i0 = 8 * it + 2 * k.q;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = cb + 8 * nt + k.g;
+    mma3b(ax[nt], pa, k.Ys[swz<PB>(i0, col)], k.Ys[swz<PB>(i0 + 1, col)]);
+  }
+}
+// dX's rows r0, r0 + 8 (the half's columns from cb) to device memory
+template <int NT, class K>
+__device__ __forceinline__ void dx_store(const K& k,
+                                         const float (&ax)[NT][4], int cb,
+                                         int j0, int s0, int Q,
+                                         float* __restrict__ dxdt) {
+  const int j1 = j0 + 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int pc = cb + 8 * nt + 2 * k.q;    // local p of ax[.][0]
+    float* r0 = dxdt + (k.bh * k.S + s0 + j0) * k.P + k.pb0 + pc;
+    float* r1 = r0 + 8LL * k.P;
+    if (pc + 1 < k.pcols && (k.P & 1) == 0) {
+      if (j0 < Q) *reinterpret_cast<float2*>(r0) =
+          make_float2(ax[nt][0], ax[nt][1]);
+      if (j1 < Q) *reinterpret_cast<float2*>(r1) =
+          make_float2(ax[nt][2], ax[nt][3]);
+    } else {
+      if (j0 < Q && pc < k.pcols) r0[0] = ax[nt][0];
+      if (j0 < Q && pc + 1 < k.pcols) r0[1] = ax[nt][1];
+      if (j1 < Q && pc < k.pcols) r1[0] = ax[nt][2];
+      if (j1 < Q && pc + 1 < k.pcols) r1[1] = ax[nt][3];
+    }
+  }
+}
+// W = Z^T o (B C^T) on key tile it of row tile jt (zt masked): each row
+// j's running suffix over the keys (from the right; carry0, carry1 hold
+// the part right of this tile), then each column i's sum over the tile's
+// rows j < i, into cs
+template <class K>
+__device__ __forceinline__ void w_tile(const K& k, int jt, int it,
+                                       const float (&zt)[4],
+                                       const float (&m)[4], float& carry0,
+                                       float& carry1) {
+  const int g = k.g, q = k.q;
+  const int j0 = 16 * jt + g, j1 = j0 + 8, i0 = 8 * it + 2 * q, i1 = i0 + 1;
+  float rs[4];                  // suffix sums at (j0, i0), (j0, i1), ...
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float wa = zt[2 * r] * m[2 * r], wb = zt[2 * r + 1] * m[2 * r + 1];
+    float sv = wa + wb;         // inclusive suffix over the quad
+    float t = __shfl_down_sync(0xffffffffu, sv, 1, 4);
+    if (q < 3) sv += t;
+    t = __shfl_down_sync(0xffffffffu, sv, 2, 4);
+    if (q < 2) sv += t;
+    float ex = __shfl_down_sync(0xffffffffu, sv, 1, 4);
+    ex = q < 3 ? ex : 0.f;
+    const float tot = __shfl_sync(0xffffffffu, sv, 0, 4);
+    float& carry = r ? carry1 : carry0;
+    rs[2 * r + 1] = wb + (ex + carry);
+    rs[2 * r] = wa + rs[2 * r + 1];
+    carry = tot + carry;
+  }
+  float c0 = (j0 < i0 ? rs[0] : 0.f) + (j1 < i0 ? rs[2] : 0.f);
+  float c1 = (j0 < i1 ? rs[1] : 0.f) + (j1 < i1 ? rs[3] : 0.f);
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+  }
+  if (g == 0) {
+    k.cs[jt * TQB + i0] = c0;
+    k.cs[jt * TQB + i1] = c1;
+  }
+}
+// acc (NN n-tiles of N from n0) += (masked accumulator z, its columns the
+// k axis permuted) x rows 8 t + 2q, + 1 of T (B or C)
+template <int NN, class K>
+__device__ __forceinline__ void n_tile(const K& k, float (&acc)[NN][4],
+                                       const float (&z)[4], const float* T,
+                                       int t, int n0) {
+  Frag za;
+  za.set_acc(z);
+  const float* r = T + (8 * t + 2 * k.q) * k.ldn() + n0 + k.g;
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn)
+    if (n0 + 8 * nn < k.n8()) mma3b(acc[nn], za, r[8 * nn], r[k.ldn() + 8 * nn]);
+}
+// acc (rows r0, r0 + 8; NN n-tiles of N from n0) = T's rows (k over p)
+// times U (PB x ldu, rows p): X G or dY h0
+template <int PB, int NN, class K>
+__device__ __forceinline__ void p_times_state(const K& k,
+                                              float (&acc)[NN][4],
+                                              const float* T, int r0,
+                                              const float* U, int ldu,
+                                              int n0) {
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) zero4(acc[nn]);
+  for (int kb = 0; kb < PB; kb += 8) {
+    Frag a;
+    sw_rows<PB>(a, T, r0, kb, k.q);
+    const float* ur = U + (kb + k.q) * ldu + n0 + k.g;
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn)
+      if (n0 + 8 * nn < k.n8())
+        mma3b(acc[nn], a, ur[8 * nn], ur[4 * ldu + 8 * nn]);
   }
 }
 
-// Pass 2: the chunks backward.  dX final; dlogd, dB, dC this block's part.
-__global__ void __launch_bounds__(BT, 2)
-ssd_bwd_chunks(const float* __restrict__ xdt, const float* __restrict__ logd,
+// Rows r0, r0 + 8 of an m16n8 tile group into out (this block's dB or
+// dC), columns n0 + 8 nn + 2q, + 1
+template <int NN, class K>
+__device__ __forceinline__ void store_n(const K& k, float* out, int s0,
+                                        int Q, int r0,
+                                        const float (&acc)[NN][4], int n0) {
+  const int N = k.N;
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+    const int n = n0 + 8 * nn + 2 * k.q;
+    float* o0 = out + (k.orow * k.S + s0 + r0) * N + n;
+    float* o1 = o0 + 8LL * N;
+    if (n + 1 < N && (N & 1) == 0) {
+      if (r0 < Q) *reinterpret_cast<float2*>(o0) =
+          make_float2(acc[nn][0], acc[nn][1]);
+      if (r0 + 8 < Q) *reinterpret_cast<float2*>(o1) =
+          make_float2(acc[nn][2], acc[nn][3]);
+    } else {
+      if (r0 < Q && n < N) o0[0] = acc[nn][0];
+      if (r0 < Q && n + 1 < N) o0[1] = acc[nn][1];
+      if (r0 + 8 < Q && n < N) o1[0] = acc[nn][2];
+      if (r0 + 8 < Q && n + 1 < N) o1[1] = acc[nn][3];
+    }
+  }
+}
+// The lane's part of <T_r, acc_r> for rows r0, r0 + 8 over this group's
+// columns
+template <int NN, class K>
+__device__ __forceinline__ void row_dot(const K& k, float& s0v, float& s1v,
+                                        const float* T, int r0,
+                                        const float (&acc)[NN][4], int n0) {
+  const int LDN = k.ldn();
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+    const int n = n0 + 8 * nn + 2 * k.q;
+    if (n < k.n8()) {
+      s0v += T[r0 * LDN + n] * acc[nn][0] + T[r0 * LDN + n + 1] * acc[nn][1];
+      s1v += T[(r0 + 8) * LDN + n] * acc[nn][2] +
+             T[(r0 + 8) * LDN + n + 1] * acc[nn][3];
+    }
+  }
+}
+// scale rows r0 (c[.][0..1]) by s0 and r0 + 8 (c[.][2..3]) by s1
+template <int NN>
+__device__ __forceinline__ void scale_rows(float (&c)[NN][4], float s0,
+                                           float s1) {
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+    c[nn][0] *= s0;
+    c[nn][1] *= s0;
+    c[nn][2] *= s1;
+    c[nn][3] *= s1;
+  }
+}
+
+// dX's columns: the first n-tiles of the block's p to half 0, the rest to
+// half 1, which has no W to form: 2 of 8 (see the note)
+template <int PB>
+__host__ __device__ constexpr int dx0_tiles() { return PB / 32; }
+
+// Half 0, rows j of tile jt: dX on its columns, Z^T, W's pair sums, dB =
+// e o (X G) + Z^T C and v.  The key tiles go in pairs from the
+// right (for W's suffix), each pair's Z^T and B C^T from shared A
+// fragments; with N above 8 NN, dB's later groups of N take Z^T again.
+template <int PB, int NN, int jt, class K>
+__device__ __forceinline__ void half0_rows(const K& k, int s0, int Q,
+                                           float* __restrict__ dxdt,
+                                           float* __restrict__ dBo) {
+  constexpr int DX0 = dx0_tiles<PB>();
+  const int j0 = 16 * jt + k.g, j1 = j0 + 8;
+  const float e0 = k.ev[j0], e1 = k.ev[j1];
+  float vp0 = 0.f, vp1 = 0.f;
+  for (int n0 = 0; n0 < k.n8(); n0 += 8 * NN) {
+    const bool first = n0 == 0;
+    float ab[NN][4];
+    p_times_state<PB, NN>(k, ab, k.Xs, j0, k.Gs, k.ldn(), n0);   // X G
+    row_dot<NN>(k, vp0, vp1, k.Bs, j0, ab, n0);
+    scale_rows<NN>(ab, e0, e1);
+    float ax[DX0][4];
+    if (first) dx_state<DX0>(k, ax, 0, j0);
+    float carry0 = 0.f, carry1 = 0.f;
+#pragma unroll 1
+    for (int p2 = 3; p2 >= jt; --p2) {
+      float z[2][4], m[2][4];
+      pair_p<PB>(k, z[0], z[1], k.Xs, k.Ys, j0, 2 * p2 + 1, 2 * p2);
+      if (first) pair_bc(k, m[0], m[1], j0, 2 * p2 + 1, 2 * p2);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int it = 2 * p2 + 1 - u;           // the right tile first
+        float l[4];
+        decay_ji(k, l, jt, it);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[u][e] *= l[e];
+        if (first) {
+          dx_tile<PB, DX0>(k, ax, 0, it, m[u], l);
+          w_tile(k, jt, it, z[u], m[u], carry0, carry1);
+        }
+        n_tile<NN>(k, ab, z[u], k.Cs, it, n0);
+      }
+    }
+    if (first) dx_store<DX0>(k, ax, 0, j0, s0, Q, dxdt);
+    store_n<NN>(k, dBo, s0, Q, j0, ab, n0);
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    vp0 += __shfl_xor_sync(0xffffffffu, vp0, o);
+    vp1 += __shfl_xor_sync(0xffffffffu, vp1, o);
+  }
+  if (k.q == 0) {
+    k.vs[j0] = e0 * vp0;
+    k.vs[j1] = e1 * vp1;
+  }
+}
+
+// Half 1, dX on rows j of tile jt, its columns.
+template <int PB, int jt, class K>
+__device__ __forceinline__ void half1_dx(const K& k, int s0, int Q,
+                                         float* __restrict__ dxdt) {
+  constexpr int DX1 = PB / 8 - dx0_tiles<PB>(), CB = 8 * dx0_tiles<PB>();
+  const int j0 = 16 * jt + k.g;
+  float ax[DX1][4];
+  dx_state<DX1>(k, ax, CB, j0);
+#pragma unroll 1
+  for (int p2 = 3; p2 >= jt; --p2) {
+    float m[2][4];
+    pair_bc(k, m[0], m[1], j0, 2 * p2 + 1, 2 * p2);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float l[4];
+      decay_ji(k, l, jt, 2 * p2 + 1 - u);
+      dx_tile<PB, DX1>(k, ax, CB, 2 * p2 + 1 - u, m[u], l);
+    }
+  }
+  dx_store<DX1>(k, ax, CB, j0, s0, Q, dxdt);
+}
+
+// Half 1, rows i of tile mt: Z, dC = din o (dY h0) + Z B and u; Z's key
+// tiles in pairs from shared A fragments.
+template <int PB, int NN, int mt, class K>
+__device__ __forceinline__ void half1_rows(const K& k, int s0, int Q,
+                                           float* __restrict__ dCo) {
+  const int g = k.g, q = k.q;
+  const int i0 = 16 * mt + g, i1 = i0 + 8;
+  const float d0 = k.din[i0], d1 = k.din[i1];
+  float up0 = 0.f, up1 = 0.f;
+  for (int n0 = 0; n0 < k.n8(); n0 += 8 * NN) {
+    float ac[NN][4];
+    p_times_state<PB, NN>(k, ac, k.Ys, i0, k.Hs, k.n8(), n0);   // dY h0
+    row_dot<NN>(k, up0, up1, k.Cs, i0, ac, n0);
+    scale_rows<NN>(ac, d0, d1);
+#pragma unroll 1
+    for (int p2 = 0; p2 <= mt; ++p2) {
+      float z[2][4];
+      pair_p<PB>(k, z[0], z[1], k.Ys, k.Xs, i0, 2 * p2, 2 * p2 + 1);
+      // L[i][j] = exp2(R[i][jt] - R[j][jt]), 0 where j > i
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int jt = 2 * p2 + u;
+        const int jj0 = 8 * jt + 2 * q, jj1 = jj0 + 1;
+        const float ci0 = k.R[i0 * BLDR + jt], ci1 = k.R[i1 * BLDR + jt];
+        const float dj0 = k.R[jj0 * BLDR + jt], dj1 = k.R[jj1 * BLDR + jt];
+        const bool dg = jt >= 2 * mt;
+        z[u][0] *= (dg && jj0 > i0) ? 0.f : ex2(ci0 - dj0);
+        z[u][1] *= (dg && jj1 > i0) ? 0.f : ex2(ci0 - dj1);
+        z[u][2] *= (dg && jj0 > i1) ? 0.f : ex2(ci1 - dj0);
+        z[u][3] *= (dg && jj1 > i1) ? 0.f : ex2(ci1 - dj1);
+        n_tile<NN>(k, ac, z[u], k.Bs, jt, n0);
+      }
+    }
+    store_n<NN>(k, dCo, s0, Q, i0, ac, n0);
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    up0 += __shfl_xor_sync(0xffffffffu, up0, o);
+    up1 += __shfl_xor_sync(0xffffffffu, up1, o);
+  }
+  if (q == 0) {
+    k.us[i0] = d0 * up0;
+    k.us[i1] = d1 * up1;
+  }
+}
+
+// dY^T (din o C) on the rows p of m-tiles h1 and h1 + 2 (PB = 64) and all
+// of N (N8 <= 8 NN): half 1's share of the G update,
+// formed while half 0 finishes and written after the chunk's last read of
+// the old G
+template <int PB, int NN, class K>
+__device__ __forceinline__ void g_product(const K& k, int h1,
+                                          float (&ga)[PB / 32][NN][4]) {
+  const int g = k.g, q = k.q, LDN = k.ldn();
+#pragma unroll
+  for (int u = 0; u < PB / 32; ++u)
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) zero4(ga[u][nn]);
+  for (int ks = 0; ks < TQB / 8; ++ks) {
+    const int i0 = 8 * ks + q, i1 = i0 + 4;
+    const float d0 = k.din[i0], d1 = k.din[i1];
+#pragma unroll
+    for (int u = 0; u < PB / 32; ++u) {
+      const int pr0 = 16 * (2 * u + h1) + g, pr1 = pr0 + 8;
+      Frag a;
+      a.set(k.Ys[swz<PB>(i0, pr0)], k.Ys[swz<PB>(i0, pr1)],
+            k.Ys[swz<PB>(i1, pr0)], k.Ys[swz<PB>(i1, pr1)]);
+#pragma unroll
+      for (int nn = 0; nn < NN; ++nn)
+        if (8 * nn < k.n8())
+          mma3b(ga[u][nn], a, d0 * k.Cs[i0 * LDN + 8 * nn + g],
+                d1 * k.Cs[i1 * LDN + 8 * nn + g]);
+    }
+  }
+}
+// G <- dl G + ga on those tiles
+template <int PB, int NN, class K>
+__device__ __forceinline__ void g_write(const K& k, int h1, float dl,
+                                        const float (&ga)[PB / 32][NN][4]) {
+  const int LDN = k.ldn();
+#pragma unroll
+  for (int u = 0; u < PB / 32; ++u) {
+    const int pr0 = 16 * (2 * u + h1) + k.g, pr1 = pr0 + 8;
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) {
+      const int nc = 8 * nn + 2 * k.q;
+      if (nc < k.n8()) {
+        float* g0 = k.Gs + pr0 * LDN + nc;
+        float* g1 = k.Gs + pr1 * LDN + nc;
+        g0[0] = fmaf(dl, g0[0], ga[u][nn][0]);
+        g0[1] = fmaf(dl, g0[1], ga[u][nn][1]);
+        g1[0] = fmaf(dl, g1[0], ga[u][nn][2]);
+        g1[1] = fmaf(dl, g1[1], ga[u][nn][3]);
+      }
+    }
+  }
+}
+
+// dlogd_i = pair_i + sum_{k >= i} u_k + sum_{j < i} v_j + dl <G, h0> of
+// the chunk at s0 (Q tokens), by one warp: the pair sums of the four row
+// tiles in order, a suffix scan of u, an exclusive prefix scan of v
+template <class K>
+__device__ __forceinline__ void dlogd_out(const K& k, const float* gh,
+                                          float dl, int s0, int Q,
+                                          float* __restrict__ dlo) {
+  const int lane = threadIdx.x & 31, i0 = 2 * lane, i1 = i0 + 1;
+  float p0 = 0.f, p1 = 0.f;
+  for (int jt = 0; jt < 4; ++jt) {
+    if (16 * jt <= i0) p0 += k.cs[jt * TQB + i0];
+    if (16 * jt <= i1) p1 += k.cs[jt * TQB + i1];
+  }
+  const float ua = k.us[i0], ub = k.us[i1];
+  float su = ua + ub;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_down_sync(0xffffffffu, su, o);
+    if (lane + o < 32) su += t;
+  }
+  float ux = __shfl_down_sync(0xffffffffu, su, 1);
+  ux = lane < 31 ? ux : 0.f;
+  const float su1 = ub + ux, su0 = ua + su1;
+  const float va = k.vs[i0], vb = k.vs[i1];
+  float sv = va + vb;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, sv, o);
+    if (lane >= o) sv += t;
+  }
+  float vx = __shfl_up_sync(0xffffffffu, sv, 1);
+  vx = lane ? vx : 0.f;
+  const float sv0 = vx, sv1 = vx + va;
+  const float w = dl * (((gh[0] + gh[1]) + gh[2]) + gh[3]);
+  float* o = dlo + k.orow * k.S + s0;
+  if (i0 < Q) o[i0] = p0 + su0 + sv0 + w;
+  if (i1 < Q) o[i1] = p1 + su1 + sv1 + w;
+}
+
+// NT: n-tiles of 8 state rows p that a half holds (PB / 16); NN: n-tiles
+// of N that dB's and dC's accumulators hold; FULL: N8 = 8 NN, fixed at
+// compile time (else N8 is read at run time, in groups of 8 NN columns).
+// Each warp's row tiles are template arguments too, so that the tile
+// loops' bounds and addresses fold.
+template <int NT, int NN, bool FULL>
+__global__ void __launch_bounds__(BT, 4)
+ssd_bwd_kernel(const float* __restrict__ xdt, const float* __restrict__ logd,
                const float* __restrict__ Bv, const float* __restrict__ Cv,
                const float* __restrict__ dy, const float* __restrict__ dhf,
                const float* __restrict__ hst, float* __restrict__ dxdt,
-               float* __restrict__ dlp, float* __restrict__ dBp,
-               float* __restrict__ dCp, int S, int P, int N, int heads,
-               int PB) {
+               float* __restrict__ dlo, float* __restrict__ dBo,
+               float* __restrict__ dCo, int S, int P, int N, int heads,
+               int vec) {
+  constexpr int PB = 16 * NT;
   extern __shared__ __align__(16) float sm[];
-  const int NP = (N + 3) & ~3, LDP = PB + 1, LDN = NP + 1, LDQ = TQB + 1;
-  float* Xs = sm;                      // TQB x LDP: xdt
-  float* Ys = Xs + TQB * LDP;          // TQB x LDP: dy
-  float* Bs = Ys + TQB * LDP;          // TQB x LDN
-  float* Cs = Bs + TQB * LDN;          // TQB x LDN
-  float* T1 = Cs + TQB * LDN;          // TQB x LDN: dY h0
-  float* T2 = T1 + TQB * LDN;          // TQB x LDN: X G
-  float* H0 = T2 + TQB * LDN;          // PB x LDN
-  float* Gs = H0 + PB * LDN;           // PB x LDN
-  float* Lm = Gs + PB * LDN;           // TQB x LDQ: L, then W's prefixes
-  float* Mm = Lm + TQB * LDQ;          // TQB x LDQ: CB^T, then M
-  float* Zm = Mm + TQB * LDQ;          // TQB x LDQ: dY X^T, then Z
-  float* ls = Zm + TQB * LDQ;          // TQB: logd
-  float* din = ls + TQB;               // TQB
-  float* es = din + TQB;               // TQB
-  float* us = es + TQB;                // TQB
-  float* vs = us + TQB;                // TQB
-  float* red = vs + TQB;               // 8 warps' <G, h0>, then dl
+  Bwd<FULL ? 8 * NN : 0> k;
+  k.N = N;
+  k.N8 = (N + 7) & ~7;
+  k.LDN = k.N8 + 4;
+  const int N8 = k.n8(), LDN = k.ldn(), NNt = N8 >> 3;
+  k.Xs = sm;                           // TQB x PB, swizzled: xdt
+  k.Ys = k.Xs + TQB * PB;              // TQB x PB, swizzled: dy
+  k.Bs = k.Ys + TQB * PB;              // TQB x LDN
+  k.Cs = k.Bs + TQB * LDN;             // TQB x LDN
+  k.Hs = k.Cs + TQB * LDN;             // PB x N8: h0
+  k.Gs = k.Hs + PB * N8;               // PB x LDN: G
+  float* Ls = k.Gs + PB * LDN;         // TQB: logd
+  k.R = Ls + TQB;                      // TQB x BLDR: sums of logd (log2)
+  k.ev = k.R + TQB * BLDR;             // TQB: e_j
+  k.din = k.ev + TQB;                  // TQB: din_i
+  k.us = k.din + TQB;                  // TQB: u_k
+  k.vs = k.us + TQB;                   // TQB: v_j
+  k.cs = k.vs + TQB;                   // 4 x TQB: pair sums by row tile
+  float* gh = k.cs + 4 * TQB;          // 4 warps' <G, h0>
+  float *Xs = k.Xs, *Ys = k.Ys, *Bs = k.Bs, *Cs = k.Cs, *Hs = k.Hs,
+        *Gs = k.Gs, *R = k.R, *din = k.din;
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long bh = blockIdx.x, bc = bh / heads;
-  const int npb = gridDim.y, pb = blockIdx.y;
-  const int pb0 = pb * PB, pcols = min(PB, P - pb0);
+  const int g = lane >> 2, q = lane & 3;
+  k.g = g;
+  k.q = q;
+  k.S = S;
+  k.P = P;
+  k.bh = blockIdx.x;
+  const long long bh = k.bh, bc = bh / heads;
+  const int npb = gridDim.y;
+  k.pb0 = blockIdx.y * PB;
+  const int pb0 = k.pb0;
+  k.pcols = min(PB, P - pb0);
+  const int pcols = k.pcols;
   const int nch = (S + TQB - 1) / TQB;
+  k.orow = bh * npb + blockIdx.y;      // of dlo, dBo, dCo
+  const float* xp = xdt + bh * S * P + pb0;
+  const float* yp = dy + bh * S * P + pb0;
+  const float* Bp = Bv + bc * S * N;
+  const float* Cp = Cv + bc * S * N;
+  const float* lp = logd + bh * S;
+
   for (int e = tid; e < PB * LDN; e += BT) {
     const int p = e / LDN, n = e - p * LDN;
     Gs[e] = (dhf && p < pcols && n < N) ? dhf[(bh * P + pb0 + p) * N + n]
                                         : 0.f;
   }
+  // chunk c's X, B, h0 and logd (the buffers free first), then dY and C
+  const auto load_first = [&](int c) {
+    const int s0 = c * TQB, Q = min(TQB, S - s0);
+    load_bwd<true>(Xs, PB, TQB, PB, xp + (long long)s0 * P, P, Q, pcols,
+                   vec);
+    load_bwd<false>(Bs, LDN, TQB, N8, Bp + (long long)s0 * N, N, Q, N, vec);
+    load_bwd<false>(Hs, N8, PB, N8, hst + ((bh * nch + c) * P + pb0) * N, N,
+                    pcols, N, vec);
+    if (tid < TQB) cp_async4(Ls + tid, lp + s0 + (tid < Q ? tid : 0), tid < Q);
+    cp_async_commit();
+  };
+  const auto load_second = [&](int c) {
+    const int s0 = c * TQB, Q = min(TQB, S - s0);
+    load_bwd<true>(Ys, PB, TQB, PB, yp + (long long)s0 * P, P, Q, pcols,
+                   vec);
+    load_bwd<false>(Cs, LDN, TQB, N8, Cp + (long long)s0 * N, N, Q, N, vec);
+    cp_async_commit();
+  };
+  // Up to N = 8 NN half 1 forms the G update's products before the
+  // chunk's last barrier, so that the next chunk's tiles are all loaded
+  // from there on; wider N updates G after it, and dY and C wait for that.
+  const bool gfused = FULL || N8 <= 8 * NN;
+  load_first(nch - 1);
+  if (gfused) load_second(nch - 1);
+
+  const int half = warp >> 1, ms = warp & 1;
+  float dl_next = 0.f;          // dl of chunk c + 1, for its dlogd
+  float ga[PB / 32][NN][4];     // half 1's G products (gfused)
+
   for (int c = nch - 1; c >= 0; --c) {
     const int s0 = c * TQB, Q = min(TQB, S - s0);
-    __syncthreads();                   // the previous chunk is done
-    load_rows(Xs, LDP, PB, xdt + (bh * S + s0) * P + pb0, P, Q, pcols);
-    load_rows(Ys, LDP, PB, dy + (bh * S + s0) * P + pb0, P, Q, pcols);
-    load_rows(Bs, LDN, NP, Bv + (bc * S + s0) * N, N, Q, N);
-    load_rows(Cs, LDN, NP, Cv + (bc * S + s0) * N, N, Q, N);
-    const float* hp = hst + ((bh * nch + c) * P + pb0) * N;
-    for (int e = tid; e < PB * LDN; e += BT) {
-      const int p = e / LDN, n = e - p * LDN;
-      H0[e] = (p < pcols && n < N) ? hp[p * N + n] : 0.f;
-    }
-    if (tid < TQB) ls[tid] = tid < Q ? logd[bh * S + s0 + tid] : 0.f;
+    __syncthreads();            // chunk c + 1 is done with dY, C and G
+    if (!gfused) load_second(c);
+    // chunk c + 1's dlogd, while the loads land
+    if (warp == 0 && c + 1 < nch)
+      dlogd_out(k, gh, dl_next, s0 + TQB, min(TQB, S - s0 - TQB), dlo);
+    if (gfused)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();       // dY and C land behind the decays, <G, h0>
     __syncthreads();
 
-    // -- decays: L's column j by thread j; din and e by one thread each
-    if (tid < TQB) {
-      const int j = tid;
-      float s = 0.f;
-      for (int i = 0; i < j; ++i) Lm[i * LDQ + j] = 0.f;
-      Lm[j * LDQ + j] = 1.f;
-      for (int i = j + 1; i < TQB; ++i) {
-        s += ls[i];
-        Lm[i * LDQ + j] = expf(s);
+    // -- decays, as the forward's: R[i][kt] the sum of logd (log2 units)
+    // over rows 8kt..i, one scan a key tile, two a warp; din from R[.][0]
+    for (int u = 0; u < 2; ++u) {
+      const int kt = 2 * warp + u, r0 = 2 * lane;
+      const float v0 = r0 >= 8 * kt ? Ls[r0] : 0.f;
+      const float v1 = r0 + 1 >= 8 * kt ? Ls[r0 + 1] : 0.f;
+      const float pair = v0 + v1;
+      float sc = pair;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, sc, o);
+        if (lane >= o) sc += t;
       }
-    } else if (tid == TQB) {
-      float s = 0.f;
-      for (int i = 0; i < TQB; ++i) {
-        s += ls[i];
-        din[i] = expf(s);
+      float ex = __shfl_up_sync(0xffffffffu, sc, 1);
+      ex = lane ? ex : 0.f;
+      const float a0 = (ex + v0) * LOG2E, a1 = (ex + pair) * LOG2E;
+      R[r0 * BLDR + kt] = a0;
+      R[(r0 + 1) * BLDR + kt] = a1;
+      if (kt == 0) {
+        din[r0] = exp2f(a0);
+        din[r0 + 1] = exp2f(a1);
       }
-    } else if (tid == 2 * TQB) {
-      float s = 0.f;
-      for (int j = TQB - 1; j >= 0; --j) {
-        es[j] = expf(s);
-        s += ls[j];
-      }
-      red[8] = expf(s);
     }
-    // CB^T (C_i . B_j) and dY X^T (dy_i . x_j)
-    mm2<4, 4>(TQB, TQB, NP, [&](int i, int k) { return Cs[i * LDN + k]; },
-              [&](int k, int j) { return Bs[j * LDN + k]; }, PB,
-              [&](int i, int k) { return Ys[i * LDP + k]; },
-              [&](int k, int j) { return Xs[j * LDP + k]; },
-              [&](int i, int j, float cb, float yx) {
-                Mm[i * LDQ + j] = cb;
-                Zm[i * LDQ + j] = yx;
-              });
-    __syncthreads();
-    for (int e = tid; e < TQB * TQB; e += BT) {
-      const int i = e / TQB, j = e - i * TQB;
-      const float l = Lm[i * LDQ + j], cb = Mm[i * LDQ + j];
-      const float z = Zm[i * LDQ + j] * l;
-      Mm[i * LDQ + j] = cb * l;
-      Zm[i * LDQ + j] = z;
-      Lm[i * LDQ + j] = j < i ? z * cb : 0.f;      // W
+    if (warp == 0) {            // e_j = exp(sum of logd over rows > j)
+      const float w1 = Ls[2 * lane + 1];
+      float sc = Ls[2 * lane] + w1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_down_sync(0xffffffffu, sc, o);
+        if (lane + o < 32) sc += t;
+      }
+      float ex = __shfl_down_sync(0xffffffffu, sc, 1);
+      ex = lane < 31 ? ex : 0.f;
+      k.ev[2 * lane] = exp2f((ex + w1) * LOG2E);
+      k.ev[2 * lane + 1] = exp2f(ex * LOG2E);
     }
     __syncthreads();
-    const float dl = red[8];
+    const float dl = exp2f(R[(TQB - 1) * BLDR]);
+    dl_next = dl;
 
-    // -- dX = M^T dY + e o (B G^T)
-    float* dxo = dxdt + (bh * S + s0) * P + pb0;
-    mm2<4, 4>(TQB, PB, TQB, [&](int j, int k) { return Mm[k * LDQ + j]; },
-              [&](int k, int p) { return Ys[k * LDP + p]; }, NP,
-              [&](int j, int n) { return Bs[j * LDN + n]; },
-              [&](int n, int p) { return Gs[p * LDN + n]; },
-              [&](int j, int p, float a, float b) {
-                if (j < Q && p < pcols)
-                  dxo[(long long)j * P + p] = fmaf(es[j], b, a);
-              });
-    // -- dC = din o (dY h0) + Z B, keeping dY h0
-    float* dco = dCp + ((bh * npb + pb) * S + s0) * N;
-    mm2<4, 2>(TQB, NP, PB, [&](int i, int k) { return Ys[i * LDP + k]; },
-              [&](int k, int n) { return H0[k * LDN + n]; }, TQB,
-              [&](int i, int k) { return Zm[i * LDQ + k]; },
-              [&](int k, int n) { return Bs[k * LDN + n]; },
-              [&](int i, int n, float t1, float zb) {
-                T1[i * LDN + n] = t1;
-                if (i < Q && n < N)
-                  dco[(long long)i * N + n] = fmaf(din[i], t1, zb);
-              });
-    // -- dB = Z^T C + e o (X G), keeping X G
-    float* dbo = dBp + ((bh * npb + pb) * S + s0) * N;
-    mm2<4, 2>(TQB, NP, PB, [&](int j, int k) { return Xs[j * LDP + k]; },
-              [&](int k, int n) { return Gs[k * LDN + n]; }, TQB,
-              [&](int j, int k) { return Zm[k * LDQ + j]; },
-              [&](int k, int n) { return Cs[k * LDN + n]; },
-              [&](int j, int n, float t2, float zc) {
-                T2[j * LDN + n] = t2;
-                if (j < Q && n < N)
-                  dbo[(long long)j * N + n] = fmaf(es[j], t2, zc);
-              });
-    // <G, h0>: each warp's part
+    // <G, h0>: each warp's part, in a fixed order, 4 words a thread a step
     {
       float s = 0.f;
-      for (int e = tid; e < PB * LDN; e += BT) s = fmaf(Gs[e], H0[e], s);
+      for (int e = 4 * tid; e < PB * N8; e += 4 * BT) {
+        const int p = e / N8, n = e - p * N8;
+        const float4 gv = *reinterpret_cast<const float4*>(Gs + p * LDN + n);
+        const float4 hv = *reinterpret_cast<const float4*>(Hs + e);
+        s = fmaf(gv.x, hv.x, fmaf(gv.y, hv.y, fmaf(gv.z, hv.z,
+                 fmaf(gv.w, hv.w, s))));
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) red[warp] = s;
+      if (lane == 0) gh[warp] = s;
     }
-    // W's rows: exclusive prefix sums over j, in place (row k by thread
-    // 128 + k): Lm[k][i] = sum_{j < i} W[k][j] for i <= k
-    if (tid >= 2 * TQB && tid < 3 * TQB) {
-      const int k = tid - 2 * TQB;
-      float s = 0.f;
-      for (int i = 0; i <= k; ++i) {
-        const float w = Lm[k * LDQ + i];
-        Lm[k * LDQ + i] = s;
-        s += w;
+    if (!gfused) {
+      cp_async_wait<0>();       // dY and C
+      __syncthreads();
+    }
+
+    // -- the warps' tiles: half 0 rows j of tiles ms, 3 - ms (Z^T, dX, W,
+    // dB, v); half 1 dX on the same rows, then rows i (Z, dC, u)
+    if (half == 0 && ms == 0) {
+      half0_rows<PB, NN, 0>(k, s0, Q, dxdt, dBo);
+      half0_rows<PB, NN, 3>(k, s0, Q, dxdt, dBo);
+    } else if (half == 0) {
+      half0_rows<PB, NN, 1>(k, s0, Q, dxdt, dBo);
+      half0_rows<PB, NN, 2>(k, s0, Q, dxdt, dBo);
+    } else {
+      if (ms == 0) {
+        half1_dx<PB, 0>(k, s0, Q, dxdt);
+        half1_dx<PB, 3>(k, s0, Q, dxdt);
+        half1_rows<PB, NN, 0>(k, s0, Q, dCo);
+        half1_rows<PB, NN, 3>(k, s0, Q, dCo);
+      } else {
+        half1_dx<PB, 1>(k, s0, Q, dxdt);
+        half1_dx<PB, 2>(k, s0, Q, dxdt);
+        half1_rows<PB, NN, 1>(k, s0, Q, dCo);
+        half1_rows<PB, NN, 2>(k, s0, Q, dCo);
+      }
+      if (gfused) g_product<PB, NN>(k, ms, ga);
+    }
+    __syncthreads();            // every read of the tiles and the old G done
+    if (c > 0) {
+      load_first(c - 1);
+      if (gfused) load_second(c - 1);
+    }
+    if (gfused) {
+      if (half == 1) g_write<PB, NN>(k, ms, dl, ga);
+      continue;
+    }
+
+    // -- (N above 8 NN) G <- dl G + dY^T (din o C): warps split the
+    // m-tiles of p (wpm warps an m-tile), each takes its n-tiles of N four
+    // at a time
+    {
+      const int wpm = 4 / NT, mp = warp / wpm;
+      const int pr0 = 16 * mp + g, pr1 = pr0 + 8;
+      for (int nb = warp % wpm; nb < NNt; nb += 4 * wpm) {
+        float a4[4][4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int nc = 8 * (nb + wpm * v) + 2 * q;
+          if (nb + wpm * v < NNt) {
+            a4[v][0] = Gs[pr0 * LDN + nc] * dl;
+            a4[v][1] = Gs[pr0 * LDN + nc + 1] * dl;
+            a4[v][2] = Gs[pr1 * LDN + nc] * dl;
+            a4[v][3] = Gs[pr1 * LDN + nc + 1] * dl;
+          }
+        }
+        float b4[4][4];         // the odd key tiles: a second chain
+#pragma unroll
+        for (int v = 0; v < 4; ++v) zero4(b4[v]);
+#pragma unroll 2
+        for (int ks = 0; ks < TQB / 8; ++ks) {
+          const int i0 = 8 * ks + q, i1 = i0 + 4;
+          Frag a;
+          a.set(Ys[swz<PB>(i0, pr0)], Ys[swz<PB>(i0, pr1)],
+                Ys[swz<PB>(i1, pr0)], Ys[swz<PB>(i1, pr1)]);
+          const float d0 = din[i0], d1 = din[i1];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int nn = nb + wpm * v;
+            if (nn < NNt)
+              mma3b(ks & 1 ? b4[v] : a4[v], a, d0 * Cs[i0 * LDN + 8 * nn + g],
+                    d1 * Cs[i1 * LDN + 8 * nn + g]);
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int nc = 8 * (nb + wpm * v) + 2 * q;
+          if (nb + wpm * v < NNt) {
+            Gs[pr0 * LDN + nc] = a4[v][0] + b4[v][0];
+            Gs[pr0 * LDN + nc + 1] = a4[v][1] + b4[v][1];
+            Gs[pr1 * LDN + nc] = a4[v][2] + b4[v][2];
+            Gs[pr1 * LDN + nc + 1] = a4[v][3] + b4[v][3];
+          }
+        }
       }
     }
-    __syncthreads();
-    if (tid < TQB) {                   // u_k = din_k <C_k, (dY h0)_k>
-      float s = 0.f;
-      for (int n = 0; n < NP; ++n) s = fmaf(Cs[tid * LDN + n], T1[tid * LDN + n], s);
-      us[tid] = din[tid] * s;
-    } else if (tid < 2 * TQB) {        // v_j = e_j <B_j, (X G)_j>
-      const int j = tid - TQB;
-      float s = 0.f;
-      for (int n = 0; n < NP; ++n) s = fmaf(Bs[j * LDN + n], T2[j * LDN + n], s);
-      vs[j] = es[j] * s;
-    }
-    __syncthreads();
-    // -- dlogd_i = sum_{k >= i} (W's prefix)[k][i] + sum_{k >= i} u_k
-    //             + sum_{j < i} v_j + dl <G, h0>
-    if (tid < TQB) {
-      const int i = tid;
-      float pw = 0.f, su = 0.f, sv = 0.f, gh = 0.f;
-      for (int k = TQB - 1; k >= i; --k) {
-        pw += Lm[k * LDQ + i];
-        su += us[k];
-      }
-      for (int j = 0; j < i; ++j) sv += vs[j];
-      for (int w = 0; w < BT / 32; ++w) gh += red[w];
-      if (i < Q) dlp[(bh * npb + pb) * S + s0 + i] = pw + su + sv + dl * gh;
-    }
-    // -- G <- dl G + dY^T (din o C): the gradient of h0
-    mm2<4, 2>(PB, NP, TQB,
-              [&](int p, int k) { return Ys[k * LDP + p] * din[k]; },
-              [&](int k, int n) { return Cs[k * LDN + n]; }, 0, None(), None(),
-              [&](int p, int n, float a, float) {
-                Gs[p * LDN + n] = fmaf(dl, Gs[p * LDN + n], a);
-              });
   }
+  if (warp == 0) dlogd_out(k, gh, dl_next, 0, min(TQB, S), dlo);
 }
 
-// Pass 3: dB, dC summed over the heads and the p blocks; dlogd over the p
-// blocks.  One thread an output, in a fixed order.
+// dB and dC summed over the heads and the p blocks; dlogd over the p
+// blocks when there are several.  One thread an output, in a fixed order.
 __global__ void ssd_bwd_reduce(const float* __restrict__ dlp,
                                const float* __restrict__ dBp,
                                const float* __restrict__ dCp,
@@ -904,8 +1506,8 @@ __global__ void ssd_bwd_reduce(const float* __restrict__ dlp,
                                float* __restrict__ dB, float* __restrict__ dC,
                                long long BH, long long S, int N, int heads,
                                int npb) {
-  const long long nb = BH / heads * S * N, nl = BH * S, SN = S * N;
-  const long long total = 2 * nb + nl;
+  const long long nb = BH / heads * S * N, SN = S * N;
+  const long long nl = npb > 1 ? BH * S : 0, total = 2 * nb + nl;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     if (e < 2 * nb) {
@@ -927,89 +1529,117 @@ __global__ void ssd_bwd_reduce(const float* __restrict__ dlp,
   }
 }
 
-// The state rows p a block of the backward takes for these widths: the
-// widest of 64, 32 and 16, not wider than P rounded up to 16, whose
-// tiles fit shared memory; 0 when none does (the state is too wide).
+// The state rows p a block of the backward takes: 64 (a narrower P runs
+// padded with zeros: one set of template instances, half the build of
+// two); 0 when its tiles do not fit shared memory (the state is too
+// wide).
+constexpr int BWD_PB = 64;
 int bwd_pblock(int P, int N) {
   if (P <= 0 || N <= 0) return 0;
-  const int NP = (N + 3) & ~3;
-  for (int pb = 64; pb >= 16; pb /= 2)
-    if (pb <= (P + 15) / 16 * 16 && 4 * chunks_floats(pb, NP) <= SMEM_LIMIT &&
-        4 * states_floats(pb, NP) <= SMEM_LIMIT)
-      return pb;
-  return 0;
+  return 4 * bwd_floats(BWD_PB, (N + 7) & ~7) <= SMEM_LIMIT ? BWD_PB : 0;
 }
 
-// The backward's scratch, all float32, each part 256-byte aligned: hst
-// (BH, ceil(S / 64), P, N), the chunk-start states; dlp (BH, npb, S), dBp
-// and dCp (BH, npb, S, N), each block's partials, with npb = ceil(P /
-// PB).  Sets the pointers into ws (when not NULL); returns its bytes.
+// The backward's scratch, all float32, each part 256-byte aligned: dBp and
+// dCp (BH, npb, S, N), each block's part of dB and dC, when heads > 1 or
+// npb = ceil(P / PB) > 1; dlp (BH, npb, S), its part of dlogd, when npb >
+// 1.  Sets the pointers into ws (when not NULL); returns its bytes.
 struct BwdScratch {
-  float *hst, *dlp, *dBp, *dCp;
+  float *dlp, *dBp, *dCp;
 };
 
-size_t bwd_scratch(int BH, int S, int P, int N, int PB, char* ws,
+size_t bwd_scratch(int BH, int S, int P, int N, int heads, int PB, char* ws,
                    BwdScratch* out) {
-  const size_t npb = (P + PB - 1) / PB, nch = (S + TQB - 1) / TQB;
+  const size_t npb = (P + PB - 1) / PB;
   size_t off = 0;
   auto take = [&](size_t floats) {
     float* p = ws == nullptr ? nullptr : (float*)(ws + off);
     off += (4 * floats + 255) / 256 * 256;
     return p;
   };
-  out->hst = take((size_t)BH * nch * P * N);
-  out->dlp = take((size_t)BH * npb * S);
-  out->dBp = take((size_t)BH * npb * S * N);
-  out->dCp = take((size_t)BH * npb * S * N);
+  *out = BwdScratch{nullptr, nullptr, nullptr};
+  if (npb > 1) out->dlp = take((size_t)BH * npb * S);
+  if (npb > 1 || heads > 1) {
+    out->dBp = take((size_t)BH * npb * S * N);
+    out->dCp = take((size_t)BH * npb * S * N);
+  }
   return off;
+}
+
+template <int NT, int NN, bool FULL>
+int bwd_launch(const dim3& grid, size_t smem, cudaStream_t s,
+               const float* x, const float* l, const float* b,
+               const float* c, const float* dy, const float* dhf,
+               const float* hst, float* dx, float* dlo, float* dBo,
+               float* dCo, int S, int P, int N, int heads, int vec) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssd_bwd_kernel<NT, NN, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_kernel<NT, NN, FULL><<<grid, BT, smem, s>>>(
+      x, l, b, c, dy, dhf, hst, dx, dlo, dBo, dCo, S, P, N, heads, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of ssd_bwd's workspace for these shapes; -1 when a P x N state
-// fits no block of the kernel (N above 148).
-extern "C" long long ssd_bwd_workspace(int BH, int S, int P, int N) {
+// Bytes of ssd_bwd's workspace for these shapes (0: none); -1 when a P x
+// N state fits no block of the kernel.
+extern "C" long long ssd_bwd_workspace(int BH, int S, int P, int N,
+                                       int heads) {
   const int PB = bwd_pblock(P, N);
   if (!PB) return -1;
   BwdScratch sc;
-  return (long long)bwd_scratch(BH, S, P, N, PB, nullptr, &sc);
+  return (long long)bwd_scratch(BH, S, P, N, heads, PB, nullptr, &sc);
 }
 
-// The gradient of ssd_fwd.  Inputs as ssd_fwd's, dy (BH, S, P) and
-// dh_final (BH, P, N) or NULL (zero).  Outputs dxdt (BH, S, P), dlogd
-// (BH, S), dB and dC (BH / heads, S, N).  ws: ssd_bwd_workspace(BH, S,
-// P, N) bytes on the card, every byte written before it is read.  Three
-// kernels on `stream`.
+// The gradient of ssd_fwd.  Inputs as ssd_fwd's, dy (BH, S, P), dh_final
+// (BH, P, N) or NULL (zero), and hst (BH, ceil(S / 64), P, N), the states
+// at the 64-token tile starts that ssd_fwd writes.  Outputs dxdt (BH, S,
+// P), dlogd (BH, S), dB and dC (BH / heads, S, N).  ws:
+// ssd_bwd_workspace(BH, S, P, N, heads) bytes on the card, every byte
+// written before it is read.  One kernel on `stream`, two when heads > 1
+// or P > 64.
 extern "C" int ssd_bwd(const void* xdt, const void* logd, const void* B,
                        const void* C, const void* dy, const void* dh_final,
-                       void* dxdt, void* dlogd, void* dB, void* dC, void* ws,
-                       int BH, int S, int P, int N, int heads, void* stream) {
+                       const void* hst, void* dxdt, void* dlogd, void* dB,
+                       void* dC, void* ws, int BH, int S, int P, int N,
+                       int heads, void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaGetLastError();
-  if (P <= 0 || N <= 0 || heads <= 0 || BH % heads)
+  if (P <= 0 || N <= 0 || heads <= 0 || BH % heads || hst == nullptr)
     return (int)cudaErrorInvalidValue;
   const int PB = bwd_pblock(P, N);
   if (!PB) return (int)cudaErrorInvalidValue;
-  const int NP = (N + 3) & ~3, npb = (P + PB - 1) / PB;
+  const int npb = (P + PB - 1) / PB, N8 = (N + 7) & ~7;
   BwdScratch sc;
-  bwd_scratch(BH, S, P, N, PB, (char*)ws, &sc);
-  const size_t sm1 = 4 * states_floats(PB, NP), sm2 = 4 * chunks_floats(PB, NP);
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_bwd_states, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ssd_bwd_chunks,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm2);
-  if (e != cudaSuccess) return (int)e;
+  bwd_scratch(BH, S, P, N, heads, PB, (char*)ws, &sc);
+  float* dlo = sc.dlp ? sc.dlp : (float*)dlogd;
+  float* dBo = sc.dBp ? sc.dBp : (float*)dB;
+  float* dCo = sc.dCp ? sc.dCp : (float*)dC;
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = P % 4 == 0 && N % 4 == 0 && al(xdt) && al(dy) && al(B) &&
+                  al(C) && al(hst);
+  const size_t smem = 4 * (size_t)bwd_floats(PB, N8);
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(BH, npb);
-  ssd_bwd_states<<<grid, BT, sm1, s>>>((const float*)xdt, (const float*)logd,
-                                       (const float*)B, sc.hst, S, P, N,
-                                       heads, PB);
-  ssd_bwd_chunks<<<grid, BT, sm2, s>>>(
-      (const float*)xdt, (const float*)logd, (const float*)B,
-      (const float*)C, (const float*)dy, (const float*)dh_final, sc.hst,
-      (float*)dxdt, sc.dlp, sc.dBp, sc.dCp, S, P, N, heads, PB);
-  const long long total = 2LL * (BH / heads) * S * N + (long long)BH * S;
+  const float *x = (const float*)xdt, *l = (const float*)logd,
+              *b = (const float*)B, *c = (const float*)C,
+              *g = (const float*)dy, *hf = (const float*)dh_final,
+              *h = (const float*)hst;
+  float* dx = (float*)dxdt;
+#define SSD_BWD(NN, FULL)                                                  \
+  bwd_launch<BWD_PB / 16, NN, FULL>(grid, smem, s, x, l, b, c, g, hf, h,   \
+                                    dx, dlo, dBo, dCo, S, P, N, heads, vec)
+  // N8 of 8, 16 or 32 at compile time; any other in groups of 32
+  const int err = N8 == 8    ? SSD_BWD(1, true)
+                  : N8 == 16 ? SSD_BWD(2, true)
+                  : N8 == 32 ? SSD_BWD(4, true)
+                             : SSD_BWD(4, false);
+#undef SSD_BWD
+  if (err || (npb == 1 && heads == 1)) return err;
+  const long long total = 2LL * (BH / heads) * S * N +
+                          (npb > 1 ? (long long)BH * S : 0);
   const long long want = (total + 255) / 256;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   ssd_bwd_reduce<<<blocks, 256, 0, s>>>(sc.dlp, sc.dBp, sc.dCp,

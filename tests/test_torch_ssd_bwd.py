@@ -6,15 +6,22 @@
   against ``jax.vjp`` of ``repro.kernels.mamba2_ssd.ref.ssd_ref`` in
   float32: each gradient within 1e-5 of its largest magnitude (the same
   recurrence; the sums run in another order).
-- The kernel cannot run here, so a float64 numpy model of its chunked
-  algorithm (:func:`kernel_model`: 64-token chunks, the states recomputed
-  at chunk starts, the reverse carry of the gradient G, the decays as
-  running sums, ``dlogd`` by the nested sums of the pair term, dB and dC
-  summed over heads and state-row blocks in the kernel's order) is held
-  against ``jax.vjp`` in float64 at 1e-10.  The JAX package's ``ssd_ref``
-  starts its scan from a float32 state, so it cannot be traced in
-  float64; :func:`ssd_ref64` is its recurrence with the state in the
-  inputs' dtype, held equal to it in float32.
+- The kernel cannot run here, so a model of its chunked algorithm
+  (:func:`kernel_model`: 64-token chunks, the states at chunk starts from
+  the forward's recurrence, the reverse carry of the gradient G, the
+  decays from sums that start at each key's 8-token tile, ``dlogd``'s
+  pair term as nested sums of W (each row j's suffix over the keys k >=
+  i, then each column's sum over the rows j < i, 16-row tiles in order),
+  dB and dC summed over heads and state-row blocks in the kernel's order)
+  is held against ``jax.vjp`` in float64 at 1e-10, and, with every
+  product in float32 as the kernel's 3xTF32 (:func:`_mm_tf32`), at
+  TOL_SSD_BWD under strong decay.  The JAX package's ``ssd_ref`` starts
+  its scan from a float32 state, so it cannot be traced in float64;
+  :func:`ssd_ref64` is its recurrence with the state in the inputs'
+  dtype, held equal to it in float32.
+- The plain forward's chunk-start states (``ref.ssd_ref(...,
+  states=True)``, which the backward kernel reads from the forward
+  kernel) against the JAX recurrence's state after each 64-token prefix.
 """
 import re
 from pathlib import Path
@@ -26,11 +33,15 @@ import pytest
 import torch
 
 from repro.kernels.mamba2_ssd.ref import ssd_ref as jssd_ref
-from repro_torch.kernels.mamba2_ssd import ops
+from repro_torch.kernels.mamba2_ssd import ops, ref
 from repro_torch.obs.trace import kernel_launch_counts
 
 TQB = 64          # the backward kernel's chunk (csrc/ssd.cu)
 SSD_CU = Path(ops.__file__).resolve().parents[2] / "csrc" / "ssd.cu"
+# max |model - float64 autograd| / max |autograd| of each gradient for
+# the kernel's float32 arithmetic (chip_smoke.py holds the kernel to it)
+TOL_SSD_BWD = 1e-4
+LOG2E = 1.4426950408889634
 
 
 def ssd_ref64(xdt, logd, Bv, Cv):
@@ -131,87 +142,154 @@ def test_ssd_function_routes_by_grad_mode():
 
 
 # ---------------------------------------------------------------------------
-# the kernel's chunked algorithm, in float64
+# the kernel's chunked algorithm
 # ---------------------------------------------------------------------------
-def kernel_model(dy, dhf, xdt, logd, B, C, heads, pb=64):
-    """``ssd_bwd``'s three passes in float64 numpy: ``pb`` state rows a
-    block, chunks of TQB tokens (the last one zero-padded)."""
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to the nearest
+    value with 10 mantissa bits, ties away from zero, by bit operations on
+    the float32 words."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b as the tensor cores compute it from TF32 operands, float32
+    sums: with ``split`` the 3xTF32 form big.big + big.small + small.big
+    of the backward in ``csrc/ssd.cu`` (big = tf32(v) by integer rounding;
+    small = v - big, whose low 13 bits the tensor cores do not read), else
+    one TF32 product."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    trunc = lambda v: (v.contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+    return trunc(a - ab) @ bb + ab @ trunc(b - bb) + ab @ bb
+
+
+def kernel_model(dy, dhf, xdt, logd, B, C, heads, pb=64, tf32=False):
+    """``ssd_bwd``'s algorithm: ``pb`` state rows a block, chunks of TQB
+    tokens (the last one zero-padded), the states at chunk starts from the
+    forward's recurrence.  In float64 numpy, or, with ``tf32``, in float32
+    torch with every product as the kernel's 3xTF32."""
     BH, S, P = xdt.shape
     N = B.shape[-1]
     nch, npb = -(-S // TQB), -(-P // pb)
+    if tf32:
+        T = lambda a: None if a is None else torch.tensor(a,
+                                                          dtype=torch.float32)
+        dy, dhf, xdt, logd, B, C = map(T, (dy, dhf, xdt, logd, B, C))
+        lib, mm = torch, (lambda a, b: _mm_tf32(a, b, True))
+        exp2 = torch.exp2
+        cumsum = lambda a, axis=0: torch.cumsum(a, axis)
+        flip = lambda a: torch.flip(a, [0])
+        zeros = lambda *shape: torch.zeros(shape)
+    else:
+        lib, mm, exp2 = np, np.matmul, np.exp2
+        cumsum = lambda a, axis=0: np.cumsum(a, axis)
+        flip = lambda a: a[::-1]
+        zeros = lambda *shape: np.zeros(shape)
     pad = nch * TQB - S
-    tok = lambda a: np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+    tok = lambda a: lib.concatenate(
+        [a, zeros(*((a.shape[0], pad) + tuple(a.shape[2:])))], 1) \
+        if tf32 else np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
     x, g, ld, Bp, Cp = map(tok, (xdt, dy, logd, B, C))
+    # the states before each chunk, from the forward's recurrence
+    hst = zeros(BH, nch, P, N)
+    for bh in range(BH):
+        h = zeros(P, N)
+        for t in range(nch * TQB):
+            if t % TQB == 0:
+                hst[bh, t // TQB] = h
+            h = h * lib.exp(ld[bh, t]) + x[bh, t, :, None] * Bp[
+                bh // heads, t, None, :]
     sl = lambda c: slice(c * TQB, (c + 1) * TQB)
+    r = np.arange(TQB)
 
     def decays(l):
-        """L (column j: running sums from key j + 1), din (prefix), e
-        (suffix), dl."""
-        L = np.zeros((TQB, TQB))
-        for j in range(TQB):
-            L[j, j] = 1.0
-            L[j + 1:, j] = np.exp(np.cumsum(l[j + 1:]))
-        din = np.exp(np.cumsum(l))
-        suf = np.cumsum(l[::-1])[::-1]
-        e = np.exp(np.append(suf[1:], 0.0))
-        return L, din, e, np.exp(suf[0])
+        """L (exponents from the first row of j's 8-key tile, log2
+        units), din (prefix), e (suffix), dl."""
+        R = lib.stack([cumsum(l * lib.as_tensor(r >= 8 * kt) if tf32
+                              else l * (r >= 8 * kt)) for kt in range(8)],
+                      1) * LOG2E
+        ex = R[:, r // 8] - R[r, r // 8][None, :]          # (i, j)
+        tri = np.tril(np.ones((TQB, TQB), dtype=bool))
+        L = lib.where(lib.as_tensor(tri) if tf32 else tri, exp2(ex),
+                      0.0 * ex)
+        din = exp2(R[:, 0])
+        suf = flip(cumsum(flip(l)))
+        e = exp2(lib.concatenate([suf[1:], zeros(1)]) * LOG2E)
+        return L, din, e, exp2(R[-1, 0])
 
-    dx = np.zeros_like(x)
-    dlp = np.zeros((BH, npb) + ld.shape[1:])
-    dBp = np.zeros((BH, npb) + Bp.shape[1:])
-    dCp = np.zeros_like(dBp)
+    dx = zeros(*x.shape)
+    dlp = zeros(BH, npb, nch * TQB)
+    dBp = zeros(BH, npb, *Bp.shape[1:])
+    dCp = zeros(BH, npb, *Bp.shape[1:])
     for bh in range(BH):
         bc = bh // heads
         dec = [decays(ld[bh, sl(c)]) for c in range(nch)]
         for q in range(npb):
             ps = slice(q * pb, min(P, (q + 1) * pb))
-            # pass 1: the state at each chunk's start
-            h0, h = [], np.zeros((ps.stop - ps.start, N))
-            for c in range(nch):
-                h0.append(h)
-                _, _, e, dl = dec[c]
-                h = dl * h + x[bh, sl(c), ps].T @ (e[:, None] * Bp[bc, sl(c)])
-            # pass 2: the chunks backward, carrying G
-            G = (np.zeros_like(h) if dhf is None else dhf[bh, ps])
+            G = (zeros(ps.stop - ps.start, N) if dhf is None
+                 else dhf[bh, ps] + 0.0)
             for c in reversed(range(nch)):
                 X, dY = x[bh, sl(c), ps], g[bh, sl(c), ps]
-                Bc, Cc, H0 = Bp[bc, sl(c)], Cp[bc, sl(c)], h0[c]
+                Bc, Cc, H0 = Bp[bc, sl(c)], Cp[bc, sl(c)], hst[bh, c, ps]
                 L, din, e, dl = dec[c]
-                CB = Cc @ Bc.T
-                Z = (dY @ X.T) * L
-                W = np.tril(Z * CB, -1)
-                dx[bh, sl(c), ps] = (CB * L).T @ dY + e[:, None] * (Bc @ G.T)
-                T1, T2 = dY @ H0, X @ G
-                dCp[bh, q, sl(c)] = din[:, None] * T1 + Z @ Bc
-                dBp[bh, q, sl(c)] = Z.T @ Cc + e[:, None] * T2
+                CB = mm(Cc, Bc.T)
+                Z = mm(dY, X.T) * L
+                dx[bh, sl(c), ps] = mm((CB * L).T, dY) + e[:, None] * mm(
+                    Bc, G.T)
+                T1, T2 = mm(dY, H0), mm(X, G)
+                dCp[bh, q, sl(c)] = din[:, None] * T1 + mm(Z, Bc)
+                dBp[bh, q, sl(c)] = mm(Z.T, Cc) + e[:, None] * T2
                 u = din * (Cc * T1).sum(1)
                 v = e * (Bc * T2).sum(1)
                 w = dl * (G * H0).sum()
-                pw = np.cumsum(W, axis=1) - W        # exclusive row prefix
-                pair = np.array([pw[i:, i].sum() for i in range(TQB)])
-                usuf = np.cumsum(u[::-1])[::-1]
-                vpre = np.cumsum(v) - v
+                # pair_i = sum_{j < i} sum_{k >= i} W[k][j]: row j's
+                # suffix over the keys, then column i's sum over the rows
+                # j < i of each 16-row tile, the tiles in order
+                W = (Z * CB).T                             # (j, k)
+                suf = flip(cumsum(flip(W.T))).T            # (j, i)
+                below = np.triu(np.ones((TQB, TQB), dtype=bool), 1)
+                suf = suf * (lib.as_tensor(below) if tf32 else below)
+                pair = sum(suf[16 * t:16 * t + 16].sum(0) for t in range(4))
+                usuf = flip(cumsum(flip(u)))
+                vpre = lib.concatenate([zeros(1), cumsum(v)[:-1]])
                 dlp[bh, q, sl(c)] = pair + usuf + vpre + w
-                G = dl * G + dY.T @ (din[:, None] * Cc)
-    # pass 3: over the p blocks, and the heads (head-major, then blocks)
-    fold = lambda a: a.reshape((BH // heads, heads * npb) + a.shape[2:]
-                               ).sum(1)
-    return (dx[:, :S], dlp.sum(1)[:, :S], fold(dBp)[:, :S],
-            fold(dCp)[:, :S])
+                G = dl * G + mm(dY.T, din[:, None] * Cc)
+    # over the p blocks, and the heads (head-major, then blocks)
+    fold = lambda a: a.reshape((BH // heads, heads * npb) + tuple(
+        a.shape[2:])).sum(1)
+    out = (dx[:, :S], dlp.sum(1)[:, :S], fold(dBp)[:, :S], fold(dCp)[:, :S])
+    return tuple(o.numpy() for o in out) if tf32 else out
+
+
+def _c_params(src, sig):
+    """The parameter count of the C entry point that starts with ``sig``."""
+    head = src[src.index(sig):]
+    return head[:head.index(")")].count(",") + 1
 
 
 def test_model_constants_match_the_kernel():
+    """The model's chunk and state-row blocks are the kernel's, and the
+    wrappers' ctypes signatures match the C entry points."""
     src = SSD_CU.read_text()
     assert re.search(r"constexpr int TQB = (\d+);", src).group(1) == str(TQB)
-    assert 'extern "C" int ssd_bwd(' in src
-    assert 'extern "C" long long ssd_bwd_workspace(' in src
+    assert re.search(r"constexpr int TQ = (\d+);", src).group(1) == str(TQB)
+    assert ref.STATE_TILE == TQB
+    assert re.search(r"constexpr int BWD_PB = (\d+);", src).group(1) == "64"
+    assert _c_params(src, 'extern "C" int ssd_fwd(') == len(ops._ARGS)
+    assert _c_params(src, 'extern "C" int ssd_bwd(') == len(ops._BWD_ARGS)
+    assert _c_params(src, 'extern "C" long long ssd_bwd_workspace(') == \
+        len(ops._BWD_WS_ARGS)
+    assert "ssd_bwd_states" not in src
 
 
 @pytest.mark.parametrize("BH,S,P,N,heads,decay,with_hf,pb", [
     (2, 64, 16, 8, 1, "moderate", False, 64),     # one full chunk
     (3, 150, 32, 16, 3, "weak", True, 64),        # ragged, three chunks
     (6, 200, 16, 8, 3, "strong", True, 64),
-    (2, 130, 40, 5, 1, "moderate", True, 16),     # three p blocks, ragged
+    (2, 130, 80, 5, 1, "moderate", True, 64),     # two p blocks, ragged
     (4, 90, 64, 32, 2, "weak", False, 64),
 ])
 def test_kernel_model_matches_jax_vjp_float64(BH, S, P, N, heads, decay,
@@ -223,6 +301,69 @@ def test_kernel_model_matches_jax_vjp_float64(BH, S, P, N, heads, decay,
         want = jax_vjp(*args, heads, ssd_ref64)
     assert want[0].dtype == np.float64
     _close(got, want, 1e-10)
+
+
+@pytest.mark.parametrize("BH,S,P,N,heads,with_hf,pb", [
+    (2, 150, 64, 16, 2, True, 64),       # Hymba's widths, ragged
+    (3, 100, 32, 8, 3, False, 64),
+    (2, 90, 80, 5, 1, True, 64),         # two p blocks, N not a multiple of 8
+])
+def test_kernel_model_3xtf32_matches_jax_vjp_strong_decay(BH, S, P, N, heads,
+                                                          with_hf, pb):
+    """The kernel's float32 arithmetic (3xTF32 products, the decays from
+    tile-local sums, dlogd's nested sums) under strong decay, where dlogd
+    cancels, against float64 autograd of the JAX recurrence."""
+    rng = np.random.default_rng(S + 7 * P)
+    args = _inputs(rng, BH, S, P, N, heads, "strong", np.float64, with_hf)
+    got = kernel_model(*[None if a is None else a.astype(np.float32)
+                         for a in args], heads, pb=pb, tf32=True)
+    with jax.enable_x64(True):
+        want = jax_vjp(*[None if a is None else a.astype(np.float32)
+                         .astype(np.float64) for a in args], heads,
+                       ssd_ref64)
+    assert all(g.dtype == np.float32 for g in got)
+    _close(got, want, TOL_SSD_BWD)
+
+
+@pytest.mark.parametrize("S,heads", [(37, 1), (64, 2), (200, 3)])
+def test_chunk_start_states_match_jax_prefixes(S, heads):
+    """``ssd_ref(..., states=True)``: the state before each 64-token tile
+    equals the JAX recurrence's final state on that prefix (float32)."""
+    rng = np.random.default_rng(S)
+    _, _, xdt, logd, Bv, Cv = _inputs(rng, 2 * heads, S, 8, 4, heads,
+                                      "moderate", np.float32)
+    t = [torch.tensor(a) for a in (xdt, logd, Bv, Cv)]
+    y, hfin, hst = ref.ssd_ref(*t, heads=heads, states=True)
+    assert hst.shape == (2 * heads, -(-S // TQB), 8, 4)
+    assert hst.dtype == torch.float32
+    rep = lambda a: np.repeat(a, heads, axis=0)
+    for c in range(hst.shape[1]):
+        if c == 0:
+            want = np.zeros((2 * heads, 8, 4), np.float32)
+        else:
+            n = c * TQB
+            _, want = jssd_ref(*map(jnp.asarray, (
+                xdt[:, :n], logd[:, :n], rep(Bv)[:, :n], rep(Cv)[:, :n])))
+        np.testing.assert_allclose(hst[:, c].numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+    y2, h2 = ref.ssd_ref(*t, heads=heads)
+    assert torch.equal(y, y2) and torch.equal(hfin, h2)
+
+
+def test_ssd_backward_takes_the_forwards_states():
+    """The autograd Function hands the backward the states its forward
+    saved; a direct ``ssd_backward`` call may pass them too (the CPU path
+    differentiates the plain version either way)."""
+    rng = np.random.default_rng(4)
+    dy, _, xdt, logd, Bv, Cv = _inputs(rng, 2, 70, 8, 4, 1, "moderate",
+                                       np.float32, False)
+    dy, xdt, logd, Bv, Cv = map(torch.tensor, (dy, xdt, logd, Bv, Cv))
+    y, h, hst = ops._forward(xdt, logd, Bv, Cv, 128, 1, states=True)
+    assert hst.shape == (2, 2, 8, 4)
+    a = ops.ssd_backward(dy, None, xdt, logd, Bv, Cv, states=hst)
+    b = ops.ssd_backward(dy, None, xdt, logd, Bv, Cv)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 def test_ssd_ref64_is_the_package_recurrence():
