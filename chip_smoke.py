@@ -121,7 +121,9 @@ Phases, in order; any failed check exits non-zero:
    plus 2 new ones through ``ServeEngine.generate`` while the first call
    of each LM kernel wrapper is recorded; both flash-attention
    configurations are first held against their plain version on a sweep
-   of small shapes (f32 and bf16, every head dim, ragged lengths, causal,
+   of small shapes (f32 and bf16, every (q/k, v) head dim pair: 16, 32,
+   64, 80, 128 and MLA's (96, 64), the decode configuration at the four
+   it takes, ragged lengths, causal,
    windowed and bidirectional masks, regular and padded head maps, rings
    with empty slots, fully masked rows); rmsnorm first on a sweep
    (1 to 16,384 rows, widths 1,600 to 12,288, bf16 and f32, with and
@@ -164,7 +166,8 @@ Phases, in order; any failed check exits non-zero:
    through their plain versions run in float32 on the card: rmsnorm's on
    a sweep (1 to 16,384 rows, widths 1,024 to 12,288, bf16 and f32, with
    and without the residual), flash's on a sweep of small prefill shapes
-   (every head dim, masks, the padded head map, rows that see no key) and
+   (every head dim pair, masks, the padded head map, rows that see no
+   key) and
    at three training shapes (Granite-MoE's 8 x 2,048 x 16 over 8 heads,
    Hymba's prefill with its window and padded heads, D = 128), each in
    bf16 and in f32 at batch 1; both timed at the train path's shapes
@@ -200,6 +203,28 @@ Phases, in order; any failed check exits non-zero:
    ``train_path_hymba`` JSON line; the kernels line gains the SSD
    backward's row.
 
+14. MLA and the modality frontends (run after phase 13), each model at
+   full width and depth in bf16 with random weights, freed before the
+   next: first the flash kernels at the new shapes (MiniCPM3's expanded
+   MLA, 8 x 2,048 x 48 heads at q/k 96 and v 64, causal; HuBERT's
+   encoder, 16 x 1,024 x 16 heads of 80, bidirectional; each forward
+   and backward held to its plain version, timed by CUDA events and by
+   torch.profiler beside the plain version, SDPA and the bound).  Then
+   MiniCPM3-4B: 2 layers f32 card against CPU (a prompt and decode
+   steps, the logits within ``TOL_SERVE``; ``loss_fn`` and every
+   parameter's gradient, the backward kernel at (96, 64)), then a bf16
+   ``generate`` of 8 x 2,048 + 64 tokens (prefill through the kernel
+   once a layer; decode in MLA's absorbed form, no attention kernel).
+   InternVL2-26B: 2 layers f32 card against CPU with its 256 patch
+   embeddings before the prompt, then ``prefill`` on 8 x (256 patches +
+   1,792 tokens) and 64 ``decode_step`` calls.  HuBERT-XLarge: the
+   encoder on 16 x 1,024 frames, ``loss_fn``'s gradients card against
+   CPU (2 layers f32), then training at 16 x 1,024 frames a step as
+   phase 13 trains (the loss must fall; the revert bit-equal).  Each
+   generate and the encode run once untimed, then PHASE14_RUNS (2)
+   times.  It prints an ``mla_frontends`` JSON line; the flash rows gain
+   ``new_shapes``.
+
 Before phase 2 it times the least kernel, a one-element ``fill_``, by
 torch.profiler (the launch floor).
 
@@ -228,7 +253,8 @@ counts of RMS_AB_ROWS (D = 1,600) by CUDA events; both backward
 kernels (flash attention's and rmsnorm's) at the train path's shapes,
 and the SSD backward at Hymba's training shape (as a training step
 calls it, and with the states computed inside), by CUDA events and by
-torch.profiler.  It prints the card's name and
+torch.profiler; and the bf16 flash prefill at every head dim pair by
+CUDA events.  It prints the card's name and
 power limit, then one ``AB {...}`` JSON line a process.
 
 ``python3 chip_smoke.py --lanes N`` runs phase 8's TPC-C service run
@@ -241,9 +267,8 @@ JSON line of kernels (with each STAR kernel's launches in every service
 run, by the read path's lanes and on the cluster path), one of main-path
 figures, one of service-path figures, one of read-path figures, one of
 cluster-path figures, one of serve-path figures, one of the phase-12
-configs, one of train-path figures, one of Hymba's train path and, last,
-the
-``{"ok": true, "device": ...}`` line.  It needs one CUDA
+configs, one of train-path figures, one of Hymba's train path, one of
+phase 14's and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
 """
@@ -349,6 +374,28 @@ HYMBA_WARM, HYMBA_TIMED = 2, 8
 # itself drifts past 1e-4, as for TOL_SSD_SWEEP)
 TOL_SSD_BWD = 1e-4
 SSD_BWD_P, SSD_BWD_N, SSD_BWD_HEADS = (16, 32, 64), (8, 16, 32), (1, 3, 50)
+# phase 14: MLA and the modality frontends, full width and depth, bf16
+MLA_ARCH, AUDIO_ARCH, VISION_ARCH = ("minicpm3-4b", "hubert-xlarge",
+                                     "internvl2-26b")
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 64
+# MiniCPM3's bf16 training step that counts the (96, 64) backward's
+# launches: full width, depth cut (its 62 layers and AdamW's state would
+# not leave the rest of phase 14 its time)
+MLA_TRAIN_LAYERS = 2
+VISION_BATCH, VISION_TEXT, VISION_GEN = 8, 1792, 64   # after 256 patches
+AUDIO_BATCH, AUDIO_FRAMES = 16, 1024   # ~20 s of audio a row at 50 a second
+AUDIO_WARM, AUDIO_TIMED = HYMBA_WARM, HYMBA_TIMED
+# timed generates (encodes) a config, after an untimed one: 2, not
+# CONFIG_RUNS, to keep the whole script under 1,100 s on a slow host
+PHASE14_RUNS = 2
+# card against CPU, 2 layers f32 at full width: MiniCPM3's prompt, the
+# text after InternVL2's patches, and loss_fn's batch
+MLA_PARITY_PROMPT, VISION_PARITY_TEXT = 512, 256
+GRAD_PARITY_BATCH, GRAD_PARITY_SEQ = 2, 128
+# on max |card - CPU| / max |CPU| of each parameter's gradient: float32
+# on both sides, sums in another order (tests/test_torch_train.py holds
+# the port to the JAX package's gradients at the same bound)
+TOL_GRAD_PARITY = 1e-4
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -2526,7 +2573,9 @@ def record_generate(eng, prompts, n):
 def flash_sweep(fa_ops, attention_ref, dev):
     """Both flash-attention configurations against their plain version on
     small shapes that reach every branch of the kernel: f32 (1e-5: both
-    sum in f32, in another order) and bf16 (2e-2), every head dim, lengths
+    sum in f32, in another order) and bf16 (2e-2), every (q/k, v) head
+    dim pair (decode only at the pairs it takes: one head dim, a power of
+    two), lengths
     that are not multiples of the 64-row tiles, causal, windowed and
     bidirectional masks, a regular GQA map and Hymba's padded one (32
     query heads over 7 kv heads), more query heads on one kv head than a
@@ -2560,18 +2609,21 @@ def flash_sweep(fa_ops, attention_ref, dev):
     worst = {}
     for dtype, tol in ((torch.float32, TOL_F32_FLASH),
                        (torch.bfloat16, TOL_BF16_FLASH)):
-        for D in fa_ops.HEAD_DIMS:
+        for D, DV in fa_ops.HEAD_DIM_PAIRS:
             for B, H, Hkv, kvh, qp, kp, causal, window in cases:
                 Sq, Sk = qp.shape[0], kp.shape[0]
-                q, k, v = (torch.randn((B, S, n, D), generator=gen).to(
-                    dev, dtype) for S, n in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+                if Sq == 1 and (D != DV or D not in fa_ops.DECODE_HEAD_DIMS):
+                    continue
+                q, k, v = (torch.randn((B, S, n, d), generator=gen).to(
+                    dev, dtype) for S, n, d in ((Sq, H, D), (Sk, Hkv, D),
+                                                (Sk, Hkv, DV)))
                 args = (q, k, v, qp.to(dev), kp.to(dev))
                 kw = dict(causal=causal, window=window, kv_head=kvh)
                 got = fa_ops.attention(*args, **kw)
                 want = attention_ref(*args, **kw)
                 torch.cuda.synchronize()
                 err, ok = allclose_err(got, want, tol)
-                what = (f"flash sweep {dtype} D={D} B={B} H={H}/{Hkv} "
+                what = (f"flash sweep {dtype} D={D}/{DV} B={B} H={H}/{Hkv} "
                         f"Sq={Sq} Sk={Sk} causal={causal} window={window}")
                 check(ok, f"{what}: kernel differs from its plain version "
                       f"by {err} (tolerance {tol})")
@@ -3043,32 +3095,29 @@ def serve_path(dev):
 # ---------------------------------------------------------------------------
 # phase 12: more configs served (GLM-4-9B, StarCoder2-7B, DBRX-132B)
 # ---------------------------------------------------------------------------
-def config_parity(dev, name, prompt_len, n_decode):
+def config_parity(dev, name, prompt_len, n_decode, patches=0):
     """``name`` at full width, depth cut to PARITY_LAYERS, float32: one
-    prompt of ``prompt_len`` tokens and ``n_decode`` decode steps on the
+    prompt of ``prompt_len`` tokens (after ``patches`` image patch
+    embeddings, for a vision config) and ``n_decode`` decode steps on the
     card (kernels) and on the CPU (plain versions), the same weights
     (drawn on the card, copied to the CPU) and the same token fed to both
     at each step; every logit within TOL_SERVE.  Returns the largest
-    logit difference.  Phases 6 and 12."""
-    import dataclasses
+    logit difference.  Phases 6, 12 and 14."""
     import torch
-    from repro_torch.configs.base import get_arch
     from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_arch(name), n_layers=PARITY_LAYERS,
-                              dtype="float32")
-    card = tf.LM(cfg, seed=0, device=dev)
-    cpu = tf.LM(cfg, device="meta")
-    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
-                        assign=True)
-    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
-                           generator=torch.Generator().manual_seed(5),
-                           dtype=torch.int32)
-    alloc = prompt_len + n_decode
+    cfg, card, cpu = card_and_cpu(dev, name)
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                                     generator=g, dtype=torch.int32)}
+    if patches:
+        batch["patch_embeds"] = torch.randn(
+            (1, patches, cfg.frontend_dim), generator=g).to(torch.bfloat16)
+    alloc = patches + prompt_len + n_decode
     worst = 0.0
     with torch.inference_mode():
-        lc, cc = tf.prefill(cpu, {"tokens": prompt}, cfg, alloc_len=alloc)
-        lg, cg = tf.prefill(card, {"tokens": prompt.to(dev)}, cfg,
-                            alloc_len=alloc)
+        lc, cc = tf.prefill(cpu, batch, cfg, alloc_len=alloc)
+        lg, cg = tf.prefill(card, {k: v.to(dev) for k, v in batch.items()},
+                            cfg, alloc_len=alloc)
         for step in range(n_decode + 1):
             err, ok = allclose_err(lg.cpu(), lc, TOL_SERVE)
             worst = max(worst, err)
@@ -3085,12 +3134,60 @@ def config_parity(dev, name, prompt_len, n_decode):
     return worst
 
 
-def serve_config(dev, name, layers, batch, prompt_len, gen):
+class PatchServe:
+    """``generate(prompts, n)`` and ``stats`` as ``ServeEngine`` has them,
+    for a vision config, whose serving engine takes tokens only:
+    ``transformer.prefill`` on the fixed ``patch_embeds`` (B, P,
+    frontend_dim) before the prompts, then greedy ``decode_step`` calls.
+    :func:`timed_generate` times it as it times an engine."""
+
+    def __init__(self, cfg, model, patch_embeds, max_len):
+        from repro_torch.serve.engine import ServeStats
+        self.cfg, self.model, self.max_len = cfg, model, max_len
+        self.patch_embeds = patch_embeds
+        self.stats = ServeStats()
+
+    def generate(self, prompts, n_tokens):
+        import torch
+        from repro_torch.models import transformer as tf
+        B, S = prompts.shape
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, cache = tf.prefill(
+                self.model, {"tokens": prompts,
+                             "patch_embeds": self.patch_embeds},
+                self.cfg, alloc_len=self.max_len)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs = []
+            for _ in range(n_tokens):
+                outs.append(tok)
+                logits, cache = tf.decode_step(self.model, cache, tok,
+                                               self.cfg)
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+        check(cache["pos"] == self.patch_embeds.shape[1] + S + n_tokens,
+              f"{self.cfg.name}: the cache ends at {cache['pos']}")
+        st = self.stats
+        st.prefill_s += t1 - t0
+        st.prefill_tokens += B * (self.patch_embeds.shape[1] + S)
+        st.decode_s += time.perf_counter() - t1
+        st.decode_steps += n_tokens
+        st.decoded_tokens += B * n_tokens
+        return torch.cat(outs, dim=1)
+
+
+def serve_config(dev, name, layers, batch, prompt_len, gen, need=None,
+                 runs=CONFIG_RUNS, patches=0):
     """``ServeEngine.generate`` on ``name`` at full width (``layers`` of
     its depth, or all), bf16, random weights, through
-    :func:`timed_generate` (CONFIG_RUNS timed generates).  The
+    :func:`timed_generate` (``runs`` timed generates); with ``patches``,
+    a vision config's :class:`PatchServe` on that many random patch
+    embeddings a request before the ``prompt_len`` tokens.  The
     peak is this config's alone: the model before it was freed and the
-    peak reset before this one was built."""
+    peak reset before this one was built.  ``need``: the launches of each
+    kernel in the first timed generate (a GQA block's by default)."""
     import dataclasses
     import torch
     from repro_torch.configs.base import get_arch
@@ -3102,19 +3199,25 @@ def serve_config(dev, name, layers, batch, prompt_len, gen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, LM(cfg, seed=0, device=dev), device=dev,
-                      max_len=prompt_len + gen)
+    model = LM(cfg, seed=0, device=dev)
     gen_ = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen_, device=dev, dtype=torch.int32)
+    if patches:
+        pe = torch.randn((batch, patches, cfg.frontend_dim), generator=gen_,
+                         device=dev).to(torch.bfloat16)
+        eng = PatchServe(cfg, model, pe, patches + prompt_len + gen)
+    else:
+        eng = ServeEngine(cfg, model, device=dev, max_len=prompt_len + gen)
+    del model
     setup_s = time.perf_counter() - t0
-    counts, timed = timed_generate(eng, prompts, gen, CONFIG_RUNS, name)
-    peak = torch.cuda.max_memory_allocated()
-    peak_reserved = torch.cuda.max_memory_reserved()
-    total = torch.cuda.mem_get_info(dev)[1]
+    counts, timed = timed_generate(eng, prompts, gen, runs, name)
+    memory = memory_figures(dev, torch.cuda.max_memory_allocated())
     L = cfg.n_layers
-    need = {"flash_attention.prefill": L, "flash_attention.decode": L * gen,
-            "rmsnorm": (2 * L + 1) * (gen + 1)}
+    if need is None:
+        need = {"flash_attention.prefill": L,
+                "flash_attention.decode": L * gen,
+                "rmsnorm": (2 * L + 1) * (gen + 1)}
     for k, n in need.items():
         check(counts.get(k, 0) == n, f"{name}: {k} launched "
               f"{counts.get(k, 0)} times, expected {n}")
@@ -3122,12 +3225,10 @@ def serve_config(dev, name, layers, batch, prompt_len, gen):
         "arch": name, "source": full.source, "layers": L,
         "layers_of": full.n_layers, "d_model": cfg.d_model,
         "params": cfg.n_params(), "active_params": cfg.n_active_params(),
-        "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
-        "gen": gen, "window": cfg.sliding_window, "setup_s": setup_s,
-        **timed,
-        "peak_mem_gb": peak / 1e9, "peak_reserved_gb": peak_reserved / 1e9,
-        "card_gb": total / 1e9, "free_at_peak_gb": (total - peak_reserved)
-        / 1e9, "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
+        "dtype": cfg.dtype, "batch": batch, "patches": patches,
+        "prompt_len": prompt_len, "gen": gen, "window": cfg.sliding_window,
+        "setup_s": setup_s, **timed, **memory,
+        "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
     del eng, prompts
     gc.collect()
     torch.cuda.empty_cache()
@@ -3257,7 +3358,8 @@ def rmsnorm_bwd_sweep(dev):
 
 def flash_bwd_sweep(dev):
     """The flash backward kernel against autograd through the plain
-    version on small prefill shapes: f32 and bf16, every head dim, ragged
+    version on small prefill shapes: f32 and bf16, every (q/k, v) head dim
+    pair, ragged
     lengths, causal, windowed and bidirectional masks, a regular GQA map
     and Hymba's padded one, empty key slots, rows that see no key (their
     gradient reaches every v row, dO / Sk, and no q or k) and a head where
@@ -3281,13 +3383,14 @@ def flash_bwd_sweep(dev):
     worst = {}
     for dtype, tol in ((torch.float32, TOL_F32_BWD),
                        (torch.bfloat16, TOL_BF16_BWD)):
-        for D in fa.HEAD_DIMS:
+        for D, DV in fa.HEAD_DIM_PAIRS:
             for B, H, Hkv, kvh, qp, kp, causal, window in cases:
                 Sq, Sk = qp.shape[0], kp.shape[0]
-                q, do = (torch.randn((B, Sq, H, D), generator=gen,
-                                     device=dev).to(dtype) for _ in range(2))
-                k, v = (torch.randn((B, Sk, Hkv, D), generator=gen,
-                                    device=dev).to(dtype) for _ in range(2))
+                q, do, k, v = (torch.randn(shape, generator=gen,
+                                           device=dev).to(dtype)
+                               for shape in ((B, Sq, H, D), (B, Sq, H, DV),
+                                             (B, Sk, Hkv, D),
+                                             (B, Sk, Hkv, DV)))
                 qp, kp = qp.to(dev), kp.to(dev)
                 kw = dict(causal=causal, window=window, kv_head=kvh)
                 o, lse = fa._forward(q, k, v, qp, kp, causal, window, None,
@@ -3296,11 +3399,11 @@ def flash_bwd_sweep(dev):
                                             **kw)
                 same_bits(got, fa.attention_backward(do, q, k, v, o, lse, qp,
                                                      kp, **kw),
-                          f"flash backward sweep {dtype} D={D} Sq={Sq}")
+                          f"flash backward sweep {dtype} D={D}/{DV} Sq={Sq}")
                 want = flash_grad_plain(do, q, k, v, qp, kp, **kw)
                 torch.cuda.synchronize()
                 err = grad_err(got, want)
-                check(err <= tol, f"flash backward sweep {dtype} D={D} "
+                check(err <= tol, f"flash backward sweep {dtype} D={D}/{DV} "
                       f"B={B} H={H}/{Hkv} Sq={Sq} Sk={Sk} causal={causal} "
                       f"window={window}: kernel differs from its plain "
                       f"version by {err} (tolerance {tol})")
@@ -4146,6 +4249,428 @@ def hymba_train_phase(dev, rows):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: MLA (MiniCPM3-4B) and the frontends (InternVL2-26B, HuBERT-
+# XLarge), through the flash kernel at head dims (96, 64) and 80
+# ---------------------------------------------------------------------------
+def card_and_cpu(dev, name):
+    """``name`` at full width, depth cut to PARITY_LAYERS, float32, on the
+    card (weights drawn there) and on the CPU (the same weights)."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch(name), n_layers=PARITY_LAYERS,
+                              dtype="float32")
+    card = tf.LM(cfg, seed=0, device=dev)
+    cpu = tf.LM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                        assign=True)
+    return cfg, card, cpu
+
+
+def grad_parity(dev, name):
+    """``loss_fn`` and the gradient of every parameter on ``name`` at full
+    width, PARITY_LAYERS layers, float32 (remat as the config says), on
+    GRAD_PARITY_BATCH x GRAD_PARITY_SEQ of ``make_batch``'s train inputs:
+    card (the forward and backward kernels) against CPU (plain versions).
+    The loss within TOL_TRAIN_LOSS relative, each gradient within
+    TOL_GRAD_PARITY of its largest element.  Returns the figures and the
+    card run's launch counts."""
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import param_grads
+    from repro_torch.models import transformer as tf
+    cfg, card, cpu = card_and_cpu(dev, name)
+    batch = make_batch(cfg, "train", GRAD_PARITY_SEQ, GRAD_PARITY_BATCH,
+                       seed=7)
+    out = {}
+    for side, model, b in (("card", card, {k: v.to(dev) for k, v in
+                                           batch.items()}),
+                           ("cpu", cpu, batch)):
+        model.requires_grad_(True)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        loss, _ = tf.loss_fn(model, b, cfg)
+        grads = param_grads(loss, dict(model.named_parameters()), cfg)
+        torch.cuda.synchronize()
+        out[side] = (float(loss), {k: g.detach().cpu() for k, g in
+                                   grads.items()}, _build.launch_counts())
+    (lg, gg, counts), (lc, gc_, _) = out["card"], out["cpu"]
+    rel = abs(lg - lc) / max(abs(lc), 1e-12)
+    check(rel <= TOL_TRAIN_LOSS, f"{name} grad parity: loss card {lg} vs "
+          f"CPU {lc} (relative {rel}, tolerance {TOL_TRAIN_LOSS})")
+    check(set(gg) == set(gc_), f"{name} grad parity: parameters differ")
+    worst, leaf = 0.0, None
+    for k in gc_:
+        e = grad_err(gg[k], gc_[k])
+        if e >= worst:
+            worst, leaf = e, k
+    check(worst <= TOL_GRAD_PARITY, f"{name} grad parity: {leaf}'s gradient "
+          f"differs by {worst} of its largest element (tolerance "
+          f"{TOL_GRAD_PARITY})")
+    L = PARITY_LAYERS
+    for k, n in (("flash_attention.prefill", 2 * L if cfg.remat else L),
+                 ("flash_attention.backward", L)):
+        check(counts.get(k, 0) == n, f"{name} grad parity: {k} launched "
+              f"{counts.get(k, 0)} times on the card, expected {n}")
+    del card, cpu, out, gg, gc_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": L, "batch": GRAD_PARITY_BATCH, "seq": GRAD_PARITY_SEQ,
+            "loss_card": lg, "loss_cpu": lc, "loss_rel_err": rel,
+            "grad_max_rel_err": worst, "grad_worst_leaf": leaf,
+            "grad_tolerance": TOL_GRAD_PARITY,
+            "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
+
+
+def mla_train_step(dev):
+    """MiniCPM3-4B's ``Trainer`` at full width, MLA_TRAIN_LAYERS layers,
+    bf16, MLA_BATCH x MLA_PROMPT tokens a step: one untimed step, then one
+    from zeroed launch counts, whose loss must be finite and whose flash
+    launches must be one (96, 64) backward and the forward (twice under
+    remat) a layer.  Returns its step ms and launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_arch(MLA_ARCH), n_layers=MLA_TRAIN_LAYERS)
+    tr = Trainer(cfg, TrainerConfig(seq_len=MLA_PROMPT, batch=MLA_BATCH),
+                 device=dev)
+    tr.run(1)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    tr.run(1)
+    counts = _build.launch_counts()
+    m = tr.metrics_history[-1]
+    L = cfg.n_layers
+    check(m["loss"] == m["loss"] and abs(m["loss"]) != float("inf"),
+          f"{MLA_ARCH} train: loss {m['loss']}")
+    for k, n in (("flash_attention.prefill", 2 * L if cfg.remat else L),
+                 ("flash_attention.backward", L)):
+        check(counts.get(k, 0) == n, f"{MLA_ARCH} train: {k} launched "
+              f"{counts.get(k, 0)} times, expected {n}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": L, "batch": MLA_BATCH, "seq": MLA_PROMPT,
+            "dtype": cfg.dtype, "loss": m["loss"], "step_ms":
+            m["step_s"] * 1e3,
+            "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
+
+
+def mla_latent_copy_ms(dev, decode_ms):
+    """The float32 copies of the latent cache that ``mla_decode`` makes in
+    every layer at every step (``c_kv.float()``, ``k_rope.float()``), at
+    the serving shape (MLA_BATCH x (MLA_PROMPT + MLA_GEN) slots), timed
+    alone by CUDA events; times the layers, and its share of the measured
+    ``decode_ms`` a step."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(MLA_ARCH)
+    S = MLA_PROMPT + MLA_GEN
+    c_kv, k_rope = (torch.randn((MLA_BATCH, S, w), device=dev).to(
+        torch.bfloat16) for w in (cfg.kv_lora_rank, cfg.qk_rope_head_dim))
+    ms = cuda_ms(lambda: (c_kv.float(), k_rope.float()))
+    del c_kv, k_rope
+    return {"layer_ms": ms, "step_ms": ms * cfg.n_layers,
+            "share_of_decode_step": ms * cfg.n_layers / decode_ms}
+
+
+def memory_figures(dev, peak):
+    """The peak allocated and reserved since the last reset, the card's
+    memory and what was free at the reserved peak (GB)."""
+    import torch
+    total = torch.cuda.mem_get_info(dev)[1]
+    reserved = torch.cuda.max_memory_reserved()
+    return {"peak_mem_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9,
+            "card_gb": total / 1e9, "free_at_peak_gb": (total - reserved)
+            / 1e9}
+
+
+def encode_audio(dev):
+    """HuBERT-XLarge's encoder at full width and depth, bf16, random
+    weights: ``transformer.forward`` on AUDIO_BATCH x AUDIO_FRAMES frames
+    under inference_mode, one untimed, then PHASE14_RUNS timed, the
+    launches of the first counted from 0; the logits finite, of the
+    padded vocabulary, the pad columns masked.  Returns the figures."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tf
+    cfg = get_arch(AUDIO_ARCH)
+    B, T = AUDIO_BATCH, AUDIO_FRAMES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = tf.LM(cfg, seed=0, device=dev)
+    frames = torch.randn((B, T, cfg.frontend_dim), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             3)).to(torch.bfloat16)
+
+    @torch.inference_mode()
+    def encode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = tf.forward(model, {"frames": frames}, cfg)[0]
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+    encode()
+    times = []
+    for i in range(PHASE14_RUNS):
+        _build.reset_launch_counts()
+        logits, dt = encode()
+        if i == 0:
+            counts = _build.launch_counts()
+            V = cfg.vocab_size
+            check(tuple(logits.shape) == (B, T, cfg.padded_vocab),
+                  f"{AUDIO_ARCH}: logits shape {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits[..., :V]).all())
+                  and bool((logits[..., V:] < -1e29).all()),
+                  f"{AUDIO_ARCH}: a non-finite logit or an unmasked pad")
+        times.append(dt)
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    for k, m in (("flash_attention.prefill", L), ("rmsnorm", 2 * L + 1)):
+        check(counts.get(k, 0) == m, f"{AUDIO_ARCH} encode: {k} launched "
+              f"{counts.get(k, 0)} times, expected {m}")
+    enc = statistics.median(times)
+    fig = {"arch": cfg.name, "source": cfg.source, "layers": L,
+           "d_model": cfg.d_model, "params": cfg.n_params(),
+           "dtype": cfg.dtype, "batch": B, "frames": T, "encode_s": enc,
+           "encode_frames_per_s": B * T / enc, "runs_s": times,
+           **memory_figures(dev, peak),
+           "launches": {k: counts.get(k, 0) for k in sorted(counts)}}
+    del model, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+def train_audio(dev):
+    """HuBERT-XLarge trains at full width and depth in bf16, AUDIO_BATCH x
+    AUDIO_FRAMES frames a step, with phase 11's optimizer and fence: the
+    loss falls over AUDIO_TIMED timed steps, each kernel launches its
+    count a step, and the revert to the fence is bit-equal."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    L = get_arch(AUDIO_ARCH).n_layers
+    # remat: the forward kernels run again in the backward; norm1 and
+    # norm2 a block, the final norm outside
+    need = {"flash_attention.prefill": 2 * L, "flash_attention.backward": L,
+            "rmsnorm": 4 * L + 1, "rmsnorm.backward": 2 * L + 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr, fig = timed_training(dev, AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES,
+                             AUDIO_WARM, AUDIO_TIMED, need)
+    fig.update(memory_figures(dev, torch.cuda.max_memory_allocated()))
+    fence_step, _, revert_s = check_revert(tr, f"{AUDIO_ARCH} train")
+    fig.update(revert_to_step=fence_step, revert_s=revert_s,
+               fences=tr.commit_log.fences)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+def flash_shape_rows(dev):
+    """The flash kernels at phase 14's shapes, bf16, each held to its
+    plain version (forward 2e-2, backward 2e-2 of each gradient's largest
+    element, two calls bit-equal), timed by CUDA events and by
+    torch.profiler beside the plain version, SDPA on the same inputs and
+    the bound: MLA's prefill and backward at MLA_BATCH x MLA_PROMPT x 48
+    heads, (96, 64), causal; HuBERT's encoder and its backward at
+    AUDIO_BATCH x AUDIO_FRAMES x 16 heads x 80, bidirectional.  Returns
+    ({shape: forward figures}, {shape: backward figures})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    mla, audio = get_arch(MLA_ARCH), get_arch(AUDIO_ARCH)
+    shapes = {
+        "mla": (MLA_BATCH, MLA_PROMPT, mla.n_heads_padded,
+                mla.qk_nope_head_dim + mla.qk_rope_head_dim,
+                mla.v_head_dim, True),
+        "hubert": (AUDIO_BATCH, AUDIO_FRAMES, audio.n_heads, audio.d_head,
+                   audio.d_head, False)}
+    gen = torch.Generator(device=dev).manual_seed(37)
+    fwd, bwd = {}, {}
+    for key, (B, S, H, DK, DV, causal) in shapes.items():
+        q, k, do, v = (torch.randn((B, S, H, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for d in (DK, DK, DV, DV))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        base = {"shape": [B, S, H, DK, DV], "causal": causal,
+                "launches": 0}
+        # -- forward
+        call = lambda: fa.attention(q, k, v, pos, pos, causal=causal)
+        got = call()
+        want = attention_ref(q, k, v, pos, pos, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(got, want, TOL_BF16_FLASH)
+        check(ok, f"flash {key} prefill: kernel differs from its plain "
+              f"version by {err} (tolerance {TOL_BF16_FLASH})")
+        del got, want
+        flops = 2 * pairs * (DK + DV)
+        nbytes = 2 * B * S * H * (2 * DK + 2 * DV) + 8 * S
+        fig = call_figures(call)
+        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        b_ops = flops / H100_BF16_FLOPS * 1e3
+        fwd[key] = dict(base, max_abs_err=err, tolerance=TOL_BF16_FLASH,
+                        ms=fig["ms"], prof_ms=fig["prof_ms"],
+                        kernels_per_call=fig["kernels_per_call"],
+                        plain_ms=cuda_ms(lambda: attention_ref(
+                            q, k, v, pos, pos, causal=causal), reps=3),
+                        bound_ms=max(b_bytes, b_ops),
+                        bound_by="bytes" if b_bytes >= b_ops
+                        else "operations",
+                        library_ms=cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt.detach(), kt.detach(), vt.detach(),
+                                is_causal=causal)),
+                        library_note="SDPA on the same inputs", flops=flops,
+                        bytes=nbytes)
+        # -- backward
+        o, lse = fa._forward(q, k, v, pos, pos, causal, None, None, None,
+                             True)
+        bcall = lambda: fa.attention_backward(do, q, k, v, o, lse, pos, pos,
+                                              causal=causal)
+        got = bcall()
+        same_bits(got, bcall(), f"flash {key} backward")
+        err = abs_err = 0.0
+        for i in range(B):
+            one = slice(i, i + 1)
+            want = flash_grad_plain(do[one], q[one], k[one], v[one], pos,
+                                    pos, causal=causal)
+            mine = [g[one] for g in got]
+            err = max(err, grad_err(mine, want))
+            abs_err = max(abs_err, *(float((g.float() - w).abs().max())
+                                     for g, w in zip(mine, want)))
+            del want, mine
+        check(err <= TOL_BF16_BWD, f"flash {key} backward: kernel differs "
+              f"from its plain version by {err} (tolerance {TOL_BF16_BWD})")
+        del got
+        flops = 2 * pairs * (3 * DK + 2 * DV)
+        # q, k, dq, dk (DK); v, o, dO, dv (DV); the LSE in float32
+        nbytes = 2 * B * S * H * (4 * DK + 4 * DV) + 4 * B * H * S
+        fig = call_figures(bcall)
+        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        b_ops = flops / H100_BF16_FLOPS * 1e3
+        dot = do.transpose(1, 2)
+        bwd[key] = dict(base, max_abs_err=abs_err, max_rel_err=err,
+                        tolerance=TOL_BF16_BWD, ms=fig["ms"],
+                        prof_ms=fig["prof_ms"],
+                        kernels_per_call=fig["kernels_per_call"],
+                        plain_ms=cuda_ms(lambda: flash_grad_plain(
+                            do, q, k, v, pos, pos, causal=causal), reps=3),
+                        bound_ms=max(b_bytes, b_ops),
+                        bound_by="bytes" if b_bytes >= b_ops
+                        else "operations",
+                        library_ms=cuda_ms(lambda: torch.autograd.grad(
+                            ot, (qt, kt, vt), dot, retain_graph=True)),
+                        library_note="SDPA's backward on the same inputs",
+                        flops=flops, bytes=nbytes)
+        del q, k, v, do, o, lse, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def mla_frontends_phase(dev, rows):
+    """Phase 14: the flash kernels at the new shapes; MiniCPM3-4B checked
+    card against CPU (serve and loss_fn's gradients, 2 layers f32), one
+    bf16 training step at MLA_TRAIN_LAYERS layers (the (96, 64)
+    backward's launches on a model path), served, and its latent cache's
+    f32 copies timed; InternVL2-26B checked with patches and served with them;
+    HuBERT-XLarge checked (loss_fn's gradients), encoding and training.
+    Adds the new shapes to the flash rows; returns the mla_frontends
+    figures."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    t0 = time.perf_counter()
+    fwd, bwd = flash_shape_rows(dev)
+    rows["flash_attention"]["new_shapes"] = fwd
+    rows["flash_attention.backward"]["new_shapes"] = bwd
+    print("flash at phase 14's shapes: " + json.dumps(
+        {f"{k} {d}": [r["ms"], r["prof_ms"], r["bound_ms"], r["library_ms"]]
+         for d, rs in (("forward", fwd), ("backward", bwd))
+         for k, r in rs.items()}), flush=True)
+    out = {}
+    # -- MiniCPM3-4B
+    mla = get_arch(MLA_ARCH)
+    L = mla.n_layers
+    t1 = time.perf_counter()
+    err = config_parity(dev, MLA_ARCH, MLA_PARITY_PROMPT,
+                        CONFIG_PARITY_DECODE)
+    grads = grad_parity(dev, MLA_ARCH)
+    parity_s = time.perf_counter() - t1
+    train = mla_train_step(dev)
+    # MLA decodes in the absorbed form: no attention kernel; a block's
+    # norms: norm1, q_norm, kv_norm, norm2
+    fig = serve_config(dev, MLA_ARCH, None, MLA_BATCH, MLA_PROMPT, MLA_GEN,
+                       need={"flash_attention.prefill": L,
+                             "flash_attention.decode": 0,
+                             "rmsnorm": (4 * L + 1) * (MLA_GEN + 1)},
+                       runs=PHASE14_RUNS)
+    fig.update(parity_max_logit_err=err, parity_tolerance=TOL_SERVE,
+               parity_prompt=MLA_PARITY_PROMPT, grad_parity=grads,
+               parity_s=parity_s, train_step=train,
+               latent_f32_copy=mla_latent_copy_ms(
+                   dev, fig["decode_ms_per_step"]))
+    out[MLA_ARCH] = fig
+    fwd["mla"]["launches"] = fig["launches"]["flash_attention.prefill"]
+    bwd["mla"]["launches"] = train["launches"]["flash_attention.backward"]
+    bwd["mla"]["launches_of"] = (f"a bf16 training step of {MLA_ARCH} at "
+                                 f"{MLA_TRAIN_LAYERS} of {L} layers")
+    print(f"serve {MLA_ARCH}: {MLA_BATCH} x {MLA_PROMPT} prefill "
+          f"{fig['prefill_s']:.3f} s, decode {fig['decode_ms_per_step']:.1f}"
+          f" ms a step, peak {fig['peak_mem_gb']:.2f} GB; parity {err:.3g},"
+          f" gradients {grads['grad_max_rel_err']:.3g}; a bf16 train step "
+          f"at {MLA_TRAIN_LAYERS} layers {train['step_ms']:.1f} ms; the "
+          f"latent cache's f32 copies "
+          f"{fig['latent_f32_copy']['step_ms']:.3f} ms a decode step",
+          flush=True)
+    # -- InternVL2-26B
+    vis = get_arch(VISION_ARCH)
+    t1 = time.perf_counter()
+    err = config_parity(dev, VISION_ARCH, VISION_PARITY_TEXT,
+                        CONFIG_PARITY_DECODE, patches=vis.n_patches)
+    parity_s = time.perf_counter() - t1
+    fig = serve_config(dev, VISION_ARCH, None, VISION_BATCH, VISION_TEXT,
+                       VISION_GEN, runs=PHASE14_RUNS, patches=vis.n_patches)
+    fig.update(parity_max_logit_err=err, parity_tolerance=TOL_SERVE,
+               parity_patches=vis.n_patches, parity_text=VISION_PARITY_TEXT,
+               parity_s=parity_s)
+    out[VISION_ARCH] = fig
+    print(f"serve {VISION_ARCH}: {VISION_BATCH} x ({vis.n_patches} patches "
+          f"+ {VISION_TEXT}) prefill {fig['prefill_s']:.3f} s, decode "
+          f"{fig['decode_ms_per_step']:.1f} ms a step, peak "
+          f"{fig['peak_mem_gb']:.2f} GB; parity {err:.3g}", flush=True)
+    # -- HuBERT-XLarge
+    enc = encode_audio(dev)
+    grads = grad_parity(dev, AUDIO_ARCH)
+    train = train_audio(dev)
+    out[AUDIO_ARCH] = {"encode": enc, "grad_parity": grads, "train": train}
+    fwd["hubert"]["launches"] = enc["launches"]["flash_attention.prefill"]
+    fwd["hubert"]["train_launches_per_step"] = train["launches_per_step"][
+        "flash_attention.prefill"]
+    bwd["hubert"]["launches"] = train["launches_per_step"][
+        "flash_attention.backward"]
+    print(f"{AUDIO_ARCH}: encode {AUDIO_BATCH} x {AUDIO_FRAMES} frames in "
+          f"{enc['encode_s']:.3f} s; train {train['step_ms_median']:.1f} ms"
+          f" a step, {train['tokens_per_s']:.0f} frames/s, mfu "
+          f"{train['train_mfu']:.3f}, peak {train['peak_mem_gb']:.2f} GB; "
+          f"gradients {grads['grad_max_rel_err']:.3g}", flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 14: {out['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 def nvidia_smi():
@@ -4240,6 +4765,8 @@ def run(dev):
     train.update(device=name, nvidia_smi=smi)
     hymba = hymba_train_phase(dev, kernels)
     hymba.update(device=name, nvidia_smi=smi)
+    frontends = mla_frontends_phase(dev, kernels)
+    frontends.update(device=name, nvidia_smi=smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"service_path": service}))
@@ -4249,6 +4776,7 @@ def run(dev):
     print(json.dumps({"serve_configs": configs}))
     print(json.dumps({"train_path": train}))
     print(json.dumps({"train_path_hymba": hymba}))
+    print(json.dumps({"mla_frontends": frontends}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -4490,7 +5018,10 @@ def ab_side(tree, dev):
     gave it, and rmsnorm on its recorded prefill and decode calls, in
     the decode chain of :func:`norm_chain` and at RMS_AB_ROWS rows; and
     both backward kernels at the train path's shapes
-    (:func:`train_backward_calls`).  Prints one ``AB {...}`` JSON line."""
+    (:func:`train_backward_calls`), the SSD backward
+    (:func:`ssd_backward_calls`) and the bf16 flash prefill at every head
+    dim pair (:func:`flash_prefill_calls`).  Prints one ``AB {...}`` JSON
+    line."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.core import replication
@@ -4565,7 +5096,31 @@ def ab_side(tree, dev):
     torch.cuda.empty_cache()
     out.update(train_backward_calls(dev))
     out.update(ssd_backward_calls(dev))
+    out.update(flash_prefill_calls(dev))
     print("AB " + json.dumps(out), flush=True)
+
+
+def flash_prefill_calls(dev):
+    """``--ab``: the bf16 flash prefill by CUDA events at every (q/k, v)
+    head dim pair of ``ops.HEAD_DIM_PAIRS``, 8 x 2,048 x 16 heads,
+    causal (those the pair's model runs: MLA's at 48 heads, HuBERT's 80
+    at 16 x 1,024, bidirectional)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device=dev).manual_seed(41)
+    shapes = {(dk, dv): (8, 2048, 16, True) for dk, dv in fa.HEAD_DIM_PAIRS}
+    shapes[(96, 64)] = (MLA_BATCH, MLA_PROMPT, 48, True)
+    shapes[(80, 80)] = (AUDIO_BATCH, AUDIO_FRAMES, 16, False)
+    out = {}
+    for (dk, dv), (B, S, H, causal) in shapes.items():
+        q, k, v = (torch.randn((B, S, H, d), generator=gen, device=dev).to(
+            torch.bfloat16) for d in (dk, dk, dv))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        out[f"{dk}x{dv} {B}x{S}x{H} {'causal' if causal else 'full'}"] = \
+            cuda_ms(lambda: fa.attention(q, k, v, pos, pos, causal=causal),
+                    reps=50)
+        del q, k, v
+    return {"flash_prefill_ms": out}
 
 
 def ssd_backward_calls(dev):

@@ -209,10 +209,6 @@ ALL_ARCHS = [
     "hymba-1.5b", "dbrx-132b", "granite-moe-1b-a400m", "hubert-xlarge",
     "mamba2-130m",
 ]
-# the archs whose blocks (attn_mlp, attn_moe, mamba2, hymba) the port runs
-PORTED_ARCHS = ["hymba-1.5b", "granite-8b", "mamba2-130m",
-                "granite-moe-1b-a400m", "glm4-9b", "starcoder2-7b",
-                "dbrx-132b"]
 
 
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:
@@ -221,10 +217,8 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
         try:
             importlib.import_module(f"repro_torch.configs.{mod}")
         except ModuleNotFoundError as e:
-            raise NotImplementedError(
-                f"{name}: config not ported yet (ROADMAP Queue 1, item 7c "
-                f"for minicpm3-4b, item 7d for hubert-xlarge and "
-                f"internvl2-26b; ported: {', '.join(PORTED_ARCHS)})") from e
+            raise ValueError(f"{name}: no such config (the configs: "
+                             f"{', '.join(ALL_ARCHS)})") from e
     spec = _REGISTRY[name]
     return spec.smoke if smoke else spec.full
 

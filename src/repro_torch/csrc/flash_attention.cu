@@ -14,9 +14,29 @@
 // no key gives the mean of v over all Sk keys (an f32 sum divided by Sk),
 // as the Pallas kernel's finite -1e30 mask does (every p = 1, l = Sk).
 //
-// Layout: q, o (B, Sq, H, D) and k, v (B, Sk, Hkv, D), read through
-// element strides (batch, head, position) with the last axis contiguous.
-// float32 or bfloat16; D in {16, 32, 64, 128}.
+// Layout: q (B, Sq, H, DK), k (B, Sk, Hkv, DK), v (B, Sk, Hkv, DV) and o
+// (B, Sq, H, DV), read through element strides (batch, head, position)
+// with the last axis contiguous.  float32 or bfloat16.  Head dims (DK, DV)
+// in {(16, 16), (32, 32), (64, 64), (128, 128), (80, 80), (96, 64)}, the
+// last two for HuBERT's heads of 80 and MiniCPM3's expanded MLA (q and k
+// of 64 + 32 rotary, v of 64); decode takes DK == DV in {16, 32, 64, 128}
+// (MLA decodes in its absorbed form, which has no attention kernel, and
+// HuBERT is an encoder).
+//
+// Tiles at (80, 80) and (96, 64).  Products split into k-steps of 16
+// (5 and 6 steps of q.k; 4 and 5 of P.v), so the mma.sync prefill needs
+// nothing new: it keeps one m-tile of 16 rows a warp (64 rows a block, as
+// at 128), since two m-tiles' Q fragments, S and O would pass the 255
+// registers a thread that D = 64's 240 leave room for, and its shared rows
+// stay padded by 16 bytes (176 and 208 bytes: 8 rows of an ldmatrix fall
+// on 8 distinct 4-bank groups).  The backward's wgmma widths that are not
+// a power of two (dK of 80 or 96 columns, dV of 80, dQ's half of 40 or 48)
+// run as two products of the widths the kernel has (64 + 16, 64 + 32,
+// 32 + 8, 32 + 16), the second's B operand one core-matrix group further;
+// its query tiles are 64 rows, as at 128, for the registers: 128-row
+// tiles would hold S^T, dP^T and their bf16 copies at twice the size
+// beside dK and dV of up to 96 columns.  Shared memory: ~150 KB a block at
+// (96, 64), ~141 KB at (80, 80); one block an SM, as at every head dim.
 //
 // What bounds it on the H100.  Prefill (8 requests x 32 heads x 2,048
 // positions, window 1,024): operations, ~1.0e11 flops a call over the
@@ -514,6 +534,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "n"(TB));
 }
 
+// wgmma_ss / wgmma_rs at any width N (a multiple of 8, at most 128): one
+// product where the kernel has the width (8, 16, 32, 64, 128), else the
+// largest of those below N and the rest, the rest's B operand (pieces of
+// N adjacent columns, core matrices `bmn` bytes apart along N) starting
+// where the first's ends and its accumulators after the first's (column
+// 8 c of D is d[4 c ..]).  B is `b`'s descriptor with distances bmn, bk.
+template <int N> struct WgPiece {
+  static constexpr bool WHOLE =
+      N == 8 || N == 16 || N == 32 || N == 64 || N == 128;
+  static constexpr int P = N > 64 ? 64 : N > 32 ? 32 : N > 16 ? 16 : 8;
+};
+// the accumulators of a 64 x N product, and those of its two pieces
+template <int N> using Acc = float[N / 2];
+template <int N>
+__device__ __forceinline__ Acc<WgPiece<N>::P>& head(Acc<N>& d) {
+  return reinterpret_cast<Acc<WgPiece<N>::P>&>(d[0]);
+}
+template <int N>
+__device__ __forceinline__ Acc<N - WgPiece<N>::P>& tail(Acc<N>& d) {
+  return reinterpret_cast<Acc<N - WgPiece<N>::P>&>(d[WgPiece<N>::P / 2]);
+}
+template <int TA, int TB, int N>
+__device__ __forceinline__ void wgmma_ss_n(Acc<N>& d, uint64_t da,
+                                           const unsigned char* b,
+                                           uint32_t bmn, uint32_t bk,
+                                           int acc) {
+  if constexpr (WgPiece<N>::WHOLE) {
+    wgmma_ss<TA, TB>(d, da, wg_desc(b, bmn, bk), acc);
+  } else {
+    constexpr int P = WgPiece<N>::P;
+    wgmma_ss<TA, TB>(head<N>(d), da, wg_desc(b, bmn, bk), acc);
+    wgmma_ss_n<TA, TB, N - P>(tail<N>(d), da, b + (P / 8) * bmn, bmn, bk,
+                              acc);
+  }
+}
+template <int TB, int N>
+__device__ __forceinline__ void wgmma_rs_n(Acc<N>& d, const uint32_t (&a)[4],
+                                           const unsigned char* b,
+                                           uint32_t bmn, uint32_t bk,
+                                           int acc) {
+  if constexpr (WgPiece<N>::WHOLE) {
+    wgmma_rs<TB>(d, a, wg_desc(b, bmn, bk), acc);
+  } else {
+    constexpr int P = WgPiece<N>::P;
+    wgmma_rs<TB>(head<N>(d), a, wg_desc(b, bmn, bk), acc);
+    wgmma_rs_n<TB, N - P>(tail<N>(d), a, b + (P / 8) * bmn, bmn, bk, acc);
+  }
+}
+
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
@@ -605,49 +674,53 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // ---------------------------------------------------------------------------
 // prefill, bfloat16: mma.sync with registers for S, P and O
 // ---------------------------------------------------------------------------
-template <int D> struct PFB {
+template <int DK, int DV> struct PFB {
   // m-tiles of 16 rows a warp: two share each K/V fragment loaded from
   // shared memory, halving ldmatrix traffic per product, where registers
-  // allow (D <= 64)
-  static constexpr int MT = D <= 64 ? 2 : 1;
+  // allow (DK, DV <= 64)
+  static constexpr int MT = DK <= 64 && DV <= 64 ? 2 : 1;
   static constexpr int BQ = 16 * MT * (PF_THREADS / 32);   // rows a block
-  static constexpr int LD = D + 8;    // elements a shared row (16-byte pad)
-  static constexpr int TILE = BK * LD;
+  // elements a shared row of Q and K, and of V (16-byte pad)
+  static constexpr int LDK = DK + 8, LDV = DV + 8;
+  static constexpr int TK = BK * LDK, TV = BK * LDV;   // a K and a V tile
   static constexpr size_t Q_OFF = 0;
-  static constexpr size_t KV_OFF = BQ * LD * 2;        // 2 x (K, V) stages
-  static constexpr size_t KP_OFF = KV_OFF + 4 * TILE * 2;
+  static constexpr size_t KV_OFF = BQ * LDK * 2;       // 2 x (K, V) stages
+  static constexpr size_t KP_OFF = KV_OFF + 2 * (TK + TV) * 2;
   static constexpr size_t MEAN_OFF = KP_OFF + 2 * BK * 4;
-  static constexpr size_t CLS_OFF = MEAN_OFF + (PF_THREADS / 32) * D * 4;
+  static constexpr size_t CLS_OFF = MEAN_OFF + (PF_THREADS / 32) * DV * 4;
   static constexpr size_t smem(int nT) { return CLS_OFF + nT; }
 };
 
 // issue the cp.async copies of key tile t (rows past Sk zero) into one
 // stage, and its key positions (past Sk: -1) with plain stores
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void load_kv(const Args& a, __nv_bfloat16* Ks,
                                         __nv_bfloat16* Vs, int* kps,
                                         const __nv_bfloat16* k,
                                         const __nv_bfloat16* v, int t) {
-  constexpr int LD = PFB<D>::LD, CPR = D / 8;
+  constexpr int LDK = PFB<DK, DV>::LDK, LDV = PFB<DK, DV>::LDV;
+  // 16-byte chunks a row of K, of V, and of the wider; one pass issues a
+  // chunk's K and V copies together (at DK == DV both always)
+  constexpr int CK = DK / 8, CV = DV / 8, CM = CK > CV ? CK : CV;
   const int k0 = t * BK;
-  for (int i = threadIdx.x; i < BK * CPR; i += PF_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
+  for (int i = threadIdx.x; i < BK * CM; i += PF_THREADS) {
+    const int r = i / CM, ch = i % CM, c = ch * 8;
     const bool ok = k0 + r < a.Sk;
     const long long j = ok ? k0 + r : 0;
-    cp_async16(Ks + r * LD + c, k + j * a.ks[2] + c, ok);
-    cp_async16(Vs + r * LD + c, v + j * a.vs[2] + c, ok);
+    if (ch < CK) cp_async16(Ks + r * LDK + c, k + j * a.ks[2] + c, ok);
+    if (ch < CV) cp_async16(Vs + r * LDV + c, v + j * a.vs[2] + c, ok);
   }
   if (threadIdx.x < BK)
     kps[threadIdx.x] =
         k0 + (int)threadIdx.x < a.Sk ? a.kpos[k0 + threadIdx.x] : -1;
 }
 
-template <int D>
-__global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(PF_THREADS, DK + DV <= 160 ? 2 : 1)
     prefill_bf16_kernel(Args a) {
-  using L = PFB<D>;
+  using L = PFB<DK, DV>;
   using bf16 = __nv_bfloat16;
-  constexpr int LD = L::LD, MT = L::MT, BQ = L::BQ;
+  constexpr int LD = L::LDK, LDV = L::LDV, MT = L::MT, BQ = L::BQ;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
   bf16* KV = reinterpret_cast<bf16*>(smem + L::KV_OFF);
@@ -664,8 +737,8 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
   bf16* o = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
 
-  for (int i = tid; i < BQ * (D / 8); i += PF_THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  for (int i = tid; i < BQ * (DK / 8); i += PF_THREADS) {
+    const int r = i / (DK / 8), c = (i % (DK / 8)) * 8;
     const bool ok = r < nq;
     cp_async16(Qs + r * LD + c, q + (long long)(q0 + (ok ? r : 0)) * a.qs[2] + c,
                ok);
@@ -676,7 +749,7 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
   classify_tiles(a, nT, qlo, qhi, cls);
   __syncthreads();
   int t = next_tile(cls, 0, nT);
-  if (t < nT) load_kv<D>(a, KV, KV + L::TILE, KP, k, v, t);
+  if (t < nT) load_kv<DK, DV>(a, KV, KV + L::TK, KP, k, v, t);
   cp_async_commit();
 
   // this thread's rows: in m-tile i, rows r0 + 16 i + g and + 8 (mma
@@ -691,17 +764,17 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
   // scores stay unscaled: p = 2^(s * sl2 - m * sl2), one FMA and one ex2
   const float sl2 = a.scale * LOG2E;
   const float ninf = __int_as_float(0xff800000);
-  float acc[MT][D / 8][4];
+  float acc[MT][DV / 8][4];
   float m[MT][2], l[MT][2];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     m[i][0] = m[i][1] = NEG;
     l[i][0] = l[i][1] = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
   }
-  uint32_t qf[MT][D / 16][4];
+  uint32_t qf[MT][DK / 16][4];
   bool have_q = false;
   int stage = 0;
 
@@ -713,19 +786,19 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < DK / 16; ++kk)
           ldsm_x4(qf[i][kk], Qs + (r0 + 16 * i + (lane & 15)) * LD +
                                  kk * 16 + (lane >> 4) * 8);
       have_q = true;
     }
     const int tn = next_tile(cls, t + 1, nT);
     if (tn < nT) {
-      bf16* nk = KV + (stage ^ 1) * 2 * L::TILE;
-      load_kv<D>(a, nk, nk + L::TILE, KP + (stage ^ 1) * BK, k, v, tn);
+      bf16* nk = KV + (stage ^ 1) * (L::TK + L::TV);
+      load_kv<DK, DV>(a, nk, nk + L::TK, KP + (stage ^ 1) * BK, k, v, tn);
     }
     cp_async_commit();
-    const bf16* Ks = KV + stage * 2 * L::TILE;
-    const bf16* Vs = Ks + L::TILE;
+    const bf16* Ks = KV + stage * (L::TK + L::TV);
+    const bf16* Vs = Ks + L::TK;
     const int* kps = KP + stage * BK;
 
     // S = Q K^T for this warp's rows and the tile's 64 keys; each K
@@ -737,7 +810,7 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
       for (int j = 0; j < BK / 8; ++j)
         s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t bfr[4];
@@ -786,7 +859,7 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
         }
         l[i][hf] = l[i][hf] * al + rs;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           acc[i][j][2 * hf] *= al;
           acc[i][j][2 * hf + 1] *= al;
         }
@@ -806,10 +879,10 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
         pa[i][3] = pack_bf16(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
       }
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t bfr[4];
         ldsm_x4_t(bfr, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                LD + dp * 16 + (lane >> 4) * 8);
+                                LDV + dp * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           mma16816(acc[i][2 * dp], pa[i], bfr[0], bfr[1]);
@@ -837,9 +910,9 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
         a.lse[((long long)b * a.H + h) * a.Sq + q0 + r] =
             l[i][hf] == 0.f ? -INFINITY : m[i][hf] * a.scale + logf(l[i][hf]);
     }
-  float* mean = reinterpret_cast<float*>(smem + L::MEAN_OFF) + warp * D;
-  if (__any_sync(FULL, any_dead)) warp_mean_v<bf16, D>(v, a.vs[2], a.Sk,
-                                                       mean);
+  float* mean = reinterpret_cast<float*>(smem + L::MEAN_OFF) + warp * DV;
+  if (__any_sync(FULL, any_dead)) warp_mean_v<bf16, DV>(v, a.vs[2], a.Sk,
+                                                        mean);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -848,7 +921,7 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
       if (r >= nq) continue;
       const float inv = dead[i][hf] ? 0.f : 1.f / l[i][hf];
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int c = j * 8 + 2 * tq;
         const float x0 = dead[i][hf] ? mean[c] : acc[i][j][2 * hf] * inv;
         const float x1 = dead[i][hf] ? mean[c + 1] : acc[i][j][2 * hf + 1] * inv;
@@ -861,17 +934,18 @@ __global__ void __launch_bounds__(PF_THREADS, D <= 64 ? 2 : 1)
 // ---------------------------------------------------------------------------
 // prefill, float32: plain FMAs through shared memory
 // ---------------------------------------------------------------------------
-template <int D> struct PFF {
+template <int DK, int DV> struct PFF {
   // odd row strides (words): lanes reading one column of 32 rows hit 32
   // banks
-  static constexpr int LD = D + 1;     // Q, K, V tiles
+  static constexpr int LD = DK + 1;    // Q, K tiles
+  static constexpr int LDV = DV + 1;   // V tile
   static constexpr int LDS = BK + 4;   // scores, then probabilities
-  static constexpr int LDO = D + 4;    // accumulator
+  static constexpr int LDO = DV + 4;   // accumulator
   static constexpr size_t al(size_t b) { return (b + 127) / 128 * 128; }
   static constexpr size_t Q_OFF = 0;
   static constexpr size_t K_OFF = Q_OFF + al(BQ * LD * 4);
   static constexpr size_t V_OFF = K_OFF + al(BK * LD * 4);
-  static constexpr size_t S_OFF = V_OFF + al(BK * LD * 4);
+  static constexpr size_t S_OFF = V_OFF + al(BK * LDV * 4);
   static constexpr size_t O_OFF = S_OFF + al(BQ * LDS * 4);
   static constexpr size_t M_OFF = O_OFF + al(BQ * LDO * 4);
   static constexpr size_t I_OFF = M_OFF + al(3 * BQ * 4);
@@ -897,9 +971,9 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
-  using L = PFF<D>;
+  using L = PFF<DK, DV>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
   float* Ks = reinterpret_cast<float*>(smem + L::K_OFF);
@@ -922,7 +996,7 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + hk * a.vs[1];
   float* o = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[1];
 
-  load_tile_f32<D, L::LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQ);
+  load_tile_f32<DK, L::LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq, BQ);
   for (int i = tid; i < BQ; i += PF_THREADS) {
     qp[i] = a.qpos[q0 + min(i, nq - 1)];   // padding rows repeat the last
     mrow[i] = NEG;
@@ -941,8 +1015,8 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
     __syncthreads();                       // the last tile is consumed
     for (int i = tid; i < BK; i += PF_THREADS)
       kp[i] = i < nk ? a.kpos[k0 + i] : -1;
-    load_tile_f32<D, L::LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BK);
-    load_tile_f32<D, L::LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BK);
+    load_tile_f32<DK, L::LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk, BK);
+    load_tile_f32<DV, L::LDV>(Vs, v + k0 * a.vs[2], a.vs[2], nk, BK);
     __syncthreads();
 
     // scores of this warp's 16 rows against the tile's 64 keys
@@ -952,7 +1026,7 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
         const float* krow = Ks + c * L::LD;
         float acc = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) acc += qrow[d] * krow[d];
+        for (int d = 0; d < DK; ++d) acc += qrow[d] * krow[d];
         Ss[(r0 + rr) * L::LDS + c] = acc * a.scale;
       }
     }
@@ -997,10 +1071,10 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
     for (int rr = 0; rr < 16; ++rr) {
       const int r = r0 + rr;
       const float* prow = Ss + r * L::LDS;
-      for (int d = lane; d < D; d += 32) {
+      for (int d = lane; d < DV; d += 32) {
         float acc = 0.f;
 #pragma unroll 16
-        for (int j = 0; j < BK; ++j) acc += prow[j] * Vs[j * L::LD + d];
+        for (int j = 0; j < BK; ++j) acc += prow[j] * Vs[j * L::LDV + d];
         Os[r * L::LDO + d] = Os[r * L::LDO + d] * arow[r] + acc;
       }
     }
@@ -1011,12 +1085,12 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_f32_kernel(Args a) {
   bool dead = false;
   for (int rr = 0; rr < 16 && r0 + rr < nq; ++rr) dead |= lrow[r0 + rr] == 0.f;
   float* mean = Ss + r0 * L::LDS;
-  if (dead) warp_mean_v<float, D>(v, a.vs[2], a.Sk, mean);
+  if (dead) warp_mean_v<float, DV>(v, a.vs[2], a.Sk, mean);
   for (int rr = 0; rr < 16; ++rr) {
     const int r = r0 + rr;
     if (r >= nq) break;
     const float l = lrow[r];
-    for (int d = lane; d < D; d += 32)
+    for (int d = lane; d < DV; d += 32)
       o[(q0 + r) * a.os[2] + d] = l > 0.f ? Os[r * L::LDO + d] / l : mean[d];
     if (a.lse != nullptr && lane == 0)
       a.lse[((long long)b * a.H + h) * a.Sq + q0 + r] =
@@ -1214,45 +1288,53 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch(const Args& a, cudaStream_t st) {
   if (a.Sq == 1) {
-    if (a.ws == nullptr || a.counters == nullptr || a.splits < 1 ||
-        a.splits > MAX_SPLITS)
+    // decode: DK == DV, a power of two (a K/V row spans 2 to 32 lanes)
+    if constexpr (DK == DV && (DK & (DK - 1)) == 0) {
+      if (a.ws == nullptr || a.counters == nullptr || a.splits < 1 ||
+          a.splits > MAX_SPLITS)
+        return (int)cudaErrorInvalidValue;
+      decode_kernel<T, DK><<<dim3(a.splits, a.Hkv, a.B), DEC_THREADS, 0,
+                             st>>>(a);
+      return (int)cudaGetLastError();
+    } else {
       return (int)cudaErrorInvalidValue;
-    decode_kernel<T, D><<<dim3(a.splits, a.Hkv, a.B), DEC_THREADS, 0, st>>>(
-        a);
-    return (int)cudaGetLastError();
+    }
   }
   if constexpr (std::is_same<T, float>::value) {
     const dim3 grid(a.H, (a.Sq + BQ - 1) / BQ, a.B);
-    const size_t smem = PFF<D>::smem((a.Sk + BK - 1) / BK);
+    const size_t smem = PFF<DK, DV>::smem((a.Sk + BK - 1) / BK);
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        prefill_f32_kernel<DK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    prefill_f32_kernel<D><<<grid, PF_THREADS, smem, st>>>(a);
+    prefill_f32_kernel<DK, DV><<<grid, PF_THREADS, smem, st>>>(a);
   } else {
-    const dim3 grid(a.H, (a.Sq + PFB<D>::BQ - 1) / PFB<D>::BQ, a.B);
-    const size_t smem = PFB<D>::smem((a.Sk + BK - 1) / BK);
+    using L = PFB<DK, DV>;
+    const dim3 grid(a.H, (a.Sq + L::BQ - 1) / L::BQ, a.B);
+    const size_t smem = L::smem((a.Sk + BK - 1) / BK);
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        prefill_bf16_kernel<DK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    prefill_bf16_kernel<D><<<grid, PF_THREADS, smem, st>>>(a);
+    prefill_bf16_kernel<DK, DV><<<grid, PF_THREADS, smem, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
+// every (DK, DV) instance of the kernels: X(DK, DV) for each pair
+#define FA_HEAD_DIMS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(80, 80) X(96, 64)
+
 template <typename T>
-int launch_d(const Args& a, int D, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<T, 16>(a, st);
-    case 32: return launch<T, 32>(a, st);
-    case 64: return launch<T, 64>(a, st);
-    case 128: return launch<T, 128>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_d(const Args& a, int DK, int DV, cudaStream_t st) {
+#define FA_CASE(K, V) \
+  if (DK == K && DV == V) return launch<T, K, V>(a, st);
+  FA_HEAD_DIMS(FA_CASE)
+#undef FA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1371,11 +1453,11 @@ constexpr int MAX_KT = 4096;        // key tiles the plan classifies at most
 
 // the bf16 main kernel: NWG consumer warpgroups of 128 threads, 64 keys
 // each, and a producer warpgroup (a warp of loads, a warp of dQ); query
-// tiles of BQ rows
-template <int D> struct BW {
+// tiles of BQ rows (64 where a head dim passes 64: the registers)
+template <int DK, int DV> struct BW {
   static constexpr int NWG = 2;
   static constexpr int BKT = 64 * NWG;          // keys a block
-  static constexpr int BQ = D == 128 ? 64 : 128;   // query rows a tile
+  static constexpr int BQ = DK <= 64 && DV <= 64 ? 128 : 64;
   static constexpr int MT = BQ / 64;            // dQ's m-tiles
   static constexpr int NC = 128 * NWG;          // consumer threads
   static constexpr int NT = NC + 128;           // and the producer warpgroup
@@ -1384,18 +1466,20 @@ template <int D> struct BW {
   static constexpr int REG_C = 232, REG_P = 40;
   static constexpr int S = 2;                   // stages of the Q/dO ring
   static constexpr int NB = 2;                  // dQ tiles in flight
-  static constexpr int TQ = BQ * D * 2;         // bytes of a Q or dO tile
-  static constexpr int TK = BKT * D * 2;        // bytes of a K or V tile
+  static constexpr int TQ = BQ * DK * 2;        // bytes of a Q tile
+  static constexpr int TO = BQ * DV * 2;        // bytes of a dO tile
+  static constexpr int TK = BKT * DK * 2;       // bytes of the K tile
+  static constexpr int TV = BKT * DV * 2;       // bytes of the V tile
   static constexpr int TS = 64 * BQ * 2;        // a warpgroup's dS tile
   static constexpr size_t K_OFF = 0;
   static constexpr size_t V_OFF = TK;
-  static constexpr size_t Q_OFF = 2 * TK;                 // S stages
+  static constexpr size_t Q_OFF = TK + TV;                // S stages
   static constexpr size_t DO_OFF = Q_OFF + S * TQ;        // S stages
-  static constexpr size_t R_OFF = DO_OFF + S * TQ;        // S x the rows
+  static constexpr size_t R_OFF = DO_OFF + S * TO;        // S x the rows
   static constexpr size_t S_OFF = R_OFF + S * BQ * 16;    // NWG x dS
   static constexpr size_t DQ_OFF = S_OFF + NWG * TS;      // NB x dQ, f32
-  static constexpr size_t X_OFF = DQ_OFF + NB * BQ * D * 4;   // D floats
-  static constexpr size_t P_OFF = X_OFF + D * 4;   // plan column, then the
+  static constexpr size_t X_OFF = DQ_OFF + NB * BQ * DK * 4;  // DV floats
+  static constexpr size_t P_OFF = X_OFF + DV * 4;  // plan column, then the
                                                    // visible query tiles
   static constexpr size_t smem(int nQT) { return P_OFF + 8 * (size_t)nQT; }
   // named barriers (0 is __syncthreads): a stage is free; both dS tiles
@@ -1405,8 +1489,14 @@ template <int D> struct BW {
 };
 
 // query rows a tile of the backward: the float32 path's pre-pass, 64
-template <typename T, int D> __host__ __device__ constexpr int tile_rows() {
-  return std::is_same<T, float>::value ? 64 : BW<D>::BQ;
+template <typename T, int DK, int DV>
+__host__ __device__ constexpr int tile_rows() {
+  return std::is_same<T, float>::value ? 64 : BW<DK, DV>::BQ;
+}
+
+// the least power of two >= n
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
 }
 
 // the plan's row for query tile qt (rows [q0, q0 + nq)); a whole block
@@ -1428,12 +1518,16 @@ __device__ void plan_row(const BArgs& a, int qt, int q0, int nq) {
   }
 }
 
-// a block per (BQ query rows, query head, request)
-template <typename T, int D>
+// a block per (BQ query rows, query head, request); D_i over o's DV
+// columns
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(PRE_THREADS) bwd_pre_kernel(BArgs a) {
-  constexpr int BQ = tile_rows<T, D>();
+  constexpr int BQ = tile_rows<T, DK, DV>();
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int LPR = D / VEC;            // lanes a row (2 to 32)
+  // lanes a row (2 to 32): a power of two for the shuffles, the lanes
+  // past DV (at DV = 80) idle
+  constexpr int LPR = pow2_at_least(DV / VEC);
+  constexpr bool EXACT = LPR * VEC == DV;
   constexpr int RPW = 32 / LPR;           // rows a warp step
   constexpr int WARPS = PRE_THREADS / 32;
   using P = Pack<T, VEC>;
@@ -1450,7 +1544,7 @@ __global__ void __launch_bounds__(PRE_THREADS) bwd_pre_kernel(BArgs a) {
     const int r = (it * WARPS + warp) * RPW + lane / LPR;
     const int c = (lane % LPR) * VEC, i = q0 + r;
     float s = 0.f;
-    if (r < nq) {
+    if (r < nq && (EXACT || c < DV)) {
       const P x = *reinterpret_cast<const P*>(o + i * a.os[2] + c);
       const P y = *reinterpret_cast<const P*>(dO + i * a.dos[2] + c);
 #pragma unroll
@@ -1529,15 +1623,16 @@ struct TMaps {
   CUtensorMap q, dO, k, v;
 };
 
-template <int D>
-__global__ void __launch_bounds__(BW<D>::NT, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(BW<DK, DV>::NT, 1)
     bwd_bf16_kernel(BArgs a, const __grid_constant__ TMaps tm) {
-  using L = BW<D>;
+  using L = BW<DK, DV>;
   using bf16 = __nv_bfloat16;
   constexpr int BKT = L::BKT, NC = L::NC, S = L::S, NB = L::NB;
-  constexpr int BQ = L::BQ, MT = L::MT, DH = D / 2;
+  constexpr int BQ = L::BQ, MT = L::MT, DH = DK / 2;
   constexpr uint32_t CM = 128;               // bytes of a core matrix
   constexpr uint32_t QG = (BQ / 8) * CM;     // Q, dO, dS: column-group step
+  constexpr int KS = (DK > DV ? DK : DV) / 16;   // the k-steps of S^T, dP^T
   constexpr uint32_t KG = (BKT / 8) * CM;    // K, V: column-group step
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ unsigned ticket;
@@ -1602,15 +1697,15 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
       // the first visit also brings the block's K and V
       auto load = [&](int v) {
         const int h = order[off + v / nvq], qt = vq[v % nvq], st = v % S;
-        mbar_expect(&full[st],
-                    2 * L::TQ + BQ * 16 + (v == 0 ? 2 * L::TK : 0));
+        mbar_expect(&full[st], L::TQ + L::TO + BQ * 16 +
+                                   (v == 0 ? L::TK + L::TV : 0));
         if (v == 0) {
           tma_tile(Ks, &tm.k, 0, k0, 0, hk, b, &full[0]);
           tma_tile(Vs, &tm.v, 0, k0, 0, hk, b, &full[0]);
         }
         tma_tile(smem + L::Q_OFF + st * L::TQ, &tm.q, 0, qt * BQ, 0, h, b,
                  &full[st]);
-        tma_tile(smem + L::DO_OFF + st * L::TQ, &tm.dO, 0, qt * BQ, 0, h,
+        tma_tile(smem + L::DO_OFF + st * L::TO, &tm.dO, 0, qt * BQ, 0, h,
                  b, &full[st]);
         bulk_load(smem + L::R_OFF + st * BQ * 16,
                   a.rows + tile_of(v) * BQ, BQ * 16, &full[st]);
@@ -1639,12 +1734,12 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
         for (int n = 0; ld_acquire(turn) != rank; ++n)
           if (n == 1 << 26) __trap();
         fence_async_global();
-        float* dst = a.dqacc + tile * (BQ * D);
-        const float2* src = DQs + bu * (BQ * D / 2);
+        float* dst = a.dqacc + tile * (BQ * DK);
+        const float2* src = DQs + bu * (BQ * DK / 2);
         if (rank == 0)
-          bulk_store(dst, src, BQ * D * 4);
+          bulk_store(dst, src, BQ * DK * 4);
         else
-          bulk_add_f32(dst, src, BQ * D * 4);
+          bulk_add_f32(dst, src, BQ * DK * 4);
         bulk_commit();
         if (held != nullptr) {          // the tile before: landed, passed on
           bulk_wait_one();
@@ -1675,28 +1770,33 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     kp[hf] = r < nk ? a.kpos[k0 + r] : -1;
   }
   const float sl2 = a.scale * LOG2E;
-  float dk[D / 2], dv[D / 2];
+  float dk[DK / 2], dv[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
   for (int n = 0; n < nv; ++n) {
     const int st = n % S, qt = vq[n % nvq];
     const bool whole = (plan[qt] & 2) != 0;     // no mask in this tile
     const unsigned char* Qs = smem + L::Q_OFF + st * L::TQ;
-    const unsigned char* dOs = smem + L::DO_OFF + st * L::TQ;
+    const unsigned char* dOs = smem + L::DO_OFF + st * L::TO;
     const float4* RW =
         reinterpret_cast<const float4*>(smem + L::R_OFF + st * BQ * 16);
     mbar_wait(&full[st], (n / S) & 1);          // the visit's tiles landed
 
-    // S^T = K Q^T and dP^T = V dO^T, their k-steps interleaved (two
-    // independent chains keep the tensor cores busier than one)
+    // S^T = K Q^T (DK / 16 k-steps) and dP^T = V dO^T (DV / 16), their
+    // k-steps interleaved (two independent chains keep the tensor cores
+    // busier than one)
     float s[BQ / 2], dp[BQ / 2];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<0, 0>(s, wg_desc(Ks + wg * 8 * CM + kk * 2 * KG, CM, KG),
-                     wg_desc(Qs + kk * 2 * QG, CM, QG), kk > 0);
-      wgmma_ss<0, 0>(dp, wg_desc(Vs + wg * 8 * CM + kk * 2 * KG, CM, KG),
-                     wg_desc(dOs + kk * 2 * QG, CM, QG), kk > 0);
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk < DK / 16)
+        wgmma_ss<0, 0>(s, wg_desc(Ks + wg * 8 * CM + kk * 2 * KG, CM, KG),
+                       wg_desc(Qs + kk * 2 * QG, CM, QG), kk > 0);
+      if (kk < DV / 16)
+        wgmma_ss<0, 0>(dp, wg_desc(Vs + wg * 8 * CM + kk * 2 * KG, CM, KG),
+                       wg_desc(dOs + kk * 2 * QG, CM, QG), kk > 0);
     }
     wg_commit();
     wg_wait<0>();
@@ -1726,8 +1826,8 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      wgmma_rs<1>(dv, pa[kk], wg_desc(dOs + kk * 2 * CM, QG, CM), 1);
-      wgmma_rs<1>(dk, da[kk], wg_desc(Qs + kk * 2 * CM, QG, CM), 1);
+      wgmma_rs_n<1, DV>(dv, pa[kk], dOs + kk * 2 * CM, QG, CM, 1);
+      wgmma_rs_n<1, DK>(dk, da[kk], Qs + kk * 2 * CM, QG, CM, 1);
     }
     wg_commit();
     // dS to this warpgroup's tile, a key per core-matrix row (key group
@@ -1751,12 +1851,12 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     for (int kk = 0; kk < BKT / 16; ++kk)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        wgmma_ss<1, 1>(
+        wgmma_ss_n<1, 1, DH>(
             dq[mt],
             wg_desc(smem + L::S_OFF + (kk >> 2) * L::TS + mt * 8 * CM +
                         (kk & 3) * 2 * QG,
                     CM, QG),
-            wg_desc(Ks + kk * 2 * CM + wg * (DH / 8) * KG, KG, CM), kk > 0);
+            Ks + kk * 2 * CM + wg * (DH / 8) * KG, KG, CM, kk > 0);
     wg_commit();
     wg_wait<0>();
     reg_fence(dq);
@@ -1768,7 +1868,7 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     // this warpgroup's columns of the block's dQ tile, in the
     // accumulators' order, for the producer to copy out
     const int bn = n % NB;
-    float2* stg = DQs + bn * (BQ * D / 2);
+    float2* stg = DQs + bn * (BQ * DK / 2);
     if (n >= NB) mbar_wait(&dq_free[bn], (n / NB - 1) & 1);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -1787,7 +1887,7 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     for (int t = 0; t < nQT; ++t) any_dead |= a.dead[bh * nQT + t] != 0;
   }
   if (any_dead) {
-    for (int d = tid; d < D; d += NC) {
+    for (int d = tid; d < DV; d += NC) {
       float sum = 0.f;
       for (int i = 0; i < G; ++i) {
         const int h = order[off + i];
@@ -1801,7 +1901,7 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     }
     named_sync(L::CONS, NC);
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         dv[4 * c + j] += dsum[8 * c + 2 * t4 + (j & 1)];
@@ -1813,10 +1913,14 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
     const int r = 64 * wg + 16 * wi + g + 8 * hf;
     if (r >= nk) continue;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DK / 8; ++c) {
       const int col = 8 * c + 2 * t4, j = 4 * c + 2 * hf;
       *reinterpret_cast<__nv_bfloat162*>(dkp + (k0 + r) * a.dks[2] + col) =
           __floats2bfloat162_rn(dk[j] * a.scale, dk[j + 1] * a.scale);
+    }
+#pragma unroll
+    for (int c = 0; c < DV / 8; ++c) {
+      const int col = 8 * c + 2 * t4, j = 4 * c + 2 * hf;
       *reinterpret_cast<__nv_bfloat162*>(dvp + (k0 + r) * a.dvs[2] + col) =
           __floats2bfloat162_rn(dv[j], dv[j + 1]);
     }
@@ -1826,9 +1930,9 @@ __global__ void __launch_bounds__(BW<D>::NT, 1)
 // dq = scale x the scratch tile of (request, query head, query tile): read
 // in the order the main kernel wrote it, transposed through shared memory,
 // written a row at a time
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(256) bwd_dq_kernel(BArgs a) {
-  constexpr int BQ = BW<D>::BQ, DH = D / 2;
+  constexpr int D = DK, BQ = BW<DK, DV>::BQ, DH = D / 2;
   __shared__ float tile[BQ][D + 1];
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ, nq = min(BQ, a.Sq - q0);
@@ -1858,8 +1962,10 @@ __global__ void __launch_bounds__(256) bwd_dq_kernel(BArgs a) {
 // ---- float32: plain FMAs through shared memory -----------------------------
 constexpr int FB = 32;                   // query rows and keys a tile
 
-template <int D> struct BFL {
-  static constexpr int LD = D + 1;       // odd row strides (words)
+template <int DK, int DV> struct BFL {
+  // odd row strides (words); every (FB, DK) or (FB, DV) tile in the
+  // room of the wider
+  static constexpr int LD = (DK > DV ? DK : DV) + 1;
   static constexpr int LDS = FB + 1;
   static constexpr size_t al(size_t b) { return (b + 127) / 128 * 128; }
   static constexpr size_t T_BYTES = al(FB * LD * 4);
@@ -1870,19 +1976,19 @@ template <int D> struct BFL {
   static constexpr size_t SMEM = I_OFF + 4 * FB * 4;
 };
 
-template <int D>
+template <int D, int LD>
 __device__ __forceinline__ void load_f32(float* dst, const float* src,
                                          long long stride, int valid) {
   for (int i = threadIdx.x; i < FB * D; i += PF_THREADS) {
     const int r = i / D, c = i % D;
-    dst[r * BFL<D>::LD + c] = r < valid ? src[r * stride + c] : 0.f;
+    dst[r * LD + c] = r < valid ? src[r * stride + c] : 0.f;
   }
 }
 
 // dQ: a block per (query head, FB query rows, request)
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(PF_THREADS) bwd_dq_f32_kernel(BArgs a) {
-  using L = BFL<D>;
+  using L = BFL<DK, DV>;
   constexpr int LD = L::LD, LDS = L::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -1906,8 +2012,8 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dq_f32_kernel(BArgs a) {
   const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + hk * a.ks[1];
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + hk * a.vs[1];
   float* dq = static_cast<float*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
-  load_f32<D>(Qs, q + q0 * a.qs[2], a.qs[2], nq);
-  load_f32<D>(dOs, dO + q0 * a.dos[2], a.dos[2], nq);
+  load_f32<DK, LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq);
+  load_f32<DV, LD>(dOs, dO + q0 * a.dos[2], a.dos[2], nq);
   for (int i = tid; i < FB * LD; i += PF_THREADS) Acc[i] = 0.f;
   if (tid < FB) {
     QP[tid] = a.qpos[q0 + min(tid, nq - 1)];
@@ -1917,41 +2023,39 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dq_f32_kernel(BArgs a) {
   for (int k0 = 0; k0 < a.Sk; k0 += FB) {
     const int nk = min(FB, a.Sk - k0);
     __syncthreads();                      // the last tile is consumed
-    load_f32<D>(Ks, k + k0 * a.ks[2], a.ks[2], nk);
-    load_f32<D>(Vs, v + k0 * a.vs[2], a.vs[2], nk);
+    load_f32<DK, LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk);
+    load_f32<DV, LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk);
     if (tid < FB) KP[tid] = tid < nk ? a.kpos[k0 + tid] : -1;
     __syncthreads();
     for (int idx = tid; idx < FB * FB; idx += PF_THREADS) {
       const int i = idx / FB, j = idx % FB;
       float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) {
-        s += Qs[i * LD + d] * Ks[j * LD + d];
-        dp += dOs[i * LD + d] * Vs[j * LD + d];
-      }
+      for (int d = 0; d < DK; ++d) s += Qs[i * LD + d] * Ks[j * LD + d];
+      for (int d = 0; d < DV; ++d) dp += dOs[i * LD + d] * Vs[j * LD + d];
       const bool vis = LS[i] != -INFINITY &&
                        sees(KP[j], QP[i], a.causal, a.window);
       const float p = vis ? expf(s * a.scale - LS[i]) : 0.f;
       dS[i * LDS + j] = p * (dp - DR[i]);
     }
     __syncthreads();
-    for (int idx = tid; idx < FB * D; idx += PF_THREADS) {
-      const int i = idx / D, d = idx % D;
+    for (int idx = tid; idx < FB * DK; idx += PF_THREADS) {
+      const int i = idx / DK, d = idx % DK;
       float s = 0.f;
       for (int j = 0; j < FB; ++j) s += dS[i * LDS + j] * Ks[j * LD + d];
       Acc[i * LD + d] += s;
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < nq * D; idx += PF_THREADS) {
-    const int i = idx / D, d = idx % D;
+  for (int idx = tid; idx < nq * DK; idx += PF_THREADS) {
+    const int i = idx / DK, d = idx % DK;
     dq[(q0 + i) * a.dqs[2] + d] = Acc[i * LD + d] * a.scale;
   }
 }
 
 // dK, dV: a block per (FB keys, kv head, request)
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
-  using L = BFL<D>;
+  using L = BFL<DK, DV>;
   constexpr int LD = L::LD, LDS = L::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -1971,8 +2075,8 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
   const int k0 = blockIdx.x * FB, nk = min(FB, a.Sk - k0);
   const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + hk * a.ks[1];
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  load_f32<D>(Ks, k + k0 * a.ks[2], a.ks[2], nk);
-  load_f32<D>(Vs, v + k0 * a.vs[2], a.vs[2], nk);
+  load_f32<DK, LD>(Ks, k + k0 * a.ks[2], a.ks[2], nk);
+  load_f32<DV, LD>(Vs, v + k0 * a.vs[2], a.vs[2], nk);
   for (int i = tid; i < FB * LD; i += PF_THREADS) dK[i] = dV[i] = 0.f;
   if (tid < FB) KP[tid] = tid < nk ? a.kpos[k0 + tid] : -1;
   const float inv_sk = 1.f / (float)a.Sk;
@@ -1987,8 +2091,8 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
     for (int q0 = 0; q0 < a.Sq; q0 += FB) {
       const int nq = min(FB, a.Sq - q0);
       __syncthreads();                    // the last tile is consumed
-      load_f32<D>(Qs, q + q0 * a.qs[2], a.qs[2], nq);
-      load_f32<D>(dOs, dO + q0 * a.dos[2], a.dos[2], nq);
+      load_f32<DK, LD>(Qs, q + q0 * a.qs[2], a.qs[2], nq);
+      load_f32<DV, LD>(dOs, dO + q0 * a.dos[2], a.dos[2], nq);
       if (tid < FB) {
         QP[tid] = a.qpos[q0 + min(tid, nq - 1)];
         LS[tid] = tid < nq ? a.lse[bh + q0 + tid] : INFINITY;
@@ -2003,10 +2107,9 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
           p = inv_sk;                     // saw no key: the mean of v
         } else if (l != INFINITY && sees(KP[j], QP[i], a.causal, a.window)) {
           float s = 0.f, dp = 0.f;
-          for (int d = 0; d < D; ++d) {
-            s += Qs[i * LD + d] * Ks[j * LD + d];
+          for (int d = 0; d < DK; ++d) s += Qs[i * LD + d] * Ks[j * LD + d];
+          for (int d = 0; d < DV; ++d)
             dp += dOs[i * LD + d] * Vs[j * LD + d];
-          }
           p = expf(s * a.scale - l);
           ds = p * (dp - DR[i]);
         }
@@ -2014,14 +2117,16 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
         dS[i * LDS + j] = ds;
       }
       __syncthreads();
-      for (int idx = tid; idx < FB * D; idx += PF_THREADS) {
-        const int j = idx / D, d = idx % D;
-        float sv = 0.f, sk = 0.f;
-        for (int i = 0; i < FB; ++i) {
-          sv += Ps[i * LDS + j] * dOs[i * LD + d];
-          sk += dS[i * LDS + j] * Qs[i * LD + d];
-        }
+      for (int idx = tid; idx < FB * DV; idx += PF_THREADS) {
+        const int j = idx / DV, d = idx % DV;
+        float sv = 0.f;
+        for (int i = 0; i < FB; ++i) sv += Ps[i * LDS + j] * dOs[i * LD + d];
         dV[j * LD + d] += sv;
+      }
+      for (int idx = tid; idx < FB * DK; idx += PF_THREADS) {
+        const int j = idx / DK, d = idx % DK;
+        float sk = 0.f;
+        for (int i = 0; i < FB; ++i) sk += dS[i * LDS + j] * Qs[i * LD + d];
         dK[j * LD + d] += sk;
       }
     }
@@ -2029,9 +2134,12 @@ __global__ void __launch_bounds__(PF_THREADS) bwd_dkdv_f32_kernel(BArgs a) {
   __syncthreads();
   float* dkp = static_cast<float*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
   float* dvp = static_cast<float*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
-  for (int idx = tid; idx < nk * D; idx += PF_THREADS) {
-    const int j = idx / D, d = idx % D;
+  for (int idx = tid; idx < nk * DK; idx += PF_THREADS) {
+    const int j = idx / DK, d = idx % DK;
     dkp[(k0 + j) * a.dks[2] + d] = dK[j * LD + d] * a.scale;
+  }
+  for (int idx = tid; idx < nk * DV; idx += PF_THREADS) {
+    const int j = idx / DV, d = idx % DV;
     dvp[(k0 + j) * a.dvs[2] + d] = dV[j * LD + d];
   }
 }
@@ -2046,7 +2154,7 @@ int set_smem(K kernel, size_t bytes) {
 // NULL) and returns its bytes.  float32: D_i (B, H, Sq).  bf16: the rows'
 // table, the plan and its counts, the turn counters, the dead flags, the
 // ticket and the dQ scratch (see the note).
-template <typename T, int D>
+template <typename T, int DK, int DV>
 size_t bwd_workspace(BArgs& a, char* ws) {
   const size_t bh = (size_t)a.B * a.H;
   size_t off = 0;
@@ -2055,21 +2163,21 @@ size_t bwd_workspace(BArgs& a, char* ws) {
     off += (bytes + 255) / 256 * 256;
     return p;
   };
-  constexpr int BQ = tile_rows<T, D>();
+  constexpr int BQ = tile_rows<T, DK, DV>();
   a.nQT = (a.Sq + BQ - 1) / BQ;
   if constexpr (std::is_same<T, float>::value) {
     a.bkt = FB;
     a.nKT = (a.Sk + FB - 1) / FB;
     a.drow = reinterpret_cast<float*>(take(bh * a.Sq * 4));
   } else {
-    a.bkt = BW<D>::BKT;
+    a.bkt = BW<DK, DV>::BKT;
     a.nKT = (a.Sk + a.bkt - 1) / a.bkt;
     a.rows = reinterpret_cast<float4*>(take(bh * a.nQT * BQ * 16));
     a.plan = reinterpret_cast<int*>(take(((size_t)a.nQT * a.nKT + a.nQT) * 4));
     a.turn = reinterpret_cast<int*>(take(bh * a.nQT * 4));
     a.dead = reinterpret_cast<int*>(take(bh * a.nQT * 4));
     a.ticket = reinterpret_cast<unsigned*>(take(4));
-    a.dqacc = reinterpret_cast<float*>(take(bh * a.nQT * BQ * D * 4));
+    a.dqacc = reinterpret_cast<float*>(take(bh * a.nQT * BQ * DK * 4));
   }
   return off;
 }
@@ -2120,73 +2228,70 @@ int tile_map(CUtensorMap* m, const void* base, const long long* st, int B,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_bwd(BArgs a, char* ws, cudaStream_t st) {
-  bwd_workspace<T, D>(a, ws);
+  bwd_workspace<T, DK, DV>(a, ws);
   if (a.nKT > MAX_KT) return (int)cudaErrorInvalidValue;
   const dim3 tiles(a.nQT, a.H, a.B);
-  bwd_pre_kernel<T, D><<<tiles, PRE_THREADS, 0, st>>>(a);
+  bwd_pre_kernel<T, DK, DV><<<tiles, PRE_THREADS, 0, st>>>(a);
   int err = (int)cudaGetLastError();
   if (err) return err;
   if constexpr (std::is_same<T, float>::value) {
-    using L = BFL<D>;
-    if ((err = set_smem(bwd_dq_f32_kernel<D>, L::SMEM))) return err;
-    bwd_dq_f32_kernel<D><<<dim3(a.H, (a.Sq + FB - 1) / FB, a.B), PF_THREADS,
-                           L::SMEM, st>>>(a);
+    using L = BFL<DK, DV>;
+    if ((err = set_smem(bwd_dq_f32_kernel<DK, DV>, L::SMEM))) return err;
+    bwd_dq_f32_kernel<DK, DV><<<dim3(a.H, (a.Sq + FB - 1) / FB, a.B),
+                                PF_THREADS, L::SMEM, st>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
-    if ((err = set_smem(bwd_dkdv_f32_kernel<D>, L::SMEM))) return err;
-    bwd_dkdv_f32_kernel<D><<<dim3(a.nKT, a.Hkv, a.B), PF_THREADS, L::SMEM,
-                             st>>>(a);
+    if ((err = set_smem(bwd_dkdv_f32_kernel<DK, DV>, L::SMEM))) return err;
+    bwd_dkdv_f32_kernel<DK, DV><<<dim3(a.nKT, a.Hkv, a.B), PF_THREADS,
+                                  L::SMEM, st>>>(a);
   } else {
-    using L = BW<D>;
+    using L = BW<DK, DV>;
     TMaps tm;
-    if ((err = tile_map(&tm.q, a.q, a.qs, a.B, a.Sq, a.H, D, L::BQ)) ||
-        (err = tile_map(&tm.dO, a.dO, a.dos, a.B, a.Sq, a.H, D, L::BQ)) ||
-        (err = tile_map(&tm.k, a.k, a.ks, a.B, a.Sk, a.Hkv, D, L::BKT)) ||
-        (err = tile_map(&tm.v, a.v, a.vs, a.B, a.Sk, a.Hkv, D, L::BKT)))
+    if ((err = tile_map(&tm.q, a.q, a.qs, a.B, a.Sq, a.H, DK, L::BQ)) ||
+        (err = tile_map(&tm.dO, a.dO, a.dos, a.B, a.Sq, a.H, DV, L::BQ)) ||
+        (err = tile_map(&tm.k, a.k, a.ks, a.B, a.Sk, a.Hkv, DK, L::BKT)) ||
+        (err = tile_map(&tm.v, a.v, a.vs, a.B, a.Sk, a.Hkv, DV, L::BKT)))
       return err;
     const size_t sm = L::smem(a.nQT);
-    if ((err = set_smem(bwd_bf16_kernel<D>, sm))) return err;
-    bwd_bf16_kernel<D><<<a.nKT * a.Hkv * a.B, L::NT, sm, st>>>(a, tm);
+    if ((err = set_smem(bwd_bf16_kernel<DK, DV>, sm))) return err;
+    bwd_bf16_kernel<DK, DV><<<a.nKT * a.Hkv * a.B, L::NT, sm, st>>>(a, tm);
     if ((err = (int)cudaGetLastError())) return err;
-    bwd_dq_kernel<D><<<tiles, 256, 0, st>>>(a);
+    bwd_dq_kernel<DK, DV><<<tiles, 256, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd_d(const BArgs& a, int D, char* ws, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_bwd<T, 16>(a, ws, st);
-    case 32: return launch_bwd<T, 32>(a, ws, st);
-    case 64: return launch_bwd<T, 64>(a, ws, st);
-    case 128: return launch_bwd<T, 128>(a, ws, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_bwd_d(const BArgs& a, int DK, int DV, char* ws, cudaStream_t st) {
+#define FA_CASE(K, V) \
+  if (DK == K && DV == V) return launch_bwd<T, K, V>(a, ws, st);
+  FA_HEAD_DIMS(FA_CASE)
+#undef FA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-size_t workspace_d(BArgs& a, int D) {
-  switch (D) {
-    case 16: return bwd_workspace<T, 16>(a, nullptr);
-    case 32: return bwd_workspace<T, 32>(a, nullptr);
-    case 64: return bwd_workspace<T, 64>(a, nullptr);
-    case 128: return bwd_workspace<T, 128>(a, nullptr);
-    default: return 0;
-  }
+size_t workspace_d(BArgs& a, int DK, int DV) {
+#define FA_CASE(K, V) \
+  if (DK == K && DV == V) return bwd_workspace<T, K, V>(a, nullptr);
+  FA_HEAD_DIMS(FA_CASE)
+#undef FA_CASE
+  return 0;
 }
 
 }  // namespace
 
 
 // Strides are in elements, in the order (batch, head, position) for q, k,
-// v and o; the last axis is contiguous.  kv_head: int32, the (H,) map of
+// v and o; the last axis is contiguous.  q and k have head dim DK, v and o
+// DV (a pair of FA_HEAD_DIMS).  kv_head: int32, the (H,) map of
 // query heads to kv heads in [0, Hkv), then the H query heads ordered by
 // kv head, then the Hkv + 1 offsets of each kv head's run in that order.
 // dtype 0 = float32, 1 = bfloat16.  Sq == 1 runs the decode
 // configuration, any other Sq the prefill one; decode splits the slots
 // over `splits` blocks per (request, kv head) and needs `ws`, float32 of
-// B * H * splits * (D + 2), and `counters`, int32 of B * Hkv, zero before
+// B * H * splits * (DV + 2), and `counters`, int32 of B * Hkv, zero before
 // the first call (each call leaves them zero).  Prefill ignores all three.
 // lse: NULL, or for prefill float32 (B, H, Sq), each row's log-sum-exp of
 // its scaled visible scores (-inf where it sees no key) for the backward;
@@ -2194,7 +2299,8 @@ size_t workspace_d(BArgs& a, int D) {
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* qpos,
     const void* kpos, const void* kv_head, void* ws, void* counters,
-    void* lse, int B, int H, int Hkv, int Sq, int Sk, int D, int splits,
+    void* lse, int B, int H, int Hkv, int Sq, int Sk, int DK, int DV,
+    int splits,
     long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb, long long osh,
@@ -2208,13 +2314,14 @@ extern "C" int flash_attention_fwd(
          {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
          scale, causal, window, (float*)lse};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(a, D, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, D, st);
+  if (dtype == 0) return launch_d<float>(a, DK, DV, st);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(a, DK, DV, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward of prefill: dq, dk, dv (shaped and typed as q, k, v) from
-// dO (as o), the forward's o and lse ((B, H, Sq) float32) and the same
+// The backward of prefill: dq, dk, dv (shaped and typed as q, k, v: head
+// dims DK, DK, DV) from dO (as o), the forward's o and lse ((B, H, Sq)
+// float32) and the same
 // positions, head table, scale and masks.  Strides in elements, (batch,
 // head, position), last axis contiguous, for q, k, v, o, dO, dq, dk, dv.
 // ws: flash_attention_bwd_workspace(...) bytes of scratch on the card,
@@ -2222,14 +2329,15 @@ extern "C" int flash_attention_fwd(
 // on the stream (see above); no float atomics: each call gives the same
 // gradients bit for bit.
 extern "C" long long flash_attention_bwd_workspace(int B, int H, int Sq,
-                                                   int Sk, int D, int dtype) {
+                                                   int Sk, int DK, int DV,
+                                                   int dtype) {
   BArgs a{};
   a.B = B;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
-  if (dtype == 0) return (long long)workspace_d<float>(a, D);
-  if (dtype == 1) return (long long)workspace_d<__nv_bfloat16>(a, D);
+  if (dtype == 0) return (long long)workspace_d<float>(a, DK, DV);
+  if (dtype == 1) return (long long)workspace_d<__nv_bfloat16>(a, DK, DV);
   return 0;
 }
 
@@ -2237,7 +2345,7 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, const void* qpos, const void* kpos,
     const void* kv_head, void* dq, void* dk, void* dv, void* ws, int B,
-    int H, int Hkv, int Sq, int Sk, int D, const long long* strides,
+    int H, int Hkv, int Sq, int Sk, int DK, int DV, const long long* strides,
     float scale, int causal, int window, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaGetLastError();
   if (Hkv <= 0 || H > MAX_HEADS || Sq == 1) return (int)cudaErrorInvalidValue;
@@ -2266,7 +2374,8 @@ extern "C" int flash_attention_bwd(
   a.causal = causal;
   a.window = window;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_bwd_d<float>(a, D, (char*)ws, st);
-  if (dtype == 1) return launch_bwd_d<__nv_bfloat16>(a, D, (char*)ws, st);
+  if (dtype == 0) return launch_bwd_d<float>(a, DK, DV, (char*)ws, st);
+  if (dtype == 1)
+    return launch_bwd_d<__nv_bfloat16>(a, DK, DV, (char*)ws, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,19 +1,54 @@
-"""Deterministic synthetic data pipeline (the port of ``make_batch`` and
-``synthetic_stream`` in ``repro/data/pipeline.py``).
+"""Deterministic synthetic data pipeline and the input shapes (the port of
+``make_batch``, ``synthetic_stream`` and ``input_specs`` in
+``repro/data/pipeline.py``).
 
-Batches are drawn with numpy from the same seeds as the JAX package's, so
-tokens and labels are bit-equal to it; they are returned as CPU tensors
-(host data: the trainer moves each batch to its device).  The frontends'
-inputs (audio frames, image patches) wait for the frontends (ROADMAP
-Queue 1, item 7d).  ``input_specs``, the dry-run's shape stand-ins, has no
-counterpart: the port lowers nothing ahead of time.
+Batches are drawn with numpy from the same seeds, in the same order, as
+the JAX package's, so tokens, labels, audio frames and image patches are
+bit-equal to it (the frontends' float inputs are drawn in float64, cast to
+float32 and rounded to bfloat16, as the JAX package rounds them); they are
+returned as CPU tensors (host data: the trainer moves each batch to its
+device).  ``input_specs`` gives each input's shape and dtype as a tensor
+on the meta device, where the JAX package gives ``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
+
+
+def _batch_tree(cfg: ArchConfig, kind: str, seq_len: int, batch: int):
+    """{name: (shape, dtype)} of a ``kind`` step's inputs."""
+    t = {}
+    if cfg.frontend == "audio_stub":
+        t["frames"] = ((batch, seq_len, cfg.frontend_dim), torch.bfloat16)
+        if kind == "train":
+            t["labels"] = ((batch, seq_len), torch.int32)
+        return t
+    if cfg.frontend == "vision_stub" and kind in ("train", "prefill"):
+        n_text = seq_len - cfg.n_patches
+        t["tokens"] = ((batch, n_text), torch.int32)
+        t["patch_embeds"] = ((batch, cfg.n_patches, cfg.frontend_dim),
+                             torch.bfloat16)
+        if kind == "train":
+            t["labels"] = ((batch, n_text), torch.int32)
+        return t
+    if kind == "decode":
+        t["tokens"] = ((batch, 1), torch.int32)
+        return t
+    t["tokens"] = ((batch, seq_len), torch.int32)
+    if kind == "train":
+        t["labels"] = ((batch, seq_len), torch.int32)
+    return t
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """{name: an empty tensor on the meta device} of the shape and dtype of
+    each input of ``cell`` (allocates nothing)."""
+    tree = _batch_tree(cfg, cell.kind, cell.seq_len, cell.global_batch)
+    return {k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype) in tree.items()}
 
 
 # affine next-token map: t_{i+1} = (A*t_i + C) mod vocab.  A learnable
@@ -33,19 +68,29 @@ def _affine_chain(rng, batch: int, length: int, vocab: int):
 
 def make_batch(cfg: ArchConfig, kind: str, seq_len: int, batch: int,
                seed: int = 0) -> dict:
-    """{"tokens"} (decode: one token a row; prefill: seq_len) or, for
-    train, {"tokens", "labels"} as int32 CPU tensors, drawn from
-    ``np.random.default_rng(seed)``."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend's inputs are not "
-            f"ported yet (ROADMAP Queue 1, item 7d)")
+    """The inputs of a ``kind`` step (train, prefill or decode) as CPU
+    tensors, drawn from ``np.random.default_rng(seed)``: tokens (and, for
+    train, labels) from the affine chain; then, in the tree's order, the
+    other integer inputs uniform over the vocabulary (audio labels) and
+    the float ones standard normal (frames, patch embeddings)."""
+    tree = _batch_tree(cfg, kind, seq_len, batch)
     rng = np.random.default_rng(seed)
-    toks, labels = _affine_chain(rng, batch, 1 if kind == "decode"
-                                 else seq_len, cfg.vocab_size)
-    out = {"tokens": torch.from_numpy(toks)}
-    if kind == "train":
-        out["labels"] = torch.from_numpy(labels)
+    out = {}
+    if "tokens" in tree:
+        toks, labels = _affine_chain(rng, tree["tokens"][0][0],
+                                     tree["tokens"][0][1], cfg.vocab_size)
+        out["tokens"] = torch.from_numpy(toks)
+        if "labels" in tree:
+            out["labels"] = torch.from_numpy(labels)
+    for k, (shape, dtype) in tree.items():
+        if k in out:
+            continue
+        if dtype == torch.int32:
+            out[k] = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+        else:
+            out[k] = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dtype)
     return out
 
 

@@ -2,7 +2,9 @@
 flash-attention kernel: ``csrc/flash_attention.cu`` for CUDA tensors, the
 plain version (``ref.attention_ref``) for CPU tensors.
 
-Layout (B, S, H, D) at the wrappers, as in the JAX package; the kernel
+Layout (B, S, H, D) at the wrappers, as in the JAX package, with v's head
+dim (and the output's) that of ``v``: MLA's expanded form reads q and k
+of 96 (64 + 32 rotary) and v of 64.  The kernel
 reads that layout through its strides, so nothing is transposed on the
 card.  K and V stay unexpanded: query head h reads kv head ``kv_head[h]``
 through a table on the card (built from ``H // Hkv`` when no map is
@@ -32,23 +34,28 @@ from repro_torch.obs.trace import kernel_launch
 
 KERNEL = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)        # q, k and v of one head dim
+# every (q/k, v) head dim pair the kernel has an instance of
+# (csrc/flash_attention.cu FA_HEAD_DIMS): the square ones and MLA's
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
+# the decode configuration's: a K/V row spans a power of two of lanes
+DECODE_HEAD_DIMS = (16, 32, 64, 128)
 MAX_HEADS = 256                  # csrc/flash_attention.cu MAX_HEADS
 MAX_SPLITS = 32                  # csrc/flash_attention.cu MAX_SPLITS
 # q, k, v, o, q_pos, k_pos, kv_head, ws, counters, lse; B, H, Hkv, Sq, Sk,
-# D, splits; 12 strides; scale; causal, window, dtype; stream
-_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+# DK, DV, splits; 12 strides; scale; causal, window, dtype; stream
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
          + [ctypes.c_longlong] * 12
          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p])
 # q, k, v, o, dO, lse, q_pos, k_pos, kv_head, dq, dk, dv, workspace; B, H,
-# Hkv, Sq, Sk, D; the 24 strides (a host array); scale; causal, window,
-# dtype; stream
-_BWD_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+# Hkv, Sq, Sk, DK, DV; the 24 strides (a host array); scale; causal,
+# window, dtype; stream
+_BWD_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-# B, H, Sq, Sk, D, dtype -> bytes of the backward's workspace
-_BWD_WS_ARGS = [ctypes.c_int] * 6
+# B, H, Sq, Sk, DK, DV, dtype -> bytes of the backward's workspace
+_BWD_WS_ARGS = [ctypes.c_int] * 7
 BACKWARD = f"{KERNEL}.backward"
 
 _TABLES: dict = {}   # (kv_head, Hkv, device) -> int32 table on the card
@@ -56,11 +63,13 @@ _SCRATCH: dict = {}  # device -> (ws float32, counters int32)
 _SMS: dict = {}      # device -> streaming multiprocessors
 
 
-def bwd_tiles(D: int) -> tuple:
-    """The bf16 backward's tiles at head dim D (``csrc/flash_attention.cu``
-    ``BW<D>::BQ`` and ``BW<D>::BKT``): query rows a tile, keys a block of
-    the fused kernel.  Its dQ turn table is ``ref.dq_turns`` over these."""
-    return (64 if D == 128 else 128), 128
+def bwd_tiles(DK: int, DV: int | None = None) -> tuple:
+    """The bf16 backward's tiles at head dims (DK, DV) (DV = DK when not
+    given; ``csrc/flash_attention.cu`` ``BW<DK, DV>::BQ`` and
+    ``BW<DK, DV>::BKT``): query rows a tile, keys a block of the fused
+    kernel.  Its dQ turn table is ``ref.dq_turns`` over these."""
+    DV = DK if DV is None else DV
+    return (128 if DK <= 64 and DV <= 64 else 64), 128
 
 
 def head_map(H: int, Hkv: int, kv_head=None) -> tuple:
@@ -118,22 +127,29 @@ def _scratch(dev, n_ws: int, n_cnt: int):
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
               scale=None, kv_head=None):
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); q_pos (Sq,), k_pos (Sk,)
-    int32 (-1 = empty slot).  Query head h reads kv head ``kv_head[h]``
-    (H ints in [0, Hkv)); without a map H % Hkv == 0 and it reads
-    h // (H // Hkv).  Returns (B, Sq, H, D) in q's dtype.  Sq == 1 runs
-    the decode configuration of the kernel, any other Sq the prefill one."""
+    """q: (B, Sq, H, DK); k: (B, Sk, Hkv, DK); v: (B, Sk, Hkv, DV); q_pos
+    (Sq,), k_pos (Sk,) int32 (-1 = empty slot).  Query head h reads kv
+    head ``kv_head[h]`` (H ints in [0, Hkv)); without a map H % Hkv == 0
+    and it reads h // (H // Hkv).  ``scale`` defaults to DK ** -0.5.
+    Returns (B, Sq, H, DV) in q's dtype.  Sq == 1 runs the decode
+    configuration of the kernel, any other Sq the prefill one."""
     return _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
                     False)[0]
 
 
-def _check(q, Sq, D, H):
+def _check(q, Sq, DK, DV, H):
     if q.dtype not in DTYPES:
         raise ValueError(f"attention: dtype {q.dtype}, the kernel takes "
                          f"float32 or bfloat16")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {D}, the kernel takes "
-                         f"{HEAD_DIMS}")
+    if (DK, DV) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"attention: head dims (q/k {DK}, v {DV}), the "
+                         f"kernel takes {HEAD_DIM_PAIRS}")
+    if Sq == 1 and (DK != DV or DK not in DECODE_HEAD_DIMS):
+        raise ValueError(
+            f"attention: head dims (q/k {DK}, v {DV}) in the decode "
+            f"configuration (Sq == 1), which takes one head dim in "
+            f"{DECODE_HEAD_DIMS}: MLA decodes in its absorbed form, with no "
+            f"attention kernel, and HuBERT (80) is an encoder")
     if H > MAX_HEADS:
         raise ValueError(f"attention: {H} heads, the kernel takes at most "
                          f"{MAX_HEADS}")
@@ -145,7 +161,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
     row's log-sum-exp of its scaled scores, (B, H, Sq) float32 (None on the
     CPU, whose backward differentiates the plain version)."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, DV = k.shape[1], k.shape[2], v.shape[-1]
     kv_head = head_map(H, Hkv, kv_head)
     scale = float(scale if scale is not None else D ** -0.5)
     name = f"{KERNEL}.{'decode' if Sq == 1 else 'prefill'}"
@@ -154,7 +170,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
         return attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                              window=window, scale=scale,
                              kv_head=kv_head), None
-    _check(q, Sq, D, H)
+    _check(q, Sq, D, DV, H)
     if want_lse and Sq == 1:
         raise ValueError("attention: no gradient for the decode "
                          "configuration (Sq == 1)")
@@ -162,18 +178,18 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
     chk = _build.checked
     qs = chk("q", _build.aligned16(q), q.dtype, (B, Sq, H, D), dev)
     ks = chk("k", _build.aligned16(k), q.dtype, (B, Sk, Hkv, D), dev)
-    vs = chk("v", _build.aligned16(v), q.dtype, (B, Sk, Hkv, D), dev)
+    vs = chk("v", _build.aligned16(v), q.dtype, (B, Sk, Hkv, DV), dev)
     qp = chk("q_pos", q_pos.to(torch.int32).contiguous(), torch.int32,
              (Sq,), dev)
     kp = chk("k_pos", _build.aligned16(k_pos.to(torch.int32)), torch.int32,
              (Sk,), dev)
-    o = torch.empty_like(qs)
+    o = qs.new_empty((B, Sq, H, DV))
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if want_lse else None)
     splits, ws_ptr, cnt_ptr = 0, 0, 0
     if Sq == 1:
         splits = decode_splits(B, Hkv, Sk, dev)
-        ws, cnt = _scratch(dev, B * H * splits * (D + 2), B * Hkv)
+        ws, cnt = _scratch(dev, B * H * splits * (DV + 2), B * Hkv)
         ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
     strides = [s for t in (qs, ks, vs, o) for s in
                (t.stride(0), t.stride(2), t.stride(1))]
@@ -182,7 +198,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
                   o.data_ptr(), qp.data_ptr(), kp.data_ptr(),
                   _table(kv_head, Hkv, dev).data_ptr(), ws_ptr, cnt_ptr,
                   None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk,
-                  D, splits, *strides, scale, int(causal),
+                  D, DV, splits, *strides, scale, int(causal),
                   0 if window is None else int(window), DTYPES[q.dtype],
                   _build.stream_ptr(dev))
     return o, lse
@@ -191,13 +207,15 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, scale, kv_head,
 def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
                        window=None, scale=None, kv_head=None):
     """The gradient of prefill :func:`attention`: (dq, dk, dv), shaped and
-    typed as q, k, v, from ``do`` (the gradient of ``o``), the forward's
+    typed as q, k, v (v's head dim may differ from q's and k's, as
+    :func:`attention` allows), from ``do`` (the gradient of ``o``), the
+    forward's
     output ``o`` and its ``lse`` ((B, H, Sq) float32).  CUDA tensors run
     the backward kernel; CPU tensors differentiate the plain version
     (``o`` and ``lse`` unused).  A row that sees no key gets the forward's
     mean of v: its gradient reaches every v row (dO / Sk) and no q or k."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, DV = k.shape[1], k.shape[2], v.shape[-1]
     kv_head = head_map(H, Hkv, kv_head)
     scale = float(scale if scale is not None else D ** -0.5)
     kernel_launch(BACKWARD, backend=q.device.type, q=Sq, k=Sk, heads=B * H)
@@ -207,17 +225,17 @@ def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
             out = attention_ref(*leaves, q_pos, k_pos, causal=causal,
                                 window=window, scale=scale, kv_head=kv_head)
             return torch.autograd.grad(out, leaves, do)
-    _check(q, Sq, D, H)
     if Sq == 1:
         raise ValueError("attention: no gradient for the decode "
                          "configuration (Sq == 1)")
+    _check(q, Sq, D, DV, H)
     dev = q.device
     chk = _build.checked
     qs = chk("q", _build.aligned16(q), q.dtype, (B, Sq, H, D), dev)
     ks = chk("k", _build.aligned16(k), q.dtype, (B, Sk, Hkv, D), dev)
-    vs = chk("v", _build.aligned16(v), q.dtype, (B, Sk, Hkv, D), dev)
-    os_ = chk("o", _build.aligned16(o), q.dtype, (B, Sq, H, D), dev)
-    dos = chk("do", _build.aligned16(do), q.dtype, (B, Sq, H, D), dev)
+    vs = chk("v", _build.aligned16(v), q.dtype, (B, Sk, Hkv, DV), dev)
+    os_ = chk("o", _build.aligned16(o), q.dtype, (B, Sq, H, DV), dev)
+    dos = chk("do", _build.aligned16(do), q.dtype, (B, Sq, H, DV), dev)
     ls = chk("lse", lse.contiguous(), torch.float32, (B, H, Sq), dev)
     qp = chk("q_pos", q_pos.to(torch.int32).contiguous(), torch.int32,
              (Sq,), dev)
@@ -228,7 +246,7 @@ def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
     # scratch (bf16: 4 B * H * Sq * D and more), written before read
     nbytes = _build.bind("flash_attention", "flash_attention_bwd_workspace",
                          _BWD_WS_ARGS, ctypes.c_longlong)(
-        B, H, Sq, Sk, D, DTYPES[q.dtype])
+        B, H, Sq, Sk, D, DV, DTYPES[q.dtype])
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     strides = (ctypes.c_longlong * 24)(*[
         s for t in (qs, ks, vs, os_, dos, dq, dk, dv)
@@ -239,7 +257,7 @@ def attention_backward(do, q, k, v, o, lse, q_pos, k_pos, *, causal=True,
                   qp.data_ptr(), kp.data_ptr(),
                   _table(kv_head, Hkv, dev).data_ptr(), dq.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, H, Hkv, Sq,
-                  Sk, D, strides, scale, int(causal),
+                  Sk, D, DV, strides, scale, int(causal),
                   0 if window is None else int(window), DTYPES[q.dtype],
                   _build.stream_ptr(dev))
     return dq, dk, dv
@@ -249,37 +267,39 @@ class _MHA(torch.autograd.Function):
     """Prefill attention with the backward kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, kv_head):
-        o, lse = _forward(q, k, v, q_pos, k_pos, causal, window, None,
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale, kv_head):
+        o, lse = _forward(q, k, v, q_pos, k_pos, causal, window, scale,
                           kv_head, True)
         ctx.save_for_backward(q, k, v, o, lse, q_pos, k_pos)
-        ctx.mask = (causal, window, kv_head)
+        ctx.mask = (causal, window, scale, kv_head)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
-        causal, window, kv_head = ctx.mask
+        causal, window, scale, kv_head = ctx.mask
         dq, dk, dv = attention_backward(do, q, k, v, o, lse, q_pos, k_pos,
                                         causal=causal, window=window,
-                                        kv_head=kv_head)
-        return dq, dk, dv, None, None, None, None, None
+                                        scale=scale, kv_head=kv_head)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def mha(q, k, v, *, causal=True, window=None, block_q=256, block_k=256,
-        kv_head=None):
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, H, D).
-    Differentiable: where grad mode is on and q, k or v wants a gradient
-    it goes through :class:`_MHA`; otherwise (serving) it is
-    :func:`attention` as it was."""
+        scale=None, kv_head=None):
+    """q: (B, Sq, H, DK); k: (B, Sk, Hkv, DK); v: (B, Sk, Hkv, DV) ->
+    (B, Sq, H, DV); ``scale`` defaults to DK ** -0.5.  Differentiable:
+    where grad mode is on and q, k or v wants a gradient it goes through
+    :class:`_MHA`; otherwise (serving) it is :func:`attention` as it
+    was."""
     dev = q.device
     q_pos = torch.arange(q.shape[1], dtype=torch.int32, device=dev)
     k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=dev)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _MHA.apply(q, k, v, q_pos, k_pos, causal, window, kv_head)
+        return _MHA.apply(q, k, v, q_pos, k_pos, causal, window, scale,
+                          kv_head)
     return attention(q, k, v, q_pos, k_pos, causal=causal, window=window,
-                     kv_head=kv_head)
+                     scale=scale, kv_head=kv_head)
 
 
 def decode(q, k_cache, v_cache, slot_pos, pos, *, window=None, block_k=256,

@@ -42,9 +42,10 @@ def expand_kv(k, groups: int, index_map=None):
 
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, groups=1, causal=True,
                         window=None, scale=None):
-    """q: (BH, Sq, D); k, v: (BH // groups, Sk, D); q_pos (Sq,), k_pos (Sk,)
-    int32.  Scores and softmax in float32; the probabilities are rounded to
-    v's dtype before the product with v, as the JAX oracle does."""
+    """q: (BH, Sq, DK); k: (BH // groups, Sk, DK); v: (BH // groups, Sk,
+    DV); q_pos (Sq,), k_pos (Sk,) int32 -> (BH, Sq, DV).  Scores and
+    softmax in float32; the probabilities are rounded to v's dtype before
+    the product with v, as the JAX oracle does."""
     D = q.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     if groups > 1:
@@ -61,20 +62,21 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, groups=1, causal=True,
 def attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
                   scale=None, kv_head=None):
     """:func:`flash_attention_ref` in the wrappers' (B, S, H, D) layout:
-    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D).  ``kv_head``:
-    query head -> kv head (``h // (H // Hkv)`` when None)."""
+    q (B, Sq, H, DK), k (B, Sk, Hkv, DK), v (B, Sk, Hkv, DV) -> (B, Sq, H,
+    DV).  ``kv_head``: query head -> kv head (``h // (H // Hkv)`` when
+    None)."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, DV = k.shape[1], k.shape[2], v.shape[-1]
     if kv_head is not None:
         k, v = expand_kv(k, 1, kv_head), expand_kv(v, 1, kv_head)
         Hkv = H
     out = flash_attention_ref(
         q.transpose(1, 2).reshape(B * H, Sq, D),
         k.transpose(1, 2).reshape(B * Hkv, Sk, D),
-        v.transpose(1, 2).reshape(B * Hkv, Sk, D),
+        v.transpose(1, 2).reshape(B * Hkv, Sk, DV),
         q_pos, k_pos, groups=H // Hkv, causal=causal, window=window,
         scale=scale)
-    return out.reshape(B, H, Sq, D).transpose(1, 2)
+    return out.reshape(B, H, Sq, DV).transpose(1, 2)
 
 
 def dq_turns(q_pos, k_pos, *, causal=True, window=None, block_q=64,

@@ -11,6 +11,22 @@ from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 
+def param_grads(loss, params: dict, cfg: ArchConfig) -> dict:
+    """{name: d loss / d param}: zeros for a parameter of
+    ``transformer.unreached_params(cfg)`` that the loss does not reach
+    (an audio encoder's token embedding), as ``jax.grad`` gives; any
+    other parameter the loss does not reach raises ValueError."""
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    stray = ({n for n, g in zip(params, grads) if g is None}
+             - tf.unreached_params(cfg))
+    if stray:
+        raise ValueError(f"the loss of {cfg.name} does not reach "
+                         f"{sorted(stray)}")
+    return {n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(params.items(), grads)}
+
+
 def make_train_fn(cfg: ArchConfig, hp: AdamWConfig = AdamWConfig()):
     """``train_step(model, params, opt_state, batch) -> metrics``: the loss
     and its gradient with respect to ``params`` (the model's ``{name:
@@ -19,8 +35,7 @@ def make_train_fn(cfg: ArchConfig, hp: AdamWConfig = AdamWConfig()):
 
     def grads_of(model, params, b):
         loss, metrics = tf.loss_fn(model, b, cfg)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss, metrics, dict(zip(params, grads))
+        return loss, metrics, param_grads(loss, params, cfg)
 
     def train_step(model, params, opt_state, batch):
         k = cfg.microbatches

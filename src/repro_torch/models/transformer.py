@@ -4,11 +4,14 @@ slot-cache decode (the port of ``repro/models/transformer.py``).
 The JAX package stacks layer parameters on a leading L axis and scans over
 them; here each layer is a :class:`Block` module in an ``nn.ModuleList``,
 and the functions below mirror the JAX ones with the model in place of the
-parameter tree.  Blocks: ``attn_mlp`` (GQA + MLP), ``attn_moe`` (GQA +
-routed MoE FFN), ``mamba2`` (one SSD mixer, no MLP) and ``hymba``
-(parallel GQA and SSD heads, then an MLP).  Where the JAX block adds a
-residual and then normalises, the port calls the fused residual form of
-the rmsnorm kernel.
+parameter tree.  Blocks: ``attn_mlp`` (GQA + MLP), ``mla_mlp`` (MLA +
+MLP), ``attn_moe`` (GQA + routed MoE FFN), ``mamba2`` (one SSD mixer, no
+MLP) and ``hymba`` (parallel GQA and SSD heads, then an MLP).  Where the
+JAX block adds a residual and then normalises, the port calls the fused
+residual form of the rmsnorm kernel.  The modality frontends are the JAX
+package's stubs: ``audio_stub`` projects precomputed frames (HuBERT),
+``vision_stub`` projects precomputed patch embeddings and puts them
+before the tokens (InternVL2), the loss then taken on the text alone.
 
 Parameters are created frozen (serving); the trainer turns their
 gradients on.  With ``cfg.remat`` and a gradient wanted, each block and
@@ -38,23 +41,18 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (const_init, cross_entropy, init_mlp,
                                        mlp_forward, normal_init, rms_norm)
 
-NOT_PORTED = {
-    BLOCK_MLA_MLP: "MLA attention (ROADMAP Queue 1, item 7c)",
-}
 ATTN_BLOCKS = (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)    # GQA then an FFN
+BLOCKS = (*ATTN_BLOCKS, BLOCK_MLA_MLP, BLOCK_MAMBA2, BLOCK_HYMBA)
+FRONTENDS = ("none", "audio_stub", "vision_stub")
 
 
-def _check_ported(cfg: ArchConfig):
-    if cfg.block in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: block {cfg.block!r} needs {NOT_PORTED[cfg.block]},"
-            f" not ported yet")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP Queue 1, item 7d)")
-    if cfg.block not in (*ATTN_BLOCKS, BLOCK_MAMBA2, BLOCK_HYMBA):
-        raise ValueError(cfg.block)
+def _check_config(cfg: ArchConfig):
+    if cfg.block not in BLOCKS:
+        raise ValueError(f"{cfg.name}: no block {cfg.block!r}; the blocks "
+                         f"are {BLOCKS}")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: no frontend {cfg.frontend!r}; the "
+                         f"frontends are {FRONTENDS}")
 
 
 def _frozen(t):
@@ -81,7 +79,9 @@ class Block(nn.Module):
             self.norm2 = _frozen(const_init(gen, (d,), 1.0, dtype))
         if cfg.block in (*ATTN_BLOCKS, BLOCK_HYMBA):
             self.attn = _params(attn.init_attention(gen, cfg, dtype))
-        if cfg.block in (BLOCK_ATTN_MLP, BLOCK_HYMBA):
+        if cfg.block == BLOCK_MLA_MLP:
+            self.attn = _params(attn.init_mla(gen, cfg, dtype))
+        if cfg.block in (BLOCK_ATTN_MLP, BLOCK_MLA_MLP, BLOCK_HYMBA):
             self.mlp = _params(init_mlp(gen, d, cfg.d_ff, cfg.mlp_gated,
                                         dtype))
         if cfg.block == BLOCK_ATTN_MOE:
@@ -113,6 +113,10 @@ def block_forward(lp, x, cfg, positions, want_cache=False):
         y, (k, v) = attn.attention_forward(lp["attn"], h, cfg, positions)
         if want_cache:
             cache = {"k": k, "v": v}
+    elif cfg.block == BLOCK_MLA_MLP:
+        y, (c_kv, k_rope) = attn.mla_forward(lp["attn"], h, cfg, positions)
+        if want_cache:
+            cache = {"c_kv": c_kv, "k_rope": k_rope}
     elif cfg.block == BLOCK_MAMBA2:
         y, state = m2.mamba2_forward(lp["ssm"], h, cfg,
                                      return_state=want_cache)
@@ -138,6 +142,8 @@ def block_decode(lp, x, layer_cache, cfg):
     h = rms_norm(x, lp["norm1"])
     if cfg.block in ATTN_BLOCKS:
         y, _ = attn.attention_decode(lp["attn"], h, layer_cache, cfg)
+    elif cfg.block == BLOCK_MLA_MLP:
+        y, _ = attn.mla_decode(lp["attn"], h, layer_cache, cfg)
     elif cfg.block == BLOCK_MAMBA2:
         y, layer_cache["ssm"] = m2.mamba2_decode(lp["ssm"], h,
                                                  layer_cache["ssm"], cfg)
@@ -159,13 +165,15 @@ def block_decode(lp, x, layer_cache, cfg):
 # the model
 # ---------------------------------------------------------------------------
 class LM(nn.Module):
-    """A decoder LM of one of the ported blocks, with random weights drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``
-    means cuda; ``"meta"`` allocates nothing, for shapes)."""
+    """An LM of one of the blocks (an encoder where ``cfg.causal`` is
+    False), with random weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (``None`` means cuda; ``"meta"`` allocates
+    nothing, for shapes).  A frontend adds ``frontend.proj``
+    (frontend_dim, d)."""
 
     def __init__(self, cfg: ArchConfig, seed: int = 0, device=None):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
@@ -178,6 +186,10 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _frozen(normal_init(gen, (d, cfg.padded_vocab),
                                                d ** -0.5, dtype))
+        if cfg.frontend != "none":
+            self.frontend = _params({"proj": normal_init(
+                gen, (cfg.frontend_dim, d), cfg.frontend_dim ** -0.5,
+                dtype)})
         self.layers = nn.ModuleList(Block(cfg, gen, dtype)
                                     for _ in range(cfg.n_layers))
 
@@ -195,10 +207,48 @@ def param_shapes(cfg: ArchConfig) -> dict:
 # embedding
 # ---------------------------------------------------------------------------
 def embed_inputs(model, batch, cfg: ArchConfig):
-    """Tokens only.  Returns (x (B, S, d), positions (S,))."""
-    tokens = batch["tokens"]
-    x = F.embedding(tokens.long(), model["embed"])
-    return x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    """Returns (x (B, S, d), positions (S,), loss mask (B, S) or None).
+    ``audio_stub``: x is ``batch["frames"]`` (B, T, frontend_dim) through
+    the projection.  ``vision_stub`` with ``batch["patch_embeds"]`` (B, P,
+    frontend_dim): the projected patches, then the token embeddings, and
+    a mask of 0 on the patches and 1 on the text; without patches, tokens
+    only."""
+    mask = None
+    if cfg.frontend == "audio_stub":
+        x = batch["frames"].to(model["embed"].dtype) @ model["frontend"][
+            "proj"]
+    else:
+        tokens = batch["tokens"]
+        x = F.embedding(tokens.long(), model["embed"])
+        if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+            pe = (batch["patch_embeds"].to(x.dtype)
+                  @ model["frontend"]["proj"])
+            x = torch.cat([pe, x], dim=1)
+            B, n_patch = pe.shape[:2]
+            mask = torch.cat(
+                [torch.zeros((B, n_patch), dtype=torch.float32,
+                             device=x.device),
+                 torch.ones((B, tokens.shape[1]), dtype=torch.float32,
+                            device=x.device)], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return x, positions, mask
+
+
+def input_len(batch, cfg: ArchConfig) -> int:
+    """The positions ``batch`` fills: frames, or patches and tokens."""
+    if cfg.frontend == "audio_stub":
+        return batch["frames"].shape[1]
+    n = batch["tokens"].shape[1]
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
+
+
+def unreached_params(cfg: ArchConfig) -> set:
+    """The parameters ``loss_fn`` never reads: an audio encoder's token
+    embedding, unless it is tied to the unembedding."""
+    return ({"embed"} if cfg.frontend == "audio_stub"
+            and not cfg.tie_embeddings else set())
 
 
 def unembed(model, x, cfg):
@@ -215,13 +265,14 @@ def unembed(model, x, cfg):
 # ---------------------------------------------------------------------------
 def forward(model, batch, cfg: ArchConfig, want_cache=False,
             last_only=False, unembed_out=True):
-    """Returns (logits, per-layer caches or None, aux loss).  ``last_only``
+    """Returns (logits, per-layer caches or None, aux loss, loss mask or
+    None: :func:`embed_inputs`'s).  ``last_only``
     unembeds the last position alone (what prefill needs; the norm and the
     unembed are per position, so its logits equal the full run's last
     row); without ``unembed_out`` the first output is the final-normed
     hidden state.  Under ``cfg.remat``, with a gradient wanted, each block
     is recomputed in the backward."""
-    x, positions = embed_inputs(model, batch, cfg)
+    x, positions, mask = embed_inputs(model, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
@@ -239,7 +290,7 @@ def forward(model, batch, cfg: ArchConfig, want_cache=False,
         x = x[:, -1:]
     x = rms_norm(x, model["final_norm"])
     out = unembed(model, x, cfg) if unembed_out else x
-    return out, (caches if want_cache else None), aux
+    return out, (caches if want_cache else None), aux, mask
 
 
 def _ce_chunk(model, cfg, x, labels, mask):
@@ -273,21 +324,32 @@ def chunked_ce(model, x, labels, mask, cfg: ArchConfig, chunk: int = 512):
 
 
 def loss_fn(model, batch, cfg: ArchConfig):
-    """(ce + 0.01 * aux, {"ce", "aux"}) on a batch {"tokens", "labels"}."""
-    x, _, aux = forward(model, batch, cfg, unembed_out=False)
-    ce = chunked_ce(model, x, batch["labels"], None, cfg)
+    """(ce + 0.01 * aux, {"ce", "aux"}) on a train batch (``make_batch``'s:
+    tokens, frames or tokens and patches, and labels).  With patches the
+    loss is on the text positions alone: the hidden state of the patches
+    is dropped before the CE, as the JAX ``loss_fn`` drops it."""
+    x, _, aux, mask = forward(model, batch, cfg, unembed_out=False)
+    labels = batch["labels"]
+    if mask is not None:
+        n_patch = x.shape[1] - labels.shape[1]
+        x, mask = x[:, n_patch:], mask[:, n_patch:]
+    ce = chunked_ce(model, x, labels, mask, cfg)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """An empty cache {'layers': [per-layer dict], 'pos': 0}."""
     dev = resolve_device(device)
-    _check_ported(cfg)
+    _check_config(cfg)
     dtype = getattr(torch, cfg.dtype)
 
     def one():
         if cfg.block == BLOCK_MAMBA2:
             return {"ssm": m2.init_mamba2_cache(cfg, batch, dtype, dev)}
+        if cfg.block == BLOCK_MLA_MLP:
+            c = attn.init_mla_cache(cfg, batch, max_len, dtype, dev)
+            c.pop("pos")
+            return c
         ac = attn.init_attn_cache(cfg, batch, max_len, dtype, dev)
         ac.pop("pos")
         if cfg.block in ATTN_BLOCKS:
@@ -299,16 +361,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 
 def prefill(model, batch, cfg: ArchConfig, alloc_len: int | None = None):
     """Full-sequence prefill; returns (last-token logits (B, 1, V),
-    decode-ready cache)."""
-    logits, caches, _ = forward(model, batch, cfg, want_cache=True,
-                                last_only=True)
-    seq_len = batch["tokens"].shape[1]
+    decode-ready cache).  With patches (``vision_stub``) the positions
+    count them: decode starts after the patches and the prompt."""
+    logits, caches, _, _ = forward(model, batch, cfg, want_cache=True,
+                                   last_only=True)
+    seq_len = input_len(batch, cfg)
     return logits, _prefill_to_cache(caches, cfg, seq_len,
                                      alloc_len or seq_len)
 
 
 def _prefill_to_cache(caches, cfg, seq_len: int, alloc_len: int):
-    """Per-layer prefill outputs (k, v / state) -> a decode cache.
+    """Per-layer prefill outputs (k, v / latent / state) -> a decode
+    cache.
 
     alloc_len: cache capacity (>= window for windowed archs).  Slot layout
     is position % capacity; the last min(seq_len, capacity) positions land
@@ -319,9 +383,10 @@ def _prefill_to_cache(caches, cfg, seq_len: int, alloc_len: int):
     if cfg.block == BLOCK_MAMBA2:
         return {"layers": [{"ssm": c["ssm"]} for c in caches],
                 "pos": seq_len}
-    kvs = [c if cfg.block in ATTN_BLOCKS else c["attn"] for c in caches]
+    kvs = [c["attn"] if cfg.block == BLOCK_HYMBA else c for c in caches]
     keep = min(seq_len, cap)
-    src = torch.arange(seq_len - keep, seq_len, device=kvs[0]["k"].device)
+    src = torch.arange(seq_len - keep, seq_len,
+                       device=next(iter(kvs[0].values())).device)
     idx = src % cap
     sp = torch.full((cap,), -1, dtype=torch.int32, device=src.device)
     sp[idx] = src.to(torch.int32)
@@ -332,10 +397,10 @@ def _prefill_to_cache(caches, cfg, seq_len: int, alloc_len: int):
         return out
 
     def slots(kv):
-        return {"k": to_slots(kv["k"]), "v": to_slots(kv["v"]),
+        return {**{k: to_slots(t) for k, t in kv.items()},
                 "slot_pos": sp.clone()}
 
-    if cfg.block in ATTN_BLOCKS:
+    if cfg.block in (*ATTN_BLOCKS, BLOCK_MLA_MLP):
         layers = [slots(kv) for kv in kvs]
     else:
         layers = [{"attn": slots(kv), "ssm": c["ssm"]}

@@ -11,9 +11,9 @@
 
 One device, no mesh: elastic ``reshard`` and expert parallelism wait for
 the ``torch.distributed`` slice (ROADMAP Queue 1, item 7e).  Every block
-the port runs trains, the SSD scan's (``mamba2``, ``hymba``) through its
-backward kernel; the blocks not ported yet (MLA, the frontends) are
-refused by the model itself.
+and frontend trains, the SSD scan's (``mamba2``, ``hymba``) through its
+backward kernel, MLA's attention through the flash backward at head dims
+(96, 64).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_fn
+from repro_torch.launch.steps import make_train_fn, param_grads
 from repro_torch.models import transformer as tf
 from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -154,5 +154,5 @@ class Trainer:
                            self.tcfg.batch, seed=123)
         batch = {k: v.to(self.device) for k, v in batch.items()}
         loss, _ = tf.loss_fn(self.model, batch, self.cfg)
-        grads = torch.autograd.grad(loss, list(self.params.values()))
-        return replication_bytes(self.params, dict(zip(self.params, grads)))
+        return replication_bytes(self.params, param_grads(loss, self.params,
+                                                          self.cfg))

@@ -122,14 +122,17 @@ def test_turn_table_ranks_run_from_the_highest_key_tile(name, D):
 
 
 def test_turn_table_tiles_match_the_kernel_source():
-    """The wrapper's tile sizes are the kernel's: BQ query rows a tile (64
-    at head dim 128, else 128), 64 keys a consumer warpgroup times NWG
-    warpgroups a block."""
+    """The wrapper's tile sizes are the kernel's: BQ query rows a tile (128
+    where both head dims are at most 64, else 64: at 128, 80 and MLA's
+    (96, 64)), 64 keys a consumer warpgroup times NWG warpgroups a
+    block."""
     src = CSRC.read_text()
-    bq = re.search(r"static constexpr int BQ = D == 128 \? (\d+) : (\d+);",
-                   src)
+    bq = re.search(r"static constexpr int BQ = DK <= 64 && DV <= 64 "
+                   r"\? (\d+) : (\d+);", src)
     nwg = int(re.search(r"static constexpr int NWG = (\d+);", src).group(1))
     assert "BKT = 64 * NWG" in src
-    assert fa.bwd_tiles(128) == (int(bq.group(1)), 64 * nwg)
+    for dk, dv in ((128, 128), (80, 80), (96, 64)):
+        assert fa.bwd_tiles(dk, dv) == (int(bq.group(2)), 64 * nwg)
+    assert fa.bwd_tiles(128) == (int(bq.group(2)), 64 * nwg)
     for D in (16, 32, 64):
-        assert fa.bwd_tiles(D) == (int(bq.group(2)), 64 * nwg)
+        assert fa.bwd_tiles(D) == (int(bq.group(1)), 64 * nwg)

@@ -2,9 +2,11 @@
 layers, the GQA and Mamba-2 mixers, and ``ServeEngine.generate`` on the
 SMOKE configs of Hymba-1.5B, Granite-8B, Mamba2-130M, GLM-4-9B (partial
 RoPE), StarCoder2-7B (a 32-token window under 40-token prompts: the ring
-cache; an un-gated gelu MLP) and DBRX-132B (MoE, 4 experts top-2) in
-float32, with the JAX parameters carried across by
-``convert.params_from_jax``.
+cache; an un-gated gelu MLP), DBRX-132B (MoE, 4 experts top-2),
+MiniCPM3-4B (MLA) and InternVL2-26B (on tokens; its patches are in
+tests/test_torch_mla_frontends.py) in float32, with the JAX parameters
+carried across by ``convert.params_from_jax``.  HuBERT-XLarge, an
+encoder, has no decode cache and no generate.
 
 The port computes attention, the SSD scan and RMSNorm through its kernel
 wrappers (their plain versions on the CPU) where the JAX model computes
@@ -37,7 +39,8 @@ from repro_torch.serve.engine import ServeEngine
 
 F32 = np.float32
 ARCHS = ("hymba-1.5b", "granite-8b", "mamba2-130m", "glm4-9b",
-         "starcoder2-7b", "dbrx-132b")
+         "starcoder2-7b", "dbrx-132b", "minicpm3-4b", "internvl2-26b")
+ALL = ARCHS + ("hubert-xlarge",)
 
 
 def _cfgs(name, **kw):
@@ -67,7 +70,7 @@ def _close(got, want, tol):
 # ---------------------------------------------------------------------------
 # configs and layers
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL)
 def test_configs_match_jax(name):
     for smoke in (False, True):
         j, t = jget_arch(name, smoke=smoke), get_arch(name, smoke=smoke)
@@ -94,18 +97,30 @@ def test_init_cache_matches_jax(name):
 
 
 def test_unported_blocks_raise():
-    """MLA is not ported: its block and minicpm3-4b's config raise.  The
-    MoE block is (tests/test_torch_moe.py): an ``attn_moe`` config
-    builds."""
-    from repro_torch.configs.base import ArchConfig
-    cfg = ArchConfig(name="x", family="dense", source="-", block="mla_mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("minicpm3-4b")
+    """Every block and frontend of the JAX package builds now: MLA
+    (``mla_mlp``, minicpm3-4b), the MoE block, the audio and vision stubs.
+    What is left is refused by name: a config name that does not exist,
+    a block or a frontend the package does not have."""
+    from repro_torch.configs.base import ALL_ARCHS, ArchConfig
+    cfg = ArchConfig(name="x", family="dense", source="-", block="mla_mlp",
+                     q_lora_rank=8, kv_lora_rank=8, qk_nope_head_dim=8,
+                     qk_rope_head_dim=8, v_head_dim=8)
+    assert set(ttf.LM(cfg, device="cpu").layers[0].attn) >= {
+        "w_dq", "w_uk", "w_uv", "w_kr"}
+    assert get_arch("minicpm3-4b").block == "mla_mlp"
+    for name in ALL_ARCHS:
+        ttf.LM(get_arch(name, smoke=True), device="cpu")
+    assert "proj" in ttf.LM(get_arch("hubert-xlarge", smoke=True),
+                            device="cpu").frontend
     moe = ArchConfig(name="x", family="moe", source="-", block="attn_moe",
                      n_experts=4, top_k=2)
     assert len(ttf.LM(moe, device="cpu").layers[0].moe) == 4
+    with pytest.raises(ValueError, match="no-such-arch"):
+        get_arch("no-such-arch")
+    with pytest.raises(ValueError, match="'x_block'"):
+        ttf.LM(dataclasses.replace(cfg, block="x_block"), device="cpu")
+    with pytest.raises(ValueError, match="'x_stub'"):
+        ttf.LM(dataclasses.replace(cfg, frontend="x_stub"), device="cpu")
 
 
 @pytest.mark.parametrize("frac", [1.0, 0.5])

@@ -55,6 +55,7 @@ from repro.train.star_dp import replication_bytes as jreplication_bytes
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.data.pipeline import make_batch, synthetic_stream
+from repro_torch.launch.steps import param_grads
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 from repro_torch.train import compression as tcomp
@@ -69,6 +70,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 F32 = np.float32
 MOE, DENSE = "granite-moe-1b-a400m", "granite-8b"
 HYMBA, MAMBA2 = "hymba-1.5b", "mamba2-130m"
+MLA, AUDIO, VISION = "minicpm3-4b", "hubert-xlarge", "internvl2-26b"
 
 
 def _cfgs(name, **kw):
@@ -234,14 +236,18 @@ def test_chunked_ce_matches_jax(S):
                                atol=1e-5 * float(np.abs(jg).max()))
 
 
-@pytest.mark.parametrize("name", [MOE, DENSE, "glm4-9b", HYMBA, MAMBA2])
+@pytest.mark.parametrize("name", [MOE, DENSE, "glm4-9b", HYMBA, MAMBA2,
+                                  MLA, AUDIO, VISION])
 def test_loss_fn_and_gradients_match_jax(name):
     """``loss_fn`` (embed, every block under remat, the final norm, the
     chunked CE; MoE's aux loss) and the gradient of every parameter,
     against ``jax.value_and_grad(tf.loss_fn)``, on 2 x 64 tokens: GLM-4's
-    partial RoPE, and the SSD scan's gradient (the port's ``ssd``
-    Function over its plain version here; the JAX model differentiates
-    its chunked algorithm) in the Hymba and Mamba-2 blocks."""
+    partial RoPE, the SSD scan's gradient (the port's ``ssd`` Function
+    over its plain version here; the JAX model differentiates its chunked
+    algorithm) in the Hymba and Mamba-2 blocks, MLA's expanded form, the
+    audio frontend (HuBERT's token embedding gets a zero gradient, as
+    under ``jax.grad``) and the vision frontend (8 patches before 56
+    tokens, the loss on the tokens alone)."""
     jcfg, tcfg = _cfgs(name)
     jp = jtf.init_params(jcfg, jax.random.key(0))
     batch = jmake_batch(jcfg, "train", 64, 2, seed=3)
@@ -253,7 +259,7 @@ def test_loss_fn_and_gradients_match_jax(name):
     params = dict(model.named_parameters())
     tl, tm = ttf.loss_fn(model, make_batch(tcfg, "train", 64, 2, seed=3),
                          tcfg)
-    grads = dict(zip(params, torch.autograd.grad(tl, list(params.values()))))
+    grads = param_grads(tl, params, tcfg)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     for k in ("ce", "aux"):
         np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]),
@@ -301,7 +307,7 @@ def test_adamw_update_matches_jax():
 # ---------------------------------------------------------------------------
 # the trainer
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", [MOE, DENSE, HYMBA, MAMBA2])
+@pytest.mark.parametrize("name", [MOE, DENSE, HYMBA, MAMBA2, AUDIO, MLA])
 def test_trainer_steps_match_jax(name):
     K = 4
     jt, tt = _pair(name)
@@ -548,13 +554,39 @@ def test_train_entry_point_trains_hymba(capsys):
 
 
 def test_untrainable_configs_raise():
-    """What is not ported is refused by name: an MLA config (its block)
-    and ``reshard`` (several cards)."""
-    mla = dataclasses.replace(get_arch(HYMBA, smoke=True), name="mla",
-                              block="mla_mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(mla, TrainerConfig(), device="cpu")
-    _, cfg = _cfgs(MOE)
-    tr = Trainer(cfg, TrainerConfig(seq_len=16, batch=2), device="cpu")
+    """Every config trains now: MiniCPM3's MLA, HuBERT's audio frames and
+    InternVL2's patches each take two finite steps through ``Trainer``.
+    What is not ported is refused by name: ``reshard`` (several cards,
+    ROADMAP Queue 1, item 7e) and a config name that does not exist."""
+    for name in (MLA, AUDIO, VISION):
+        _, cfg = _cfgs(name)
+        tr = Trainer(cfg, TrainerConfig(seq_len=16, batch=2), device="cpu")
+        tr.run(2)
+        assert tr.step == 2 and all(np.isfinite(m["loss"])
+                                    for m in tr.metrics_history)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.reshard(None)
+    with pytest.raises(ValueError, match="no-such-arch"):
+        get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("name", [AUDIO, DENSE])
+def test_param_grads_refuses_an_unreached_parameter(name):
+    """``param_grads`` gives zeros only to what ``unreached_params`` names
+    (HuBERT's token embedding, which ``loss_fn`` never reads); a parameter
+    the loss does not reach outside that set raises ValueError naming it."""
+    _, cfg = _cfgs(name)
+    model = ttf.LM(cfg, device="cpu")
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    loss, _ = ttf.loss_fn(model, make_batch(cfg, "train", 16, 2, seed=1),
+                          cfg)
+    grads = param_grads(loss, params, cfg)
+    assert set(grads) == set(params)
+    for k in ttf.unreached_params(cfg):
+        assert not grads[k].any()                          # exact: zeros
+    stray = torch.zeros(3, requires_grad=True)
+    loss, _ = ttf.loss_fn(model, make_batch(cfg, "train", 16, 2, seed=1),
+                          cfg)
+    with pytest.raises(ValueError, match="stray"):
+        param_grads(loss, {**params, "stray": stray}, cfg)
