@@ -225,6 +225,32 @@ Phases, in order; any failed check exits non-zero:
    times.  It prints an ``mla_frontends`` JSON line; the flash rows gain
    ``new_shapes``.
 
+15. Several processes (run after phase 14): 4 processes on the one card
+   (``launch.mesh.spawn``, start method ``spawn``, the kernels already
+   built by this process), gloo over CUDA tensors.  (a) Phase 10's
+   cluster cell with each node a process (``ClusterRuntime(...,
+   distributed=True)``): 7 epochs of 2,048 transactions with each
+   node's write-ahead log, the master killed mid-stream at epoch 3
+   (FALLBACK_DIST_CC), node 2 at epoch 6 (PHASE_SWITCHING), nodes 0-2 at
+   epoch 7 (UNAVAILABLE, reloaded from the logs); ``replica_consistent()``
+   at every fence on every rank; every copy and index segment after each
+   epoch bit-equal (sha256 of each rank's blocks, where they lie) to a
+   single-process ``ClusterStarEngine`` on the card fed the batches the
+   master ran (run here while the ranks go on to (b)); no collective in any partitioned phase; each rank's first
+   scatter-back ``thomas_merge`` and secondary-replay ``index_merge``
+   call held to its plain version.  (b) Granite-3.0-1B-A400M with its
+   experts over ``model`` = 4 (8 a rank): 2 layers f32 logits against
+   the same rank without the mesh (``TOL_DIST_F32``), then a bf16
+   ``generate`` of 8 x 2,048 + 64, the tokens equal on every rank.  (c)
+   Its bf16 ``Trainer`` at full width, 2 of 24 layers, on mesh (data 2,
+   model 2), 2 steps, ``reshard`` to (4, 1) (the whole state equal
+   across it, bit for bit), 1 step; the loss falls; at least 8 GB stay free.  It
+   prints txn/s, the fence split (tail ship, ``all_reduce``), the real
+   bytes an epoch, ``t_recovery_s`` a case and each rank's launches by
+   kernel, and a ``dist_path`` JSON line; each kernel row gains
+   ``dist_launches`` (by part and rank).  A failing rank fails the
+   phase; the ranks are killed at the spec's deadline.
+
 Before phase 2 it times the least kernel, a one-element ``fill_``, by
 torch.profiler (the launch floor).
 
@@ -257,6 +283,9 @@ torch.profiler; and the bf16 flash prefill at every head dim pair by
 CUDA events.  It prints the card's name and
 power limit, then one ``AB {...}`` JSON line a process.
 
+``python3 chip_smoke.py --dist`` runs phase 15 alone (after the build)
+and prints its figures on one line.
+
 ``python3 chip_smoke.py --lanes N`` runs phase 8's TPC-C service run
 instead, in N pairs without and with phase 9's read tier and analytics
 lane (order alternating, one untimed run first), and prints the card's
@@ -268,7 +297,7 @@ run, by the read path's lanes and on the cluster path), one of main-path
 figures, one of service-path figures, one of read-path figures, one of
 cluster-path figures, one of serve-path figures, one of the phase-12
 configs, one of train-path figures, one of Hymba's train path, one of
-phase 14's and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
+phase 14's, one of phase 15's and, last, the ``{"ok": true, "device": ...}`` line.  It needs one CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result.
 """
@@ -396,6 +425,30 @@ GRAD_PARITY_BATCH, GRAD_PARITY_SEQ = 2, 128
 # on both sides, sums in another order (tests/test_torch_train.py holds
 # the port to the JAX package's gradients at the same bound)
 TOL_GRAD_PARITY = 1e-4
+# phase 15: 4 processes over torch.distributed on the one card (gloo over
+# CUDA tensors): (a) phase 10's cluster with one process a node, the WAL
+# and three kills (the master mid-stream at epoch 3: FALLBACK_DIST_CC;
+# node 2 at epoch 6: PHASE_SWITCHING; nodes 0-2 at epoch 7: UNAVAILABLE,
+# reloaded from the ranks' logs); (b) Granite-3.0-1B-A400M served with its
+# experts over model = 4; (c) its bf16 training step on (data 2, model 2)
+# at full width, depth cut to 2 of 24 layers (4 processes share the card
+# and gloo moves every gradient and the resharded state through host
+# memory: 8 layers took 8.1-11.0 s a step and 51.9 s to reshard), 2 steps,
+# then reshard to (4, 1) and 1 step, at lr 1e-3 without warm-up so that 3
+# steps move the loss
+DIST_SPEC = dict(
+    main=MAIN, txns=MAIN_TXNS, epochs=7, ckpt_every=3,
+    kills=[(0, 3, 1), (2, 6, None), (0, 7, None), (1, 7, None),
+           (2, 7, None)],
+    want_cases=["FALLBACK_DIST_CC", "PHASE_SWITCHING", "UNAVAILABLE"],
+    arch=TRAIN_ARCH, smoke=False, parity_prompt=256,
+    batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+    train_layers=2, train_batch=TRAIN_BATCH, train_seq=TRAIN_SEQ,
+    train_steps=(2, 1), train_lr=1e-3, need_cuda=True, deadline_s=480)
+# on max |mesh - one process| / max |one process| of the 2-layer float32
+# logits: the MoE outputs are summed over the 4 ranks in another order
+# (float32 all_reduce against one index_add)
+TOL_DIST_F32 = 1e-5
 # the pl.pallas_call site of each TPU kernel
 REPLACES = {
     "scan_window": "src/repro/kernels/occ/kernel.py:129",
@@ -4673,6 +4726,558 @@ def mla_frontends_phase(dev, rows):
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 15: several processes over torch.distributed (4 ranks, one card)
+# ---------------------------------------------------------------------------
+def digest(tensors):
+    """sha256 of tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def copy_digests(val, tid, idx, sl=slice(None)):
+    """The digest of one copy's rows ``sl``: records, TID words, every
+    index segment."""
+    return digest([val[sl], tid[sl]] + [ix[f][sl] for ix in idx
+                                        for f in ("key", "prow", "tid")])
+
+
+def rank_digests(eng):
+    """Each copy one rank of ``DistClusterStarEngine`` holds, digested
+    where it lies: its primary block, its secondary copy, the master's
+    full copy."""
+    out = {"part": copy_digests(eng.part_val, eng.part_tid, eng.part_idx)}
+    if eng.secondary:
+        out["sec"] = copy_digests(eng.sec_val, eng.sec_tid, eng.sec_idx)
+    if eng.is_master:
+        out["full"] = copy_digests(eng.full_val, eng.full_tid, eng.full_idx)
+    return out
+
+
+def single_digests(eng, rank):
+    """:func:`rank_digests` of node ``rank`` on a single-process
+    ``ClusterStarEngine`` (node n's rows of its copies)."""
+    sl = eng.node_slice(rank)
+    out = {"part": copy_digests(eng.part_val, eng.part_tid, eng.part_idx,
+                                sl)}
+    if eng.secondary:
+        out["sec"] = copy_digests(eng.sec_val, eng.sec_tid, eng.sec_idx, sl)
+    if rank == 0:
+        out["full"] = copy_digests(eng.full_val, eng.full_tid, eng.full_idx)
+    return out
+
+
+def launch_mark(dev):
+    """Start counting launches: the card's (``_build``'s counts, reset);
+    on the CPU, a rehearsal's, the wrappers' dispatches to their plain
+    versions (``obs.trace``), from this mark."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs import trace
+    if dev.type == "cuda":
+        _build.reset_launch_counts()
+        return None
+    return trace.kernel_launch_counts()
+
+
+def launches_since(dev, mark):
+    from repro_torch.kernels import _build
+    from repro_torch.obs import trace
+    if dev.type == "cuda":
+        return _build.launch_counts()
+    now = trace.kernel_launch_counts()
+    return {k: n - mark.get(k, 0) for k, n in now.items()
+            if n - mark.get(k, 0)}
+
+
+def dev_sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_cluster(rank, dev, spec, work):
+    """Phase 15 (a) on one rank: the TPC-C cluster of phase 10 with this
+    rank one node, the per-node WAL, and the spec's kills.  The master
+    saves the batches it ran; every rank checks ``replica_consistent()``
+    at every fence; the master digests every copy after each epoch."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.cluster import ClusterRuntime
+    from repro_torch.core import replication
+    from repro_torch.core.fault import FaultInjector
+    from repro_torch.db import tpcc
+    from repro_torch.db.wal import Durability
+    from repro_torch.kernels.index_merge import ops as im_ops
+    from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
+    from repro_torch.kernels.thomas_merge.ops import thomas_merge
+    from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
+    t_set = time.perf_counter()
+    cfg = tpcc.TPCCConfig(**spec["main"])
+    state = tpcc.TPCCState(cfg)
+    # the master holds the initial table and forms the batches
+    init = (tpcc.init_values(cfg, np.random.default_rng(0), state=state)
+            if rank == 0 else None)
+    inj = FaultInjector()
+    for node, ep, slab in spec["kills"]:
+        inj.schedule_kill(node, epoch=ep, slab=slab)
+    dur = Durability(Path(work) / "wal", n_workers=4,
+                     checkpoint_every=spec["ckpt_every"], worker=rank)
+    rt = ClusterRuntime(4, cfg.n_partitions, cfg.rows_per_partition,
+                        init_val=init if rank == 0 else None,
+                        indexes=tpcc.index_specs(cfg), max_rounds=MAX_ROUNDS,
+                        n_slabs=CLUSTER_SLABS, injector=inj, durability=dur,
+                        device=dev, distributed=True)
+    eng = rt.eng
+    setup_s = time.perf_counter() - t_set
+    # the first scatter-back merge and secondary-replay index_merge this
+    # rank launches, recorded to hold against their plain versions
+    rec = Recorder()
+    flag = {"sec": False}
+    orig_replay = replication.replay_partitioned
+
+    def replay(*a, part_ids=None, **k):
+        flag["sec"] = part_ids is not None
+        try:
+            return orig_replay(*a, part_ids=part_ids, **k)
+        finally:
+            flag["sec"] = False
+    replication.replay_partitioned = replay
+    rec._undo.append((replication, "replay_partitioned", orig_replay))
+    rec.wrap(im_ops, "index_merge_cuda",
+             lambda *a, **k: "sec_replay" if flag["sec"] else None)
+    rec.wrap(replication, "thomas_apply",
+             lambda *a, **k: "scatter_back")
+    rows, batches, digests, events = [], [], [], []
+    bytes0 = dict(eng.net_bytes)
+    dev_sync(dev)
+    mark = launch_mark(dev)
+    t_run = time.perf_counter()
+    for ep in range(spec["epochs"]):
+        b = (tpcc.make_batch(cfg, state, spec["txns"], seed=5000 + ep)
+             if rank == 0 else None)
+        if rank == 0:
+            batches.append(pickle.dumps(b))
+        t0 = time.perf_counter()
+        m = rt.run_epoch(b)
+        dev_sync(dev)
+        wall = time.perf_counter() - t0
+        if ep == 0:
+            rec.restore()
+        if rank == 0:
+            tpcc.apply_consume_feedback(state, b, m)
+        ok = rt.replica_consistent()
+        check(ok, f"rank {rank}: replicas diverged at fence "
+              f"{rt.committed_epoch}")
+        digests.append(rank_digests(eng))
+        nb = {k: eng.net_bytes[k] - bytes0[k] for k in bytes0}
+        bytes0 = dict(eng.net_bytes)
+        ev = m.get("recovery")
+        if ev is not None:
+            events.append({"epoch": ev.epoch, "failed": list(ev.failed),
+                           "case": ev.case.name, "run_mode": ev.run_mode,
+                           "t_recovery_s": ev.t_recovery_s,
+                           "aborted_at_slab": ev.aborted_at_slab,
+                           "slabs_discarded": ev.slabs_discarded,
+                           "restored_from_secondary":
+                           list(ev.restored_from_secondary),
+                           "reloaded_from_disk": ev.reloaded_from_disk})
+        rows.append({"epoch": ep + 1, "wall_s": wall,
+                     "committed": m["committed_single"]
+                     + m["committed_cross"],
+                     "failure": ev is not None,
+                     "t_part_s": m["t_part_s"], "t_sm_s": m["t_sm_s"],
+                     "t_tail_ship_s": m["t_tail_ship_s"],
+                     "t_allreduce_s": m["t_allreduce_s"],
+                     "net_bytes": nb,
+                     "collectives_in_partitioned_phase":
+                     m["collectives_in_partitioned_phase"]})
+    run_s = time.perf_counter() - t_run
+    launches = launches_since(dev, mark)
+    rec.restore()
+    # the recorded calls against their plain versions (not counted)
+    plain = {}
+    for key, (kernel, ref) in {"scatter_back": (thomas_merge,
+                                                thomas_merge_plain),
+                               "sec_replay": (im_ops.index_merge_cuda,
+                                              index_merge_unsorted_plain)
+                               }.items():
+        if key not in rec.calls:
+            continue
+        args, kw = rec.calls[key]
+        got = kernel(*to(args, dev), **kw)
+        want = ref(*to(args, "cpu"), **kw)
+        plain[key] = equal(got, want)
+        check(plain[key], f"rank {rank}: the {key} kernel call differs "
+              "from its plain version")
+    dur.close()
+    if rank == 0:
+        with open(Path(work) / "batches.pkl", "wb") as fh:
+            pickle.dump(batches, fh)
+    out = {"rank": rank, "setup_s": setup_s, "run_s": run_s, "rows": rows,
+           "events": events, "launches": launches,
+           "launches_by_kernel": by_kernel(launches), "plain_checks": plain,
+           "calls": dict(eng.comm.calls), "wal_entries": dur.entries_logged,
+           "node_committed": eng.node_committed.tolist(),
+           "digests": digests}
+    return out
+
+
+def dist_serve(rank, dev, spec):
+    """Phase 15 (b) on one rank: Granite-3.0-1B-A400M with its experts over
+    ``model`` = 4; a 2-layer float32 copy's logits against the same rank's
+    single-process run, then the bf16 model at full width and depth
+    generating ``batch`` x ``prompt`` + ``gen`` tokens."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+    mesh = make_host_mesh(1, 4)
+    cfg = get_arch(spec["arch"], smoke=spec["smoke"])
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    out = {}
+    # ---- 2 layers, float32: logits with and without the mesh
+    pcfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = tf.LM(pcfg, seed=0, device=dev)
+    toks = torch.randint(0, pcfg.vocab_size, (2, spec["parity_prompt"]),
+                         generator=gen).to(dev)
+    V = pcfg.vocab_size                       # past it: the -1e30 padding
+    with torch.inference_mode():
+        one = tf.forward(model, {"tokens": toks}, pcfg)[0][..., :V]
+        tf.keep_local_experts(model, mesh)
+        ep = tf.forward(model, {"tokens": toks}, pcfg, mesh=mesh)[0][..., :V]
+    err = float((ep - one).abs().max() / one.abs().max())
+    out["parity_f32_rel_err"] = err
+    check(err <= TOL_DIST_F32, f"rank {rank}: 2-layer f32 logits with "
+          f"experts over model = 4 differ from one process by {err:.3e}")
+    del model, one, ep
+    # ---- full width and depth, bf16
+    t0 = time.perf_counter()
+    model = tf.keep_local_experts(tf.LM(cfg, seed=0, device=dev), mesh)
+    e_loc = model.layers[0].moe["w_up"].shape[0]
+    check(e_loc == cfg.n_experts // 4, f"rank {rank}: holds {e_loc} experts")
+    eng = ServeEngine(cfg, model, device=dev,
+                      max_len=spec["prompt"] + spec["gen"], mesh=mesh)
+    prompts = torch.randint(0, cfg.vocab_size, (spec["batch"],
+                                                spec["prompt"]),
+                            generator=gen).to(dev)
+    eng.generate(prompts[:, :128], 4)                  # warm
+    setup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    dev_sync(dev)
+    mark = launch_mark(dev)
+    s0 = dict(vars(eng.stats))
+    t0 = time.perf_counter()
+    toks_out = eng.generate(prompts, spec["gen"])
+    wall = time.perf_counter() - t0
+    launches = launches_since(dev, mark)
+    st = {k: v - s0[k] for k, v in vars(eng.stats).items()}
+    # every rank generated the same tokens
+    every = [torch.empty_like(toks_out) for _ in range(4)]
+    dist.all_gather(every, toks_out)
+    same = all(torch.equal(t, toks_out) for t in every)
+    check(same, f"rank {rank}: ranks generated different tokens")
+    B, S, G = spec["batch"], spec["prompt"], spec["gen"]
+    out.update(
+        arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers, batch=B,
+        prompt=S, gen=G, experts_per_rank=e_loc, setup_s=setup_s,
+        wall_s=wall, prefill_s=st["prefill_s"],
+        prefill_tokens_per_s=B * S / st["prefill_s"],
+        decode_ms_per_step=st["decode_s"] / max(st["decode_steps"], 1) * 1e3,
+        decode_tokens_per_s=B * G / st["decode_s"],
+        tokens_equal_across_ranks=same, launches=launches,
+        peak_mem_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                     if dev.type == "cuda" else None))
+    del eng, model
+    return out
+
+
+def dist_train(rank, dev, spec):
+    """Phase 15 (c) on one rank: a bf16 ``Trainer`` at full width (depth
+    cut to ``spec["train_layers"]``) on mesh (data 2, model 2), then
+    ``reshard`` to (4, 1) and further steps: the state bit-equal across the
+    reshard, the loss finite and falling."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def whole(tr):
+        """The state, whole, as copies on the device."""
+        p, o = tr.state()
+        return [p[k].detach().clone() for k in sorted(p)] + [
+            o[s][k].clone() for s in ("master", "m", "v") for k in sorted(o[s])]
+
+    cfg = dataclasses.replace(get_arch(spec["arch"], smoke=spec["smoke"]),
+                              n_layers=spec["train_layers"])
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainerConfig(
+        seq_len=spec["train_seq"], batch=spec["train_batch"],
+        steps_per_epoch=TRAIN_EPOCH,
+        hp=AdamWConfig(lr=spec["train_lr"], warmup_steps=1)),
+        device=dev, mesh=make_host_mesh(2, 2))
+    setup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mark = launch_mark(dev)
+    free = []
+    steps = []
+    for shape, n in ((None, spec["train_steps"][0]),
+                     ((4, 1), spec["train_steps"][1])):
+        reshard = None
+        if shape is not None:
+            before = whole(tr)
+            t1 = time.perf_counter()
+            tr.reshard(make_host_mesh(*shape))
+            dev_sync(dev)
+            reshard_s = time.perf_counter() - t1
+            same = all(x.dtype == y.dtype and torch.equal(x, y)
+                       for x, y in zip(before, whole(tr)))
+            del before
+            check(same, f"rank {rank}: the state changed across the "
+                  "reshard")
+            reshard = {"to": list(shape), "s": reshard_s, "bit_equal": same}
+        for _ in range(n):
+            tr.run(1)
+            if dev.type == "cuda":
+                free.append(torch.cuda.mem_get_info(dev)[0])
+        steps.append({"mesh": list(tr.mesh.shape.values()),
+                      "reshard": reshard})
+    launches = launches_since(dev, mark)
+    losses = [m["loss"] for m in tr.metrics_history]
+    step_s = [m["step_s"] for m in tr.metrics_history]
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"rank {rank}: a non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"rank {rank}: the loss did not fall "
+          f"({losses})")
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "batch": spec["train_batch"], "seq": spec["train_seq"],
+            "setup_s": setup_s, "losses": losses,
+            "step_ms": [t * 1e3 for t in step_s], "meshes": steps,
+            "launches": launches,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else None),
+            "min_free_gb": min(free) / 1e9 if free else None}
+
+
+def dist_rank(rank, world, dev, spec, work):
+    """One rank of phase 15: (a), then (b), then (c); a failed check
+    raises, which fails the phase."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec["need_cuda"] and dev.type != "cuda":
+        raise RuntimeError(f"rank {rank}: no card")
+    out = {"cluster": dist_cluster(rank, dev, spec, work)}
+    if rank == 0:
+        (Path(work) / "cluster_done").touch()
+    out["serve"] = dist_serve(rank, dev, spec)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = dist_train(rank, dev, spec)
+    return out
+
+
+def dist_reference(dev, spec, work):
+    """The single-process ``ClusterStarEngine`` on ``dev`` fed the batches
+    phase 15's master ran: after each epoch, each node's
+    :func:`single_digests`."""
+    import pickle
+    import numpy as np
+    from repro_torch.core.cluster import ClusterStarEngine
+    from repro_torch.db import tpcc
+    cfg = tpcc.TPCCConfig(**spec["main"])
+    state = tpcc.TPCCState(cfg)
+    init = tpcc.init_values(cfg, np.random.default_rng(0), state=state)
+    eng = ClusterStarEngine(4, cfg.n_partitions, cfg.rows_per_partition,
+                            init_val=init, indexes=tpcc.index_specs(cfg),
+                            max_rounds=MAX_ROUNDS, n_slabs=CLUSTER_SLABS,
+                            device=dev)
+    with open(Path(work) / "batches.pkl", "rb") as fh:
+        batches = [pickle.loads(b) for b in pickle.load(fh)]
+    out = []
+    for b in batches:
+        eng.run_epoch(b)
+        out.append([single_digests(eng, r) for r in range(4)])
+    return out
+
+
+def dist_phase(dev, kernels, spec=None):
+    """Phase 15: 4 processes on the one card, gloo over CUDA tensors
+    (``launch.mesh``'s rule: NCCL refuses two ranks on one GPU), the
+    kernels built by the parent before the spawn.  (a) the STAR cluster
+    with one process a node, bit-equal to the single-process engine on
+    the card; (b) Granite-3.0-1B-A400M served with experts over model =
+    4; (c) a bf16 training step on (data 2, model 2), reshard to (4, 1),
+    further steps.  Returns the ``dist_path`` figures; each kernel row
+    gains ``dist_launches`` (by rank and sub-phase)."""
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.launch.mesh import spawn
+    spec = dict(DIST_SPEC if spec is None else spec)
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    box = {}
+
+    def ranks():
+        try:
+            box["res"] = spawn(dist_rank, 4, args=(spec, str(work)),
+                               device=dev.type, timeout_s=spec["deadline_s"],
+                               workdir=work / "spawn", threads=2)
+        except BaseException as e:         # re-raised below
+            box["err"] = e
+
+    th = threading.Thread(target=ranks)
+    th.start()
+    ref = None
+    try:
+        # the reference runs while the ranks serve and train, so that it
+        # does not share the card with the cluster's timed epochs
+        while th.is_alive() and not (work / "cluster_done").exists():
+            time.sleep(0.2)
+        if (work / "cluster_done").exists():
+            t0 = time.perf_counter()
+            ref = dist_reference(dev, spec, work)
+            ref_s = time.perf_counter() - t0
+    finally:
+        th.join()
+    if "err" in box:
+        raise box["err"]
+    res = box["res"]
+    a = [r["cluster"] for r in res]
+    got = [[r["digests"][e] for r in a] for e in range(spec["epochs"])]
+    check(ref is not None and ref == got, "phase 15: the cluster's copies "
+          "differ from the single-process engine's after epochs "
+          f"{[e + 1 for e, (x, y) in enumerate(zip(ref or [], got)) if x != y]}")
+    for r in a:
+        check(all(x["collectives_in_partitioned_phase"] == 0
+                  for x in r["rows"]), f"rank {r['rank']}: a collective in "
+              "the partitioned phase")
+        need = STAR_KERNELS if r["rank"] == 0 else ("scan_window",
+                                                     "index_merge",
+                                                     "thomas_merge")
+        for k in need:
+            check(r["launches_by_kernel"][k] > 0, f"rank {r['rank']}: {k} "
+                  "never launched in the cluster run")
+        check(r["plain_checks"].get("scatter_back") is True,
+              f"rank {r['rank']}: no scatter-back merge held to its plain "
+              "version")
+    want = [c for c in spec["want_cases"]]
+    got = [e["case"] for e in a[0]["events"]]
+    check(got == want, f"phase 15: recovery cases {got}, expected {want}")
+    ok_rows = [x for x in a[0]["rows"][1:] if not x["failure"]]
+    committed = sum(x["committed"] for x in ok_rows)
+    wall = sum(x["wall_s"] for x in ok_rows)
+    mean = lambda k: statistics.mean(x[k] for x in ok_rows)
+    per_epoch_bytes = {k: statistics.mean(x["net_bytes"][k] for x in ok_rows)
+                       for k in ok_rows[0]["net_bytes"]}
+    cluster = {
+        "config": "phase 10's: TPC-C full mix, P=16 at the spec's widths",
+        "nodes": 4, "processes": 4, "txns_per_epoch": spec["txns"],
+        "epochs": spec["epochs"], "kills": spec["kills"],
+        "measured_epochs": [x["epoch"] for x in ok_rows],
+        "committed_txn_per_s": committed / wall,
+        "epoch_wall_s": [x["wall_s"] for x in a[0]["rows"]],
+        "t_part_s_mean": mean("t_part_s"), "t_sm_s_mean": mean("t_sm_s"),
+        "fence_tail_ship_ms_mean": mean("t_tail_ship_s") * 1e3,
+        "fence_allreduce_ms_mean": mean("t_allreduce_s") * 1e3,
+        "net_bytes_per_epoch": per_epoch_bytes,
+        "recoveries": a[0]["events"],
+        "bit_equal_epochs": len(ref), "reference_s": ref_s,
+        "launches_by_rank": {r["rank"]: r["launches_by_kernel"] for r in a},
+        "calls_by_rank": {r["rank"]: r["calls"] for r in a},
+        "wal_entries_by_rank": {r["rank"]: r["wal_entries"] for r in a},
+        "node_committed": a[0]["node_committed"],
+        "setup_s": a[0]["setup_s"], "run_s": a[0]["run_s"]}
+    print(f"dist cluster: 4 processes, {committed} committed in "
+          f"{wall:.3f} s over epochs {cluster['measured_epochs']}: "
+          f"{cluster['committed_txn_per_s']:.2f} txn/s; fence: tail ship "
+          f"{cluster['fence_tail_ship_ms_mean']:.3f} ms, all_reduce "
+          f"{cluster['fence_allreduce_ms_mean']:.3f} ms; bytes an epoch "
+          f"{per_epoch_bytes}; bit-equal to one process over {len(ref)} "
+          "epochs")
+    for e in a[0]["events"]:
+        print(f"dist cluster recovery: epoch {e['epoch']} nodes "
+              f"{e['failed']} {e['case']} t_recovery_s "
+              f"{e['t_recovery_s']:.4f}")
+    for r in a:
+        print(f"dist cluster rank {r['rank']} launches: "
+              f"{r['launches_by_kernel']}")
+    b = [r["serve"] for r in res]
+    serve = dict(b[0], launches_by_rank={i: x["launches"]
+                                         for i, x in enumerate(b)},
+                 parity_f32_rel_err_by_rank=[x["parity_f32_rel_err"]
+                                             for x in b])
+    serve.pop("launches")
+    print(f"dist serve: {serve['arch']} bf16 experts over model=4 "
+          f"({serve['experts_per_rank']} a rank): prefill "
+          f"{serve['prefill_s']:.3f} s, decode "
+          f"{serve['decode_ms_per_step']:.2f} ms/step, 2-layer f32 rel err "
+          f"{max(serve['parity_f32_rel_err_by_rank']):.3e}; launches "
+          f"{serve['launches_by_rank']}")
+    c = [r["train"] for r in res]
+    train = dict(c[0], launches_by_rank={i: x["launches"]
+                                         for i, x in enumerate(c)},
+                 peak_mem_gb_by_rank=[x["peak_mem_gb"] for x in c],
+                 min_free_gb=min((x["min_free_gb"] for x in c
+                                  if x["min_free_gb"] is not None),
+                                 default=None))
+    train.pop("launches")
+    if dev.type == "cuda":
+        check(train["min_free_gb"] >= 8.0, f"phase 15 train: "
+              f"{train['min_free_gb']:.1f} GB left free")
+    print(f"dist train: {train['arch']} {train['layers']} layers bf16 on "
+          f"{[s['mesh'] for s in train['meshes']]}: losses "
+          f"{[round(x, 4) for x in train['losses']]}, step ms "
+          f"{[round(x, 1) for x in train['step_ms']]}, reshard "
+          f"{train['meshes'][1]['reshard']}, min free "
+          f"{train['min_free_gb']} GB")
+    for k, row in kernels.items():
+        row["dist_launches"] = {
+            part: {i: by_row(x["launches"], kernels)[k]
+                   for i, x in enumerate(xs)}
+            for part, xs in (("cluster", a), ("serve", b), ("train", c))}
+    for part, xs, need in (("serve", b, ("rmsnorm", "flash_attention")),
+                           ("train", c, ("rmsnorm", "flash_attention",
+                                         "rmsnorm.backward",
+                                         "flash_attention.backward"))):
+        for i, x in enumerate(xs):
+            for k in need:
+                if k in kernels:
+                    check(by_row(x["launches"], kernels)[k] > 0,
+                          f"phase 15 {part}: rank {i} never launched {k}")
+    tmp.cleanup()
+    fig = {"processes": 4, "backend": "gloo (CUDA tensors, one card)",
+           "cluster": cluster, "serve": serve, "train": train,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"dist path: {fig['wall_s']:.1f} s")
+    return fig
+
+
+def by_row(counts, rows):
+    """Launch counts by kernel row: a launch configuration
+    (``<name>.<config>``) counts for its kernel's row unless it is a row
+    of its own (the backward kernels)."""
+    return {k: sum(n for c, n in counts.items()
+                   if c == k or (c.startswith(k + ".") and c not in rows))
+            for k in rows}
+
+
 def nvidia_smi():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4691,6 +5296,8 @@ def main(argv):
         root = Path(argv[1]).resolve()
     elif argv[:1] in (["--ab"], ["--lanes"]) and len(argv) == 2:
         pass
+    elif argv == ["--dist"]:
+        pass
     elif argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -4703,10 +5310,29 @@ def main(argv):
     sys.path.insert(0, str(root / "src"))
     if argv[:1] == ["--lanes"]:
         return lanes_ab(torch.device("cuda", 0), int(argv[1]))
+    if argv == ["--dist"]:
+        return dist_alone(torch.device("cuda", 0))
     if argv:
         ab_side(root, torch.device("cuda", 0))
         return 0
     return run(torch.device("cuda", 0))
+
+
+def dist_alone(dev):
+    """``--dist``: phase 15 alone (the kernels built first), its figures
+    on one line."""
+    import torch
+    from repro_torch.kernels import _build
+    _build.build_all()
+    print(nvidia_smi())
+    rows = {k: {} for k in STAR_KERNELS + (
+        "rmsnorm", "flash_attention", "rmsnorm.backward",
+        "flash_attention.backward")}
+    fig = dist_phase(dev, rows)
+    fig["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps({"dist_path": fig, "dist_launches": {
+        k: r["dist_launches"] for k, r in rows.items()}}))
+    return 0
 
 
 def launch_floor(dev):
@@ -4767,6 +5393,8 @@ def run(dev):
     hymba.update(device=name, nvidia_smi=smi)
     frontends = mla_frontends_phase(dev, kernels)
     frontends.update(device=name, nvidia_smi=smi)
+    dist = dist_phase(dev, kernels)
+    dist.update(device=name, nvidia_smi=smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"service_path": service}))
@@ -4777,6 +5405,7 @@ def run(dev):
     print(json.dumps({"train_path": train}))
     print(json.dumps({"train_path_hymba": hymba}))
     print(json.dumps({"mla_frontends": frontends}))
+    print(json.dumps({"dist_path": dist}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

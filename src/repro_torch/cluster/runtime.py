@@ -44,6 +44,18 @@ metrics.
 runtime unchanged — full-mix TPC-C included (``indexes=...``).  The
 recovery latency is read on the host clock after the card is
 synchronised, so it covers the restores' device copies.
+
+With ``distributed=True`` the nodes are the ranks of the default process
+group, one process a node (``core.cluster.DistClusterStarEngine``), and
+every rank runs the runtime in step with the same injector schedule: the
+coordinator's view service decides on the master (rank 0) and broadcasts
+its recovery plan and view; a kill scribbles the killed rank's blocks and
+the process stays up, as the reference's device does; each rank writes
+its own node's write-ahead log (``Durability(..., worker=rank)``, one
+shared directory) and the master the checkpoints, and the UNAVAILABLE
+case reloads from those logs on the master, which sends each rank its
+blocks.  The other ranks run :meth:`ClusterRuntime.follow` under a
+service on the master (``cluster.service.serve_cluster``).
 """
 from __future__ import annotations
 
@@ -52,7 +64,7 @@ import time
 import numpy as np
 
 from repro_torch.cluster.coordinator import Coordinator, RecoveryEvent
-from repro_torch.core.cluster import ClusterStarEngine
+from repro_torch.core.cluster import ClusterStarEngine, DistClusterStarEngine
 from repro_torch.core.fault import ClusterConfig, FaultInjector, RecoveryCase
 from repro_torch.db import wal as walmod
 from repro_torch.obs import trace as obs
@@ -67,17 +79,22 @@ class ClusterRuntime:
                  adaptive_epoch: bool = False,
                  durability: walmod.Durability | None = None,
                  injector: FaultInjector | None = None,
-                 indexes=None, net=None, n_slabs: int = 4, device=None):
-        """n_nodes: the simulated nodes.  device: ``None``/``"cuda"``
-        (raises without a card) or ``"cpu"``."""
-        self.eng = ClusterStarEngine(n_nodes, n_partitions,
-                                     rows_per_partition, n_cols=n_cols,
-                                     init_val=init_val,
-                                     max_rounds=max_rounds,
-                                     iteration_ms=iteration_ms,
-                                     adaptive_epoch=adaptive_epoch,
-                                     indexes=indexes, net=net,
-                                     n_slabs=n_slabs, device=device)
+                 indexes=None, net=None, n_slabs: int = 4, device=None,
+                 distributed: bool = False):
+        """n_nodes: the simulated nodes, or with ``distributed`` the group's
+        ranks (module docstring).  device: ``None``/``"cuda"`` (raises
+        without a card) or ``"cpu"``."""
+        kw = dict(n_cols=n_cols, init_val=init_val, max_rounds=max_rounds,
+                  iteration_ms=iteration_ms, adaptive_epoch=adaptive_epoch,
+                  indexes=indexes, net=net, n_slabs=n_slabs, device=device)
+        self.distributed = distributed
+        if distributed:
+            self.eng = DistClusterStarEngine(n_partitions,
+                                             rows_per_partition, **kw)
+            assert self.eng.n_nodes == n_nodes, (self.eng.n_nodes, n_nodes)
+        else:
+            self.eng = ClusterStarEngine(n_nodes, n_partitions,
+                                         rows_per_partition, **kw)
         N = self.eng.n_nodes
         # the topology must describe the copies that physically exist:
         # primary blocks + (multi-node) one materialized secondary home
@@ -91,24 +108,40 @@ class ClusterRuntime:
         self.injector = injector
         self.durability = durability
         if durability is not None:
+            eng = self.eng
             assert durability.n_workers == N, (durability.n_workers, N)
-            durability.attach(self.eng.part_val, self.eng.part_tid,
-                              indexes=self.eng.part_idx
-                              if self.eng.has_index else None)
+            part_ids = None
+            if distributed:
+                assert durability.worker == eng.rank, (durability.worker,
+                                                       eng.rank)
+                if eng.is_master:     # the master's full copy = the set
+                    durability.attach(eng.full_val, eng.full_tid,
+                                      indexes=eng.full_idx
+                                      if eng.has_index else None)
+                else:
+                    part_ids = eng._part_ids.cpu().numpy()
+            else:
+                durability.attach(eng.part_val, eng.part_tid,
+                                  indexes=eng.part_idx
+                                  if eng.has_index else None)
             # the WAL is a changelog subscriber: at every commit fence the
             # sink fans the epoch's streams to the per-node logs and
             # flushes (the disk part of the group commit), checkpointing
             # the committed snapshot on cadence
-            self.eng.changelog.subscribe(walmod.WalSink(
-                durability, self.eng.R, self.eng.C,
-                np.arange(self.eng.P) // self.eng.ppn,
-                self._committed_snapshot))
+            eng.changelog.subscribe(walmod.WalSink(
+                durability, eng.R, eng.C, np.arange(eng.P) // eng.ppn,
+                self._committed_snapshot, part_ids=part_ids))
 
     def _committed_snapshot(self):
         """(val, tid, indexes) of the committed partition set — the WAL
         sink's checkpoint source (the snapshot buffers; the sink copies
         them to the host when it writes a checkpoint)."""
         snap = self.eng._snap
+        if self.distributed:
+            if not self.eng.is_master:
+                return None, None, None
+            return (snap["full_val"], snap["full_tid"],
+                    snap["full_idx"] if self.eng.has_index else None)
         return (snap["part_val"], snap["part_tid"],
                 snap["part_idx"] if self.eng.has_index else None)
 
@@ -158,6 +191,18 @@ class ClusterRuntime:
     def replica_consistent(self) -> bool:
         return self.eng.consistent()
 
+    def follow(self):
+        """A rank other than the master under a service: run epochs in step
+        with the master's until it calls :meth:`stop_followers`.  Returns
+        the epochs run."""
+        n = 0
+        while self.run_epoch(None) is not None:
+            n += 1
+        return n
+
+    def stop_followers(self):
+        self.eng.stop_followers()
+
     # ------------------------------------------------------------------
     def run_epoch(self, batch, ingest=None) -> dict:
         slab_kills = (self.injector.slab_kills(self.epoch)
@@ -173,6 +218,8 @@ class ClusterRuntime:
         abort_check = ((lambda s: s in slab_kills) if slab_kills else None)
         doomed = self.eng.run_epoch(batch, ingest=ingest, commit=False,
                                     abort_check=abort_check)
+        if doomed is None:              # the master ended the service
+            return None
         if slab_kills and "aborted_at_slab" not in doomed:
             # a slab index past the executed range would silently test the
             # plain fence-miss path instead of the mid-stream one — discard
@@ -215,7 +262,18 @@ class ClusterRuntime:
         epoch = self.epoch
         with obs.span("recovery.classify", cat="recovery", epoch=epoch,
                       failed=str(sorted(kills))) as csp:
-            plan = coord.fence_missed(epoch, kills)
+            if not self.distributed:
+                plan = coord.fence_missed(epoch, kills)
+            else:
+                # the view service lives on the master: it classifies and
+                # broadcasts the plan and the new view
+                view = None
+                if eng.is_master:
+                    plan = coord.fence_missed(epoch, kills)
+                    view = (plan, coord.view, set(coord.alive),
+                            dict(coord.master_of))
+                plan, coord.view, coord.alive, coord.master_of = \
+                    eng.comm.broadcast_object(view)
             csp.set(case=plan.case.name, run_mode=plan.run_mode)
         failed = set(range(self.topology.n_nodes)) - coord.alive
         # revert every replica to the last committed epoch (§4.5.2) —
@@ -267,8 +325,14 @@ class ClusterRuntime:
                     "partial set) and no durability attached: halt")
             with obs.span("recovery.restore", cat="recovery",
                           source="disk_wal"):
-                val, tid, idx, e_c = walmod.recover_full(
-                    self.durability.dir, device=eng.device)
+                if self.distributed:
+                    # every node flushed its log at the last fence
+                    eng.comm.barrier()
+                if not self.distributed or eng.is_master:
+                    val, tid, idx, e_c = walmod.recover_full(
+                        self.durability.dir, device=eng.device)
+                else:
+                    val = tid = idx = None
                 eng.load_committed(val, tid, indexes=idx)
             reloaded = True
         return RecoveryEvent(

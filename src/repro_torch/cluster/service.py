@@ -111,3 +111,19 @@ class ClusterTxnService(TxnService):
                 self.admission.stats.rejected_by_queue[self.admission.P + 1]),
         })
         return out
+
+
+def serve_cluster(runtime: ClusterRuntime, make_service, **run_kw):
+    """The node-sharded service with one process a node (a
+    ``ClusterRuntime(..., distributed=True)`` on every rank): the master
+    (rank 0) builds the service with ``make_service(runtime)``, whose
+    batcher gives each node's block of the partitioned phase that node's
+    own queues, runs it (``run_kw``) and then ends the other ranks'
+    :meth:`ClusterRuntime.follow`.  Returns (service, summary) on the
+    master, (None, epochs followed) elsewhere."""
+    if not runtime.eng.is_master:
+        return None, runtime.follow()
+    svc = make_service(runtime)
+    out = svc.run(**run_kw)
+    runtime.stop_followers()
+    return svc, out

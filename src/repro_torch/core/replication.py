@@ -104,7 +104,8 @@ def _np(x):
 # ---------------------------------------------------------------------------
 # per-worker WAL streams (durability, §4.5.1/§5) — host numpy
 # ---------------------------------------------------------------------------
-def wal_partition_streams(log, R: int, n_workers: int, worker_of_partition):
+def wal_partition_streams(log, R: int, n_workers: int, worker_of_partition,
+                          part_ids=None):
     """Split one epoch's partitioned-phase log into per-worker WAL streams.
 
     The op stream is logged in its §5 TRANSFORMED form — the whole
@@ -114,13 +115,16 @@ def wal_partition_streams(log, R: int, n_workers: int, worker_of_partition):
     arrays with non-empty masks only.
 
     log: {'row' (P,T,M), 'val' (P,T,M,C), 'tid' (P,T,M), 'write' (P,T,M)};
-    worker_of_partition: (P,) int.
+    worker_of_partition: (P_all,) int; part_ids: the global partition id
+    of each of the log's P rows (default ``arange(P)``: the whole table).
     """
     rows = _np(log["row"])
     P = rows.shape[0]
-    grows = rows + np.arange(P, dtype=np.int64)[:, None, None] * R
+    ids = (np.arange(P, dtype=np.int64) if part_ids is None
+           else np.asarray(part_ids, np.int64))
+    grows = rows + ids[:, None, None] * R
     vals, tids, wm = _np(log["val"]), _np(log["tid"]), _np(log["write"])
-    worker_of_partition = np.asarray(worker_of_partition)
+    worker_of_partition = np.asarray(worker_of_partition)[ids]
     for w in range(n_workers):
         sel = worker_of_partition == w
         if sel.any() and wm[sel].any():
@@ -145,7 +149,8 @@ def wal_master_streams(log, R: int, C: int, n_workers: int,
 
 
 def wal_index_streams(plog, n_workers: int, worker_of_partition,
-                      cross_kinds=None, cross_delta=None, slog=None):
+                      cross_kinds=None, cross_delta=None, slog=None,
+                      part_ids=None):
     """Split one epoch's index-maintenance op streams into per-worker WAL
     chunks.  Index ops replay ORDERED: each op carries a ``step`` id
     (partitioned queue slot t, then single-master round T+r) and recovery
@@ -159,7 +164,8 @@ def wal_index_streams(plog, n_workers: int, worker_of_partition,
     ('iwrite' (rounds,B,K), 'tid' (rounds,B,M)).
 
     Yields ``(worker, step, kinds, delta, tids)`` flat committed-op numpy
-    arrays in step-ascending order, non-empty only.
+    arrays in step-ascending order, non-empty only.  ``part_ids``: the
+    global partition id of each of plog's rows (default ``arange(P)``).
     """
     worker_of_partition = np.asarray(worker_of_partition)
     T = 0
@@ -172,8 +178,10 @@ def wal_index_streams(plog, n_workers: int, worker_of_partition,
         tids = _np(plog["tid"])[:, :, :K]
         steps = np.broadcast_to(np.arange(T, dtype=np.int32)[None, :, None],
                                 iw.shape)
+        ids = (np.arange(P) if part_ids is None
+               else np.asarray(part_ids, np.int64))
         for w in range(n_workers):
-            sel = worker_of_partition == w
+            sel = worker_of_partition[ids] == w
             m = iw[sel]
             if not m.any():
                 continue

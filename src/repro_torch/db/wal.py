@@ -333,12 +333,18 @@ class Durability:
     """
 
     def __init__(self, directory: str | Path, n_workers: int = 1,
-                 checkpoint_every: int = 8):
+                 checkpoint_every: int = 8, worker: int | None = None):
+        """``worker``: the one worker whose log this process writes (a
+        node of the cluster with one process a node); None: all of
+        them."""
         assert 0 < checkpoint_every < 200, checkpoint_every
         self.dir = Path(directory)
         self.n_workers = n_workers
         self.checkpoint_every = checkpoint_every
-        self.wals = [WriteAheadLog(self.dir, w) for w in range(n_workers)]
+        self.worker = worker
+        self.wals = [WriteAheadLog(self.dir, w)
+                     if worker is None or w == worker else None
+                     for w in range(n_workers)]
         self.entries_logged = 0
         self.checkpoints = 0
         self.last_ckpt_epoch = 0
@@ -354,12 +360,13 @@ class Durability:
 
     def log(self, worker: int, rows, vals, tids, write_mask):
         """Buffer one committed write stream chunk (global flat rows)."""
-        self.wals[worker % self.n_workers].append(rows, vals, tids,
-                                                  write_mask)
+        wal = self.wals[worker % self.n_workers]
+        if wal is not None:
+            wal.append(rows, vals, tids, write_mask)
 
     def log_epoch_streams(self, plog, slog, R: int, C: int,
                           worker_of_partition, cross_kinds=None,
-                          cross_delta=None):
+                          cross_delta=None, part_ids=None):
         """Fan one committed epoch's streams out to the per-worker logs:
         the partitioned op stream in its §5 transformed form, the master's
         value stream split by row owner, and — when the logs carry index
@@ -370,11 +377,14 @@ class Durability:
         single-host engine, ``p // ppn`` on the cluster's node blocks.
         ``cross_kinds``/``cross_delta``: the single-master batch's static
         op arrays (index-op recovery re-applies (kind, operand), which the
-        SM log itself does not carry)."""
+        SM log itself does not carry).  ``part_ids``: the global partition
+        ids of plog's rows, where plog holds one node's block (the cluster
+        with one process a node)."""
         from repro_torch.core import replication as repl
         if plog is not None:
             for w, rows, vals, tids, mask in repl.wal_partition_streams(
-                    plog, R, self.n_workers, worker_of_partition):
+                    plog, R, self.n_workers, worker_of_partition,
+                    part_ids=part_ids):
                 self.log(w, rows, vals, tids, mask)
         if slog is not None:
             for w, rows, vals, tids, mask in repl.wal_master_streams(
@@ -388,16 +398,17 @@ class Durability:
                     plog if has_pidx else None, self.n_workers,
                     worker_of_partition, cross_kinds=cross_kinds,
                     cross_delta=cross_delta,
-                    slog=slog if has_sidx else None):
-                self.wals[w % self.n_workers].append_index_ops(
-                    step, kinds, delta, tids)
+                    slog=slog if has_sidx else None, part_ids=part_ids):
+                wal = self.wals[w % self.n_workers]
+                if wal is not None:
+                    wal.append_index_ops(step, kinds, delta, tids)
 
     def commit_epoch(self, epoch: int, val=None, tid=None,
                      indexes=None) -> int:
         """Inside the commit fence: fsync every worker's log; on cadence,
         also checkpoint the (committed) state passed in.  Returns the
         number of entries flushed."""
-        n = sum(w.flush(epoch) for w in self.wals)
+        n = sum(w.flush(epoch) for w in self.wals if w is not None)
         self.entries_logged += n
         if val is not None and epoch - self.last_ckpt_epoch >= \
                 self.checkpoint_every:
@@ -408,7 +419,8 @@ class Durability:
 
     def close(self):
         for w in self.wals:
-            w.close()
+            if w is not None:
+                w.close()
 
 
 class WalSink:
@@ -429,11 +441,14 @@ class WalSink:
     """
 
     def __init__(self, durability: Durability, R: int, C: int,
-                 worker_of_partition, snapshot_provider):
+                 worker_of_partition, snapshot_provider, part_ids=None):
+        """``part_ids``: the global partition ids of the partitioned log's
+        rows, where the engine's log holds one node's block."""
         self.d = durability
         self.R, self.C = int(R), int(C)
         self.worker_of_partition = np.asarray(worker_of_partition)
         self.snapshot_provider = snapshot_provider
+        self.part_ids = part_ids
 
     def on_commit(self, epoch, record):
         from repro_torch.obs import trace as obs
@@ -442,6 +457,7 @@ class WalSink:
                                      self.R, self.C,
                                      self.worker_of_partition,
                                      cross_kinds=record["cross_kinds"],
-                                     cross_delta=record["cross_delta"])
+                                     cross_delta=record["cross_delta"],
+                                     part_ids=self.part_ids)
             val, tid, indexes = self.snapshot_provider()
             self.d.commit_epoch(epoch, val, tid, indexes=indexes)

@@ -2,11 +2,23 @@
 (the port of ``repro/models/moe.py``).
 
 ``moe_apply`` is the per-shard body: local tokens, a contiguous slice of
-experts, capacity-bounded dispatch, partial-sum combine; ``moe_forward``
-runs it on one device with the full expert set (the JAX package's
-single-device branch).  The expert-parallel branch, experts over the
-``model`` mesh axis with a ``psum`` combine, waits for the
-``torch.distributed`` slice (ROADMAP Queue 1, item 7e).
+experts, capacity-bounded dispatch, partial-sum combine.  ``moe_forward``
+runs it on one device with the full expert set, or, given a mesh whose
+``model`` axis divides the experts (the JAX package's branch condition),
+expert-parallel: the rank at ``model`` index i runs experts ``[i * e_loc,
+(i + 1) * e_loc)`` on its own tokens (already this rank's batch shard:
+the caller splits the batch axes), the partial outputs are summed with
+an ``all_reduce`` over the ``model`` group (in float32), and ``aux`` is
+averaged over ``model``, then over the batch axes.
+
+Under autograd the expert-parallel branch gives every rank the gradient
+of the function a single device computes on its tokens: the ``all_reduce``
+of the outputs passes its gradient through unchanged, and the dispatch
+input and the routing weights sum their gradients over ``model`` (each
+rank's are the share of its own experts), so the router and everything
+before the layer see whole gradients; the averages of ``aux`` pass theirs
+through unchanged, which with the caller's average of the gradients over
+the batch axes is the gradient of the averaged loss.
 
 The expert products are batched matrix products (``torch.einsum``), as
 the JAX package leaves them to XLA: no kernel of this repository computes
@@ -56,18 +68,69 @@ def route(router, x_flat, cfg):
     return weights, ids, aux
 
 
-def moe_apply(p, x_flat, cfg, expert_offset: int, n_local_experts: int):
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        s = g.float().contiguous().clone()
+        dist.all_reduce(s, group=ctx.group)
+        return s.to(g.dtype), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """One ``all_reduce`` over ``group`` of several tensors, summed in
+    float32, each then multiplied by its scale; the backward passes the
+    gradients through unchanged (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, group, scales, *xs):
+        import torch.distributed as dist
+        flat = torch.cat([x.float().reshape(-1) for x in xs])
+        dist.all_reduce(flat, group=group)
+        out, o = [], 0
+        for x, sc in zip(xs, scales):
+            y = flat[o:o + x.numel()].view(x.shape)
+            out.append((y * sc if sc != 1.0 else y).to(x.dtype))
+            o += x.numel()
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + gs
+
+
+def pmean_value(x, group, n: int):
+    """Mean over the ``n`` ranks of ``group``; gradients pass through
+    (module docstring)."""
+    return _AllReduce.apply(group, (1.0 / n,), x)[0]
+
+
+def moe_apply(p, x_flat, cfg, expert_offset: int, n_local_experts: int,
+              group=None):
     """Sort-based dispatch over a local expert slice.
 
     x_flat: (T, d).  ``p`` holds weights for ONLY the local experts
     (w_up / w_gate / w_down first dim = n_local_experts) but the full
-    router.  Returns (y (T, d), aux)."""
+    router.  ``group``: the ``model`` process group of an expert-parallel
+    run (the outputs are summed over it, the router's and the input's
+    gradients too).  Returns (y (T, d), aux)."""
     T, d = x_flat.shape
     k = cfg.top_k
     C = moe_capacity(T, cfg)
     dev = x_flat.device
 
     weights, ids, aux = route(p["router"], x_flat, cfg)
+    x_disp = x_flat
+    if group is not None:
+        weights = _SumGrad.apply(weights, group)
+        x_disp = _SumGrad.apply(x_flat, group)
 
     # flatten assignments and sort by expert id (stable)
     flat_ids = ids.reshape(-1)                                     # (T*k,)
@@ -102,7 +165,7 @@ def moe_apply(p, x_flat, cfg, expert_offset: int, n_local_experts: int):
     # index_select: its backward adds the slots' rows back into their
     # tokens with index_add_ (advanced indexing's backward sorts the
     # indices first, which on the card took ~46 ms a layer at 16,384 x 8)
-    buf = x_flat.index_select(0, safe_tok) * valid.to(x_flat.dtype)[:, None]
+    buf = x_disp.index_select(0, safe_tok) * valid.to(x_flat.dtype)[:, None]
     buf = buf.reshape(n_local_experts, C, d)
 
     # expert FFN
@@ -118,11 +181,45 @@ def moe_apply(p, x_flat, cfg, expert_offset: int, n_local_experts: int):
     contrib = out * (slot_w * valid).to(out.dtype)[:, None]
     y = torch.zeros((T, d), dtype=x_flat.dtype, device=dev).index_add(
         0, safe_tok, contrib.to(x_flat.dtype))
+    if group is not None:
+        # the outputs summed and aux averaged over the group, in one call
+        import torch.distributed as dist
+        y, aux = _AllReduce.apply(group, (1.0, 1.0 / dist.get_world_size(
+            group)), y, aux)
     return y, aux
 
 
-def moe_forward(p, x, cfg):
-    """x: (B, S, d) -> (y, aux), every expert on this device."""
+def expert_parallel(cfg, mesh) -> bool:
+    """The reference's branch condition: a mesh whose ``model`` axis
+    divides the experts (and spans more than this rank)."""
+    return (mesh is not None and getattr(mesh, "distributed", False)
+            and "model" in mesh.axis_names
+            and cfg.n_experts % mesh.shape["model"] == 0)
+
+
+def local_experts(p, cfg, mesh) -> dict:
+    """``p`` with only this rank's experts (the router whole): what a rank
+    of an expert-parallel mesh holds.  ``p`` may already be local."""
+    e_loc = cfg.n_experts // mesh.shape["model"]
+    off = mesh.coords["model"] * e_loc
+    return {k: (v if k == "router" or v.shape[0] == e_loc
+                else v[off:off + e_loc]) for k, v in p.items()}
+
+
+def moe_forward(p, x, cfg, mesh=None):
+    """x: (B, S, d) -> (y, aux).  Expert-parallel over the ``model`` axis
+    of ``mesh`` (module docstring); ``x`` is this rank's batch shard,
+    whole over ``model``.  ``p`` holds every expert or this rank's."""
     B, S, d = x.shape
-    y, aux = moe_apply(p, x.reshape(-1, d), cfg, 0, cfg.n_experts)
+    if not expert_parallel(cfg, mesh):
+        y, aux = moe_apply(p, x.reshape(-1, d), cfg, 0, cfg.n_experts)
+        return y.reshape(B, S, d), aux
+    e_loc = cfg.n_experts // mesh.shape["model"]
+    off = mesh.coords["model"] * e_loc
+    y, aux = moe_apply(local_experts(p, cfg, mesh), x.reshape(-1, d), cfg,
+                       off, e_loc, group=mesh.group("model"))
+    # make aux truly replicated across every mesh axis
+    for a in ("pod", "data"):
+        if a in mesh.axis_names and mesh.shape[a] > 1:
+            aux = pmean_value(aux, mesh.group(a), mesh.shape[a])
     return y.reshape(B, S, d), aux

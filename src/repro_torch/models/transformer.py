@@ -21,6 +21,13 @@ does: the forward kernels then run twice a step.
 
 Caches are ``{"layers": [per-layer dict], "pos": int}`` and are updated in
 place by :func:`decode_step`.
+
+``mesh=`` passes through ``block_forward``, ``block_decode``, ``forward``,
+``loss_fn``, ``prefill`` and ``decode_step`` as in the JAX signatures; it
+reaches only the MoE layers (``moe.moe_forward``'s expert-parallel
+branch).  The reference's ``_seq_constraint`` has no counterpart: it is a
+layout hint to GSPMD that leaves every value unchanged, and the port's
+dense layers are not split over ``model`` (``train/trainer.py``).
 """
 from __future__ import annotations
 
@@ -99,14 +106,14 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 # blocks (full-sequence form).  Return (x, per-layer cache or None, aux)
 # ---------------------------------------------------------------------------
-def _ffn(lp, h2, cfg):
+def _ffn(lp, h2, cfg, mesh=None):
     """The block's second half on the normalised h2: (y, MoE aux loss)."""
     if cfg.block == BLOCK_ATTN_MOE:
-        return moe_lib.moe_forward(lp["moe"], h2, cfg)
+        return moe_lib.moe_forward(lp["moe"], h2, cfg, mesh=mesh)
     return mlp_forward(lp["mlp"], h2, cfg.mlp_act), None
 
 
-def block_forward(lp, x, cfg, positions, want_cache=False):
+def block_forward(lp, x, cfg, positions, want_cache=False, mesh=None):
     h = rms_norm(x, lp["norm1"])
     cache = None
     if cfg.block in ATTN_BLOCKS:
@@ -132,11 +139,11 @@ def block_forward(lp, x, cfg, positions, want_cache=False):
         if want_cache:
             cache = {"attn": {"k": k, "v": v}, "ssm": state}
     h2, x = rms_norm(y, lp["norm2"], residual=x)      # x + y, then norm
-    y2, aux = _ffn(lp, h2, cfg)
+    y2, aux = _ffn(lp, h2, cfg, mesh)
     return x + y2, cache, aux
 
 
-def block_decode(lp, x, layer_cache, cfg):
+def block_decode(lp, x, layer_cache, cfg, mesh=None):
     """One-token step; ``layer_cache`` carries 'pos' injected by the caller
     and is updated in place."""
     h = rms_norm(x, lp["norm1"])
@@ -158,7 +165,7 @@ def block_decode(lp, x, layer_cache, cfg):
         y = 0.5 * (rms_norm(ya, lp["attn_norm"])
                    + rms_norm(ys, lp["ssm_norm"]))
     h2, x = rms_norm(y, lp["norm2"], residual=x)      # x + y, then norm
-    return x + _ffn(lp, h2, cfg)[0]
+    return x + _ffn(lp, h2, cfg, mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +271,7 @@ def unembed(model, x, cfg):
 # full model
 # ---------------------------------------------------------------------------
 def forward(model, batch, cfg: ArchConfig, want_cache=False,
-            last_only=False, unembed_out=True):
+            last_only=False, unembed_out=True, mesh=None):
     """Returns (logits, per-layer caches or None, aux loss, loss mask or
     None: :func:`embed_inputs`'s).  ``last_only``
     unembeds the last position alone (what prefill needs; the norm and the
@@ -279,10 +286,11 @@ def forward(model, batch, cfg: ArchConfig, want_cache=False,
     for lp in model["layers"]:
         if remat:
             x, cache, aux_i = checkpoint(block_forward, lp, x, cfg,
-                                         positions, use_reentrant=False)
+                                         positions, False, mesh,
+                                         use_reentrant=False)
         else:
             x, cache, aux_i = block_forward(lp, x, cfg, positions,
-                                            want_cache=want_cache)
+                                            want_cache=want_cache, mesh=mesh)
         if aux_i is not None:
             aux = aux + aux_i
         caches.append(cache)
@@ -323,12 +331,13 @@ def chunked_ce(model, x, labels, mask, cfg: ArchConfig, chunk: int = 512):
     return nll / torch.clamp(cnt, min=1.0)
 
 
-def loss_fn(model, batch, cfg: ArchConfig):
+def loss_fn(model, batch, cfg: ArchConfig, mesh=None):
     """(ce + 0.01 * aux, {"ce", "aux"}) on a train batch (``make_batch``'s:
     tokens, frames or tokens and patches, and labels).  With patches the
     loss is on the text positions alone: the hidden state of the patches
     is dropped before the CE, as the JAX ``loss_fn`` drops it."""
-    x, _, aux, mask = forward(model, batch, cfg, unembed_out=False)
+    x, _, aux, mask = forward(model, batch, cfg, unembed_out=False,
+                              mesh=mesh)
     labels = batch["labels"]
     if mask is not None:
         n_patch = x.shape[1] - labels.shape[1]
@@ -359,12 +368,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     return {"layers": [one() for _ in range(cfg.n_layers)], "pos": 0}
 
 
-def prefill(model, batch, cfg: ArchConfig, alloc_len: int | None = None):
+def prefill(model, batch, cfg: ArchConfig, alloc_len: int | None = None,
+            mesh=None):
     """Full-sequence prefill; returns (last-token logits (B, 1, V),
     decode-ready cache).  With patches (``vision_stub``) the positions
     count them: decode starts after the patches and the prompt."""
     logits, caches, _, _ = forward(model, batch, cfg, want_cache=True,
-                                   last_only=True)
+                                   last_only=True, mesh=mesh)
     seq_len = input_len(batch, cfg)
     return logits, _prefill_to_cache(caches, cfg, seq_len,
                                      alloc_len or seq_len)
@@ -408,14 +418,30 @@ def _prefill_to_cache(caches, cfg, seq_len: int, alloc_len: int):
     return {"layers": layers, "pos": seq_len}
 
 
-def decode_step(model, cache, tokens, cfg: ArchConfig):
+def decode_step(model, cache, tokens, cfg: ArchConfig, mesh=None):
     """tokens: (B, 1) -> (logits (B, 1, V), cache updated in place)."""
     x = model["embed"][tokens.long()]
     pos = cache["pos"]
     for lp, lc in zip(model["layers"], cache["layers"]):
         lc["pos"] = pos
-        x = block_decode(lp, x, lc, cfg)
+        x = block_decode(lp, x, lc, cfg, mesh)
         del lc["pos"]
     x = rms_norm(x, model["final_norm"])
     cache["pos"] = pos + 1
     return unembed(model, x, cfg), cache
+
+
+def keep_local_experts(model, mesh):
+    """Drop every expert but this rank's from ``model``'s MoE layers
+    (expert-parallel serving: a rank holds ``n_experts / model`` experts
+    a layer).  A no-op off an expert-parallel mesh."""
+    cfg = model.cfg
+    if cfg.block != BLOCK_ATTN_MOE or not moe_lib.expert_parallel(cfg, mesh):
+        return model
+    for blk in model.layers:
+        loc = moe_lib.local_experts(dict(blk.moe.items()), cfg, mesh)
+        for k, v in loc.items():
+            if k != "router":
+                blk.moe[k] = nn.Parameter(v.detach().clone(),
+                                          requires_grad=v.requires_grad)
+    return model

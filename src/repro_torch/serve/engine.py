@@ -30,12 +30,14 @@ class ServeStats:
 
 class ServeEngine:
     """``model`` is a :class:`repro_torch.models.transformer.LM`; it is
-    moved to ``device`` (``None`` means cuda, which must be present)."""
+    moved to ``device`` (``None`` means cuda, which must be present).
+    ``mesh``: a ``launch.mesh.Mesh`` whose ``model`` axis runs the MoE
+    layers expert-parallel (every rank generates the same tokens)."""
 
     def __init__(self, cfg: ArchConfig, model, device=None,
-                 max_len: int = 512):
+                 max_len: int = 512, mesh=None):
         self.device = resolve_device(device)
-        self.cfg, self.max_len = cfg, max_len
+        self.cfg, self.max_len, self.mesh = cfg, max_len, mesh
         self.model = model.to(self.device)
         self.params_tid = 0
         self.stats = ServeStats()
@@ -66,7 +68,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, cache = tf.prefill(self.model,
                                    {"tokens": prompts.to(self.device)}, cfg,
-                                   alloc_len=self.max_len)
+                                   alloc_len=self.max_len, mesh=self.mesh)
         tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         self._sync()
         t1 = time.perf_counter()
@@ -75,7 +77,8 @@ class ServeEngine:
         outs = []
         for _ in range(n_tokens):
             outs.append(tok)
-            logits, cache = tf.decode_step(self.model, cache, tok, cfg)
+            logits, cache = tf.decode_step(self.model, cache, tok, cfg,
+                                           mesh=self.mesh)
             if greedy:
                 tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
             else:

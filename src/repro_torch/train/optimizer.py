@@ -49,19 +49,24 @@ def global_norm(grads: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, opt_state: dict,
-                 hp: AdamWConfig):
+def adamw_update(params: dict | None, grads: dict, opt_state: dict,
+                 hp: AdamWConfig, gnorm=None):
     """One AdamW step with global-norm clipping and linear warmup, in
     place: ``opt_state``'s tensors and the parameters (each set to its
-    master cast to its dtype).  Returns (params, opt_state, grad norm)."""
+    master cast to its dtype).  Returns (params, opt_state, grad norm).
+
+    On a mesh a rank updates only the state it owns: ``grads`` and
+    ``opt_state`` are then its shards, ``gnorm`` the norm of the whole
+    gradient, and ``params`` None (the caller gathers the masters)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(hp.grad_clip / (gnorm + 1e-9), max=1.0)
     stepf = step.float()
     lr = hp.lr * torch.clamp(stepf / hp.warmup_steps, max=1.0)
     b1t = 1.0 - hp.b1 ** stepf
     b2t = 1.0 - hp.b2 ** stepf
-    for k, p in params.items():
+    for k in grads:
         master, m, v = (opt_state[s][k] for s in ("master", "m", "v"))
         g = grads[k].float() * scale
         m.copy_(hp.b1 * m + (1 - hp.b1) * g)
@@ -70,6 +75,7 @@ def adamw_update(params: dict, grads: dict, opt_state: dict,
         vh = v / b2t
         master.copy_(master - lr * (mh / (torch.sqrt(vh) + hp.eps)
                                     + hp.weight_decay * master))
-        p.copy_(master)
+        if params is not None:
+            params[k].copy_(master)
     opt_state["step"] = step
     return params, opt_state, gnorm

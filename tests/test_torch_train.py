@@ -556,18 +556,41 @@ def test_train_entry_point_trains_hymba(capsys):
 def test_untrainable_configs_raise():
     """Every config trains now: MiniCPM3's MLA, HuBERT's audio frames and
     InternVL2's patches each take two finite steps through ``Trainer``.
-    What is not ported is refused by name: ``reshard`` (several cards,
-    ROADMAP Queue 1, item 7e) and a config name that does not exist."""
+    ``reshard`` to a 1 x 1 mesh keeps every tensor of the state and of the
+    committed epoch bit-equal (several ranks: tests/test_torch_dist_lm.py).
+    A config name that does not exist is refused by name."""
+    from repro_torch.launch.mesh import make_host_mesh
     for name in (MLA, AUDIO, VISION):
         _, cfg = _cfgs(name)
         tr = Trainer(cfg, TrainerConfig(seq_len=16, batch=2), device="cpu")
         tr.run(2)
         assert tr.step == 2 and all(np.isfinite(m["loss"])
                                     for m in tr.metrics_history)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.reshard(None)
+    before = _state_leaves(tr)
+    committed = [t.clone() for t in _tree_leaves(
+        {"p": tr.commit_log.committed.params,
+         "o": tr.commit_log.committed.opt_state})]
+    tr.reshard(make_host_mesh(1, 1))
+    after = _state_leaves(tr)
+    assert len(before) == len(after) and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(before, after))
+    assert all(torch.equal(a, b) for a, b in zip(committed, _tree_leaves(
+        {"p": tr.commit_log.committed.params,
+         "o": tr.commit_log.committed.opt_state})))
     with pytest.raises(ValueError, match="no-such-arch"):
         get_arch("no-such-arch")
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def _state_leaves(tr):
+    return [t.detach().clone() for t in _tree_leaves(
+        {"p": tr.params, "o": tr.opt_state})]
 
 
 @pytest.mark.parametrize("name", [AUDIO, DENSE])
