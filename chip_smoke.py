@@ -437,10 +437,11 @@ TOL_GRAD_PARITY = 1e-4
 # then reshard to (4, 1) and 1 step, at lr 1e-3 without warm-up so that 3
 # steps move the loss
 DIST_SPEC = dict(
-    main=MAIN, txns=MAIN_TXNS, epochs=7, ckpt_every=3,
+    main=MAIN, txns=MAIN_TXNS, epochs=8, ckpt_every=3,
     kills=[(0, 3, 1), (2, 6, None), (0, 7, None), (1, 7, None),
            (2, 7, None)],
     want_cases=["FALLBACK_DIST_CC", "PHASE_SWITCHING", "UNAVAILABLE"],
+    half_write=[8], service_s=2.0, service_kill_after=3,
     arch=TRAIN_ARCH, smoke=False, parity_prompt=256,
     batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
     train_layers=2, train_batch=TRAIN_BATCH, train_seq=TRAIN_SEQ,
@@ -3888,8 +3889,10 @@ def train_path(dev, rows):
     import shutil
     import tempfile
     import torch
-    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.base import ShapeCell, get_arch
     from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models import transformer as tf
     from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.optimizer import adamw_update
@@ -3903,6 +3906,19 @@ def train_path(dev, rows):
     tr, figures = timed_training(dev, TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
                                  TRAIN_WARM, TRAIN_TIMED, need)
     per_step = figures["launches_per_step"]
+    # -- the trainer's state against the dry run at this cell, (1, 1)
+    rec = dryrun.cell_record(cfg, ShapeCell("phase11", "train", TRAIN_SEQ,
+                                            TRAIN_BATCH),
+                             AbstractMesh((1, 1), ("data", "model")))
+    have = {"params": sum(t.numel() * t.element_size()
+                          for t in tr.params.values()),
+            "opt_state": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(tr.opt_state))}
+    want = {k: rec["mem"]["bytes_per_rank"][k] for k in have}
+    check(have == want, f"train: the trainer holds {have} bytes, the dry "
+          f"run says {want}")
+    figures["dryrun_bytes"] = {"trainer": have, "dryrun": want,
+                               "equal": have == want}
     # -- revert: to the fence at step 16, two steps past it, then back
     fence_step, digest, revert_s = check_revert(tr, "train")
     # -- checkpoint at the fence, two steps, restore from disk
@@ -4730,11 +4746,13 @@ def mla_frontends_phase(dev, rows):
 # phase 15: several processes over torch.distributed (4 ranks, one card)
 # ---------------------------------------------------------------------------
 def digest(tensors):
-    """sha256 of tensors' bytes, in order."""
+    """sha256 of tensors' (or numpy arrays') bytes, in order."""
     import hashlib
+    import numpy as np
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
+        a = t if isinstance(t, np.ndarray) else t.contiguous().cpu().numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
 
 
@@ -4798,23 +4816,113 @@ def dev_sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def dist_inputs(cfg, state, spec, ep):
+    """Epoch ``ep``'s batch (seeded) and its two read offers: the draw's
+    read-only transactions, half offered at the epoch's fence (served
+    there), half after that round (served by the next epoch's mid-epoch
+    round, or deferred to its fence).  In the spec's ``half_write`` epochs
+    the nodes of the first half of the partitions write nothing, so their
+    reads serve mid-epoch."""
+    import numpy as np
+    from repro_torch.db import tpcc
+    from repro_torch.service.clients import read_lane_request, without_writers
+    raw = tpcc.make_raw(cfg, state, spec["txns"],
+                        np.random.default_rng(5000 + ep))
+    if ep + 1 in spec["half_write"]:
+        raw = without_writers(state, raw, range(cfg.n_partitions // 2))
+    batch = tpcc.make_batch(cfg, state, 0, raw=raw)
+    sel = np.nonzero(raw["read_only"])[0]
+    h = sel.size // 2
+    return batch, (read_lane_request(raw, sel[:h]),
+                   read_lane_request(raw, sel[h:]))
+
+
+def group_digest(r, mid_epoch):
+    """One read group, digested: replica, snapshot epoch, freshness, round,
+    slots and every output."""
+    return (r["replica"], int(r["epoch"]), int(r["freshness"]), mid_epoch,
+            digest([r["slots"]] + [r["out"][k] for k in sorted(r["out"])]))
+
+
+def lanes(cfg, rt):
+    """Phase 15 (a)'s read tier, analytics lane and admission controller
+    over the runtime ``rt`` (the master's, or the single-process
+    reference's), in the order both build them."""
+    from repro_torch.changelog import AnalyticsLane
+    from repro_torch.db import tpcc
+    from repro_torch.reads import ReadTier
+    from repro_torch.service import AdmissionController
+    tier = ReadTier(max_staleness_epochs=READ_K,
+                    sec_refresh_every=READ_REFRESH)
+    lane = AnalyticsLane(cfg)
+    lane.ensure_attached(rt)
+    tier.observe_epoch(rt)
+    tier.attach_changelog(rt.changelog)
+    adm = AdmissionController(cfg.n_partitions, cfg.rows_per_partition,
+                              max_ops=tpcc.M, n_cols=tpcc.C, read_lane=True)
+    return tier, lane, adm
+
+
+def lanes_epoch(dev, rt, tier, lane, adm, batch, offers, after=None):
+    """One epoch of phase 15 (a) as the master and the single-process
+    reference run it: the epoch with a mid-epoch read round in its ingest
+    hook, ``after(metrics)`` (the master's collective checks), the
+    catalog's fence stamp, the first offer served at the fence, the
+    second offered, the analytics lane's round.  Returns (metrics, figures:
+    the groups' digests, the views' stamp digest, the rounds' times)."""
+    got = {"groups": [], "t_mid_s": 0.0, "mid_groups": 0}
+
+    def mid_epoch():
+        t0 = time.perf_counter()
+        res = tier.serve(adm, mid_epoch=True)
+        got["t_mid_s"] += time.perf_counter() - t0
+        got["mid_groups"] += len(res)
+        got["groups"] += [group_digest(r, True) for r in res]
+    t0 = time.perf_counter()
+    m = rt.run_epoch(batch, ingest=mid_epoch)
+    dev_sync(dev)
+    got["t_epoch_s"] = time.perf_counter() - t0
+    if after is not None:
+        after(m)
+    t0 = time.perf_counter()
+    tier.observe_epoch(rt, m)
+    t1 = time.perf_counter()
+    adm.offer(offers[0], 0.0)
+    res = tier.serve(adm)
+    t2 = time.perf_counter()
+    got.update(t_stamp_s=t1 - t0, t_fence_s=t2 - t1, fence_groups=len(res))
+    got["groups"] += [group_digest(r, False) for r in res]
+    adm.offer(offers[1], 0.0)
+    lane.serve(rt.committed_epoch)
+    e, aggs = lane.views.latest()
+    got["stamp"] = (int(e), digest([aggs[k] for k in sorted(aggs)]))
+    return m, got
+
+
 def dist_cluster(rank, dev, spec, work):
     """Phase 15 (a) on one rank: the TPC-C cluster of phase 10 with this
-    rank one node, the per-node WAL, and the spec's kills.  The master
-    saves the batches it ran; every rank checks ``replica_consistent()``
-    at every fence; the master digests every copy after each epoch."""
+    rank one node, the per-node WAL, the spec's kills and both lanes on
+    the master; the other ranks run ``follow``, answering the read rounds
+    from their own secondary snapshots.  The master saves the batches and
+    read offers it ran and each epoch's read groups and views' stamp,
+    digested; every rank checks ``replica_consistent()`` at every fence
+    and digests its copies after each epoch.  Then a ``serve_cluster``
+    run with both lanes (``spec["service_s"]``), node 2 killed."""
     import pickle
     import numpy as np
-    import torch
-    from repro_torch.cluster import ClusterRuntime
+    from repro_torch.cluster import ClusterRuntime, ClusterTxnService
+    from repro_torch.cluster.service import serve_cluster
     from repro_torch.core import replication
     from repro_torch.core.fault import FaultInjector
     from repro_torch.db import tpcc
     from repro_torch.db.wal import Durability
+    from repro_torch.kernels import _build
     from repro_torch.kernels.index_merge import ops as im_ops
     from repro_torch.kernels.index_merge.ref import index_merge_unsorted_plain
     from repro_torch.kernels.thomas_merge.ops import thomas_merge
     from repro_torch.kernels.thomas_merge.ref import thomas_merge_plain
+    from repro_torch.reads.executor import SnapshotReadExecutor
+    from repro_torch.service import AdmissionConfig, OpenLoopClient, TPCCSource
     t_set = time.perf_counter()
     cfg = tpcc.TPCCConfig(**spec["main"])
     state = tpcc.TPCCState(cfg)
@@ -4832,7 +4940,6 @@ def dist_cluster(rank, dev, spec, work):
                         n_slabs=CLUSTER_SLABS, injector=inj, durability=dur,
                         device=dev, distributed=True)
     eng = rt.eng
-    setup_s = time.perf_counter() - t_set
     # the first scatter-back merge and secondary-replay index_merge this
     # rank launches, recorded to hold against their plain versions
     rec = Recorder()
@@ -4851,30 +4958,21 @@ def dist_cluster(rank, dev, spec, work):
              lambda *a, **k: "sec_replay" if flag["sec"] else None)
     rec.wrap(replication, "thomas_apply",
              lambda *a, **k: "scatter_back")
-    rows, batches, digests, events = [], [], [], []
+    rows, digests, events = [], [], []
     bytes0 = dict(eng.net_bytes)
-    dev_sync(dev)
-    mark = launch_mark(dev)
-    t_run = time.perf_counter()
-    for ep in range(spec["epochs"]):
-        b = (tpcc.make_batch(cfg, state, spec["txns"], seed=5000 + ep)
-             if rank == 0 else None)
-        if rank == 0:
-            batches.append(pickle.dumps(b))
-        t0 = time.perf_counter()
-        m = rt.run_epoch(b)
-        dev_sync(dev)
-        wall = time.perf_counter() - t0
-        if ep == 0:
-            rec.restore()
-        if rank == 0:
-            tpcc.apply_consume_feedback(state, b, m)
+    first_read = {}
+
+    def after(m):
+        """Every rank, after each epoch (the master in step)."""
+        nonlocal bytes0
         ok = rt.replica_consistent()
         check(ok, f"rank {rank}: replicas diverged at fence "
               f"{rt.committed_epoch}")
         digests.append(rank_digests(eng))
         nb = {k: eng.net_bytes[k] - bytes0[k] for k in bytes0}
         bytes0 = dict(eng.net_bytes)
+        if len(digests) == 1:
+            rec.restore()
         ev = m.get("recovery")
         if ev is not None:
             events.append({"epoch": ev.epoch, "failed": list(ev.failed),
@@ -4885,16 +4983,61 @@ def dist_cluster(rank, dev, spec, work):
                            "restored_from_secondary":
                            list(ev.restored_from_secondary),
                            "reloaded_from_disk": ev.reloaded_from_disk})
-        rows.append({"epoch": ep + 1, "wall_s": wall,
+        rows.append({"epoch": len(digests),
                      "committed": m["committed_single"]
                      + m["committed_cross"],
                      "failure": ev is not None,
+                     "half_write": len(digests) in spec["half_write"],
                      "t_part_s": m["t_part_s"], "t_sm_s": m["t_sm_s"],
                      "t_tail_ship_s": m["t_tail_ship_s"],
                      "t_allreduce_s": m["t_allreduce_s"],
                      "net_bytes": nb,
                      "collectives_in_partitioned_phase":
                      m["collectives_in_partitioned_phase"]})
+    setup_s = time.perf_counter() - t_set
+    dev_sync(dev)
+    mark = launch_mark(dev)
+    t_run = time.perf_counter()
+    out = {"rank": rank, "setup_s": setup_s}
+    if rank == 0:
+        tier, lane, adm = lanes(cfg, rt)
+        inputs, reads = [], []
+        for ep in range(spec["epochs"]):
+            b, offers = dist_inputs(cfg, state, spec, ep)
+            inputs.append(pickle.dumps((b, offers)))
+            m, got = lanes_epoch(dev, rt, tier, lane, adm, b, offers, after)
+            tpcc.apply_consume_feedback(state, b, m)
+            rows[-1].update(wall_s=got["t_epoch_s"],
+                            t_mid_round_s=got["t_mid_s"],
+                            mid_groups=got["mid_groups"],
+                            t_stamp_s=got["t_stamp_s"],
+                            t_fence_round_s=got["t_fence_s"],
+                            fence_groups=got["fence_groups"])
+            reads.append({"groups": got["groups"], "stamp": got["stamp"]})
+        rt.stop_followers()
+        out.update(reads=reads, remote=json.loads(json.dumps(
+            rt.read_peers.stats)), fence_rounds=rt.read_peers.rounds, tier={
+                f: getattr(tier.stats, f) for f in (
+                    "served", "batches", "fallbacks", "stale_violations",
+                    "replicas_removed", "max_freshness_served",
+                    "mid_epoch_served", "mid_epoch_deferred")},
+            by_replica=tier.catalog.serves_by_replica())
+        with open(Path(work) / "inputs.pkl", "wb") as fh:
+            pickle.dump(inputs, fh)
+    else:
+        host = eng._read_host()
+        run = host.executor.run
+
+        def recorded(snap, *args):
+            res = run(snap, *args)
+            if not first_read:
+                first_read.update(
+                    snap=to({k: v for k, v in snap.items() if k != "ready"},
+                            "cpu"), args=args, out=to(res, "cpu"))
+            return res
+        host.executor.run = recorded
+        rt.follow(after)
+        host.executor.run = run
     run_s = time.perf_counter() - t_run
     launches = launches_since(dev, mark)
     rec.restore()
@@ -4913,16 +5056,107 @@ def dist_cluster(rank, dev, spec, work):
         plain[key] = equal(got, want)
         check(plain[key], f"rank {rank}: the {key} kernel call differs "
               "from its plain version")
+    if first_read:
+        # the first group this rank served, on the plain scan_window
+        want = SnapshotReadExecutor().run(first_read["snap"],
+                                          *first_read["args"])
+        plain["remote_read"] = equal(first_read["out"], want)
+        check(plain["remote_read"], f"rank {rank}: its first read group "
+              "differs from the plain executor's")
+    host = eng.read_host
+    out.update(run_s=run_s, rows=rows, events=events, launches=launches,
+               launches_by_kernel=by_kernel(launches), plain_checks=plain,
+               calls=dict(eng.comm.calls), digests=digests,
+               node_committed=eng.node_committed.tolist(),
+               partitioned_collectives=eng.partitioned_collectives,
+               read_host={"groups": host.groups, "reads": host.reads,
+                          "serve_s": host.serve_s,
+                          "launches": dict(host.launches),
+                          "ring": sorted(host.ring)} if host else None)
+
+    # ---- the service with both lanes, node 2 killed
+    inj.schedule_kill(2, epoch=rt.epoch + spec["service_kill_after"])
+    svc_fig = {}
+
+    def consistent(m):
+        check(rt.replica_consistent(), f"rank {rank}: the service's copies "
+              f"diverged at fence {rt.committed_epoch}")
+
+    def make_service(runtime):
+        fences = svc_fig["fences"] = {}
+        run_epoch = runtime.run_epoch
+        views = lane.views
+
+        def fenced(batch, ingest=None):
+            m = run_epoch(batch, ingest=ingest)
+            consistent(m)
+            stamp_e, aggs = views.latest()
+            check(stamp_e == rt.committed_epoch, f"dist service: views "
+                  f"stamped {stamp_e} at fence {rt.committed_epoch}")
+            fences[stamp_e] = (aggs, rt.committed_state()[0].clone())
+            return m
+        runtime.run_epoch = fenced
+        client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                                rate_txn_s=SERVICE_TPCC_RATE)
+        svc_fig["client"] = client
+        return ClusterTxnService(
+            runtime, [client], AdmissionConfig(64, 64, node_queue_cap=96),
+            slots_per_partition=SERVICE_SLOTS, master_lanes=SERVICE_LANES,
+            feedback=lambda b, m: tpcc.apply_consume_feedback(state, b, m),
+            read_tier=tier, analytics=lane)
+    dev_sync(dev)
+    if dev.type == "cuda":
+        _build.reset_launch_counts()
+    remote0 = json.loads(json.dumps(rt.read_peers.stats)) if rank == 0 \
+        else None
+    groups0 = eng.read_host.groups if eng.read_host else 0
+    t0 = time.perf_counter()
+    svc, summ = serve_cluster(rt, make_service, on_epoch=consistent,
+                              duration_s=spec["service_s"])
+    dev_sync(dev)
+    svc_wall = time.perf_counter() - t0
+    vars(rt).pop("run_epoch", None)
+    check(rt.replica_consistent(), f"rank {rank}: the service's copies "
+          "diverged")
+    if svc is not None:
+        svc_fig["client"].shutdown()
+        svc_launches = (_build.launch_counts() if dev.type == "cuda"
+                        else {})
+        check(summ["recoveries"] == 1, f"dist service: "
+              f"{summ['recoveries']} recoveries")
+        check(sum(summ["node_committed"]) == rt.stats.committed_single,
+              "dist service: node_committed does not sum to the committed "
+              "single-partition transactions")
+        check(tier.stats.stale_violations == 0, "dist service: stale reads")
+        by = by_kernel(svc_launches)
+        if dev.type == "cuda":
+            for k in STAR_KERNELS:
+                check(by[k] > 0, f"dist service: {k} never launched")
+        for e, (aggs, val) in sorted(svc_fig["fences"].items()):
+            want = lane.views.recompute(val)
+            check(all(np.array_equal(aggs[k], want[k]) for k in want),
+                  f"dist service: the views' stamp differs from recompute "
+                  f"at fence {e}")
+        ev = svc.recovery_events[0]
+        out["service"] = {k: summ[k] for k in (
+            "throughput_txn_s", "p50_ms", "p99_ms", "committed", "epochs",
+            "offered", "admitted", "shed", "recoveries", "read_served",
+            "read_p50_ms", "read_p99_ms", "read_stale_violations",
+            "read_mid_epoch_served", "read_mid_epoch_deferred",
+            "analytics_serves", "node_committed")}
+        out["service"].update(
+            duration_s=spec["service_s"], wall_s=svc_wall,
+            kill={"node": 2, "epoch": ev.epoch, "case": ev.case.name,
+                  "t_recovery_s": ev.t_recovery_s},
+            fences_checked=len(svc_fig["fences"]),
+            launches_by_kernel=by,
+            remote={m: {k: v - remote0[m][k] for k, v in st.items()}
+                    for m, st in rt.read_peers.stats.items()})
+    host = eng.read_host
+    out["service_host_groups"] = host.groups - groups0 if host else 0
+    out.update(partitioned_collectives=eng.partitioned_collectives,
+               wal_entries=dur.entries_logged)
     dur.close()
-    if rank == 0:
-        with open(Path(work) / "batches.pkl", "wb") as fh:
-            pickle.dump(batches, fh)
-    out = {"rank": rank, "setup_s": setup_s, "run_s": run_s, "rows": rows,
-           "events": events, "launches": launches,
-           "launches_by_kernel": by_kernel(launches), "plain_checks": plain,
-           "calls": dict(eng.comm.calls), "wal_entries": dur.entries_logged,
-           "node_committed": eng.node_committed.tolist(),
-           "digests": digests}
     return out
 
 
@@ -5089,27 +5323,82 @@ def dist_rank(rank, world, dev, spec, work):
 
 
 def dist_reference(dev, spec, work):
-    """The single-process ``ClusterStarEngine`` on ``dev`` fed the batches
-    phase 15's master ran: after each epoch, each node's
-    :func:`single_digests`."""
+    """The single-process ``ClusterRuntime`` on ``dev`` with phase 15 (a)'s
+    kills, its own WAL and both lanes, fed the batches and read offers the
+    master ran: after each epoch, each node's :func:`single_digests`, and
+    the epoch's read groups and views' stamp, digested."""
     import pickle
     import numpy as np
-    from repro_torch.core.cluster import ClusterStarEngine
+    from repro_torch.cluster import ClusterRuntime
+    from repro_torch.core.fault import FaultInjector
     from repro_torch.db import tpcc
+    from repro_torch.db.wal import Durability
     cfg = tpcc.TPCCConfig(**spec["main"])
     state = tpcc.TPCCState(cfg)
     init = tpcc.init_values(cfg, np.random.default_rng(0), state=state)
-    eng = ClusterStarEngine(4, cfg.n_partitions, cfg.rows_per_partition,
-                            init_val=init, indexes=tpcc.index_specs(cfg),
-                            max_rounds=MAX_ROUNDS, n_slabs=CLUSTER_SLABS,
-                            device=dev)
-    with open(Path(work) / "batches.pkl", "rb") as fh:
-        batches = [pickle.loads(b) for b in pickle.load(fh)]
-    out = []
-    for b in batches:
-        eng.run_epoch(b)
-        out.append([single_digests(eng, r) for r in range(4)])
-    return out
+    inj = FaultInjector()
+    for node, ep, slab in spec["kills"]:
+        inj.schedule_kill(node, epoch=ep, slab=slab)
+    dur = Durability(Path(work) / "wal_reference", n_workers=4,
+                     checkpoint_every=spec["ckpt_every"])
+    rt = ClusterRuntime(4, cfg.n_partitions, cfg.rows_per_partition,
+                        init_val=init, indexes=tpcc.index_specs(cfg),
+                        max_rounds=MAX_ROUNDS, n_slabs=CLUSTER_SLABS,
+                        injector=inj, durability=dur, device=dev)
+    tier, lane, adm = lanes(cfg, rt)
+    with open(Path(work) / "inputs.pkl", "rb") as fh:
+        inputs = [pickle.loads(x) for x in pickle.load(fh)]
+    digests, reads = [], []
+    for b, offers in inputs:
+        _, got = lanes_epoch(dev, rt, tier, lane, adm, b, offers)
+        digests.append([single_digests(rt.eng, r) for r in range(4)])
+        reads.append({"groups": got["groups"], "stamp": got["stamp"]})
+    dur.close()
+    return digests, reads
+
+
+def dryrun_phase(dev, train):
+    """The dry run (``launch/dryrun.py``) of every config x ``SHAPES`` cell
+    on both production meshes, with this card's memory as the fit limit;
+    ``train`` is phase 11's figures, whose trainer's bytes were held to
+    the dry run's at phase 11's own cell.  Returns the ``dryrun``
+    figures."""
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    limit = torch.cuda.get_device_properties(dev).total_memory
+    check(limit == dryrun.FIT_LIMIT_BYTES, f"dryrun: the card has {limit} "
+          f"bytes, FIT_LIMIT_BYTES says {dryrun.FIT_LIMIT_BYTES}")
+    recs = dryrun.run_all(meshes=(False, True), echo=lambda line: None)
+    ok = [r for r in recs if r["status"] == "ok"]
+    check(len(recs) == 80 and len(ok) == 64, f"dryrun: {len(recs)} records, "
+          f"{len(ok)} applicable")
+    by_mesh = {}
+    for r in ok:
+        m = by_mesh.setdefault("pod2x16x16" if r["multi_pod"] else
+                               "pod16x16", {"max_held_bytes": 0})
+        if r["mem"]["held_bytes"] > m["max_held_bytes"]:
+            m.update(max_held_bytes=r["mem"]["held_bytes"],
+                     at=f"{r['arch']} x {r['shape']}")
+    fig = {"records": len(recs), "applicable": len(ok),
+           "skipped": len(recs) - len(ok), "limit_bytes": limit,
+           "fit": sum(r["mem"]["fits"] for r in ok),
+           "fit_whole_params": sum(r["mem"]["fits_whole_params"]
+                                   for r in ok),
+           "fit_only_with_split": sorted({
+               f"{r['arch']} x {r['shape']}" for r in ok
+               if r["mem"]["fits"] and not r["mem"]["fits_whole_params"]}),
+           "by_mesh": by_mesh,
+           "bottleneck": {b: sum(r["roofline"]["bottleneck"] == b
+                                 for r in ok) for b in ("compute", "memory")},
+           "phase11_trainer": train["dryrun_bytes"],
+           "wall_s": time.perf_counter() - t0}
+    print(f"dryrun: {fig['records']} cells, {fig['applicable']} applicable, "
+          f"{fig['fit']} fit in {limit} bytes ({fig['fit_whole_params']} "
+          f"with every parameter whole; only with the split: "
+          f"{fig['fit_only_with_split']}); phase 11's trainer bytes equal "
+          f"the dry run's: {fig['phase11_trainer']['equal']}")
+    return fig
 
 
 def dist_phase(dev, kernels, spec=None):
@@ -5152,7 +5441,7 @@ def dist_phase(dev, kernels, spec=None):
             time.sleep(0.2)
         if (work / "cluster_done").exists():
             t0 = time.perf_counter()
-            ref = dist_reference(dev, spec, work)
+            ref, ref_reads = dist_reference(dev, spec, work)
             ref_s = time.perf_counter() - t0
     finally:
         th.join()
@@ -5164,10 +5453,16 @@ def dist_phase(dev, kernels, spec=None):
     check(ref is not None and ref == got, "phase 15: the cluster's copies "
           "differ from the single-process engine's after epochs "
           f"{[e + 1 for e, (x, y) in enumerate(zip(ref or [], got)) if x != y]}")
+    reads = a[0]["reads"]
+    bad = [e + 1 for e, (x, y) in enumerate(zip(ref_reads, reads))
+           if x != y]
+    check(len(reads) == len(ref_reads) and not bad, "phase 15: the read "
+          f"groups or views' stamps differ from one process's at epochs "
+          f"{bad}")
     for r in a:
         check(all(x["collectives_in_partitioned_phase"] == 0
-                  for x in r["rows"]), f"rank {r['rank']}: a collective in "
-              "the partitioned phase")
+                  for x in r["rows"]) and r["partitioned_collectives"] == 0,
+              f"rank {r['rank']}: a collective in a partitioned phase")
         need = STAR_KERNELS if r["rank"] == 0 else ("scan_window",
                                                      "index_merge",
                                                      "thomas_merge")
@@ -5177,40 +5472,82 @@ def dist_phase(dev, kernels, spec=None):
         check(r["plain_checks"].get("scatter_back") is True,
               f"rank {r['rank']}: no scatter-back merge held to its plain "
               "version")
+        host = r["read_host"]
+        if host is not None and host["groups"]:
+            check(host["launches"].get("scan_window", 0) > 0
+                  and r["plain_checks"].get("remote_read") is True,
+                  f"rank {r['rank']}: its read groups launched no "
+                  "scan_window or differ from the plain executor's")
+    remote = a[0]["remote"]
+    served_remote = sum(r["read_host"]["groups"] for r in a[1:])
+    check(served_remote > 0 and remote["mid_epoch"]["groups"] > 0
+          and served_remote == remote["fence"]["groups"]
+          + remote["mid_epoch"]["groups"], "phase 15: the other ranks "
+          f"served {served_remote} groups, the master sent {remote}")
+    check(a[0]["tier"]["stale_violations"] == 0, "phase 15: stale reads")
     want = [c for c in spec["want_cases"]]
     got = [e["case"] for e in a[0]["events"]]
     check(got == want, f"phase 15: recovery cases {got}, expected {want}")
-    ok_rows = [x for x in a[0]["rows"][1:] if not x["failure"]]
+    ok_rows = [x for x in a[0]["rows"][1:] if not x["failure"]
+               and not x["half_write"]]
     committed = sum(x["committed"] for x in ok_rows)
     wall = sum(x["wall_s"] for x in ok_rows)
     mean = lambda k: statistics.mean(x[k] for x in ok_rows)
     per_epoch_bytes = {k: statistics.mean(x["net_bytes"][k] for x in ok_rows)
                        for k in ok_rows[0]["net_bytes"]}
+    rows0 = a[0]["rows"]
+    mid = [x for x in rows0 if x["mid_groups"]]
+    lanes_fig = {
+        "tier": a[0]["tier"], "by_replica": a[0]["by_replica"],
+        "remote": remote, "fence_rounds_opened": a[0]["fence_rounds"],
+        "groups_by_rank": {r["rank"]: r["read_host"]["groups"]
+                           for r in a[1:]},
+        "read_lane_launches_by_rank": {r["rank"]: r["read_host"]["launches"]
+                                       for r in a[1:]},
+        "fence_round_ms": [x["t_fence_round_s"] * 1e3 for x in rows0],
+        "fence_round_groups": [x["fence_groups"] for x in rows0],
+        "stamp_ms": [x["t_stamp_s"] * 1e3 for x in rows0],
+        "mid_epoch_round_ms": [x["t_mid_round_s"] * 1e3 for x in rows0],
+        "mid_epoch_groups": [x["mid_groups"] for x in rows0],
+        "fence_round_ms_mean": mean("t_fence_round_s") * 1e3,
+        "mid_epoch_round_ms_serving": [x["t_mid_round_s"] * 1e3
+                                       for x in mid],
+        "groups_equal_epochs": len(ref_reads)}
     cluster = {
         "config": "phase 10's: TPC-C full mix, P=16 at the spec's widths",
         "nodes": 4, "processes": 4, "txns_per_epoch": spec["txns"],
         "epochs": spec["epochs"], "kills": spec["kills"],
+        "half_write_epochs": spec["half_write"],
         "measured_epochs": [x["epoch"] for x in ok_rows],
         "committed_txn_per_s": committed / wall,
-        "epoch_wall_s": [x["wall_s"] for x in a[0]["rows"]],
+        "epoch_wall_s": [x["wall_s"] for x in rows0],
         "t_part_s_mean": mean("t_part_s"), "t_sm_s_mean": mean("t_sm_s"),
         "fence_tail_ship_ms_mean": mean("t_tail_ship_s") * 1e3,
         "fence_allreduce_ms_mean": mean("t_allreduce_s") * 1e3,
         "net_bytes_per_epoch": per_epoch_bytes,
-        "recoveries": a[0]["events"],
+        "recoveries": a[0]["events"], "lanes": lanes_fig,
+        "service": a[0]["service"],
         "bit_equal_epochs": len(ref), "reference_s": ref_s,
         "launches_by_rank": {r["rank"]: r["launches_by_kernel"] for r in a},
         "calls_by_rank": {r["rank"]: r["calls"] for r in a},
-        "wal_entries_by_rank": {r["rank"]: r["wal_entries"] for r in a},
         "node_committed": a[0]["node_committed"],
         "setup_s": a[0]["setup_s"], "run_s": a[0]["run_s"]}
-    print(f"dist cluster: 4 processes, {committed} committed in "
+    print(f"dist cluster: 4 processes, both lanes, {committed} committed in "
           f"{wall:.3f} s over epochs {cluster['measured_epochs']}: "
           f"{cluster['committed_txn_per_s']:.2f} txn/s; fence: tail ship "
           f"{cluster['fence_tail_ship_ms_mean']:.3f} ms, all_reduce "
           f"{cluster['fence_allreduce_ms_mean']:.3f} ms; bytes an epoch "
-          f"{per_epoch_bytes}; bit-equal to one process over {len(ref)} "
-          "epochs")
+          f"{per_epoch_bytes}; copies, read groups and stamps bit-equal to "
+          f"one process over {len(ref)} epochs")
+    print(f"dist cluster reads: {a[0]['tier']}, by replica "
+          f"{a[0]['by_replica']}; groups served by rank "
+          f"{lanes_fig['groups_by_rank']}, their launches "
+          f"{lanes_fig['read_lane_launches_by_rank']}; remote {remote}")
+    print(f"dist cluster read rounds: fence ms "
+          f"{[round(x, 3) for x in lanes_fig['fence_round_ms']]} (groups "
+          f"{lanes_fig['fence_round_groups']}), mid-epoch ms "
+          f"{[round(x, 3) for x in lanes_fig['mid_epoch_round_ms']]} "
+          f"(groups {lanes_fig['mid_epoch_groups']})")
     for e in a[0]["events"]:
         print(f"dist cluster recovery: epoch {e['epoch']} nodes "
               f"{e['failed']} {e['case']} t_recovery_s "
@@ -5218,6 +5555,14 @@ def dist_phase(dev, kernels, spec=None):
     for r in a:
         print(f"dist cluster rank {r['rank']} launches: "
               f"{r['launches_by_kernel']}")
+    svc = a[0]["service"]
+    print(f"dist service: {svc['throughput_txn_s']:.1f} txn/s p50 "
+          f"{svc['p50_ms']:.2f} p99 {svc['p99_ms']:.2f} ms, "
+          f"{svc['committed']} committed in {svc['epochs']} epochs, "
+          f"{svc['read_served']} reads ({svc['read_mid_epoch_served']} "
+          f"mid-epoch), {svc['analytics_serves']} analytics rounds, "
+          f"recovery {svc['kill']}, stamps checked at "
+          f"{svc['fences_checked']} fences; remote {svc['remote']}")
     b = [r["serve"] for r in res]
     serve = dict(b[0], launches_by_rank={i: x["launches"]
                                          for i, x in enumerate(b)},
@@ -5252,6 +5597,11 @@ def dist_phase(dev, kernels, spec=None):
             part: {i: by_row(x["launches"], kernels)[k]
                    for i, x in enumerate(xs)}
             for part, xs in (("cluster", a), ("serve", b), ("train", c))}
+        if k in STAR_KERNELS:
+            # of the cluster's: the read lane's groups each rank served
+            row["dist_launches"]["read_lane"] = {
+                r["rank"]: r["read_host"]["launches"].get(k, 0)
+                for r in a[1:]}
     for part, xs, need in (("serve", b, ("rmsnorm", "flash_attention")),
                            ("train", c, ("rmsnorm", "flash_attention",
                                          "rmsnorm.backward",
@@ -5389,6 +5739,8 @@ def run(dev):
     configs.update(device=name, nvidia_smi=smi)
     train = train_phase(dev, kernels)
     train.update(device=name, nvidia_smi=smi)
+    dry = dryrun_phase(dev, train)
+    dry.update(device=name, nvidia_smi=smi)
     hymba = hymba_train_phase(dev, kernels)
     hymba.update(device=name, nvidia_smi=smi)
     frontends = mla_frontends_phase(dev, kernels)
@@ -5403,6 +5755,7 @@ def run(dev):
     print(json.dumps({"serve_path": serve}))
     print(json.dumps({"serve_configs": configs}))
     print(json.dumps({"train_path": train}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"train_path_hymba": hymba}))
     print(json.dumps({"mla_frontends": frontends}))
     print(json.dumps({"dist_path": dist}))

@@ -56,6 +56,16 @@ shared directory) and the master the checkpoints, and the UNAVAILABLE
 case reloads from those logs on the master, which sends each rank its
 blocks.  The other ranks run :meth:`ClusterRuntime.follow` under a
 service on the master (``cluster.service.serve_cluster``).
+
+Both read lanes run there on the master.  The analytics lane's views
+subscribe to the master's changelog, which publishes every node's slab
+log, and seed from its committed full copy.  The read tier's catalog
+holds the full copy and node 0's secondary copy; a group it sends to
+``sec{m}`` runs on rank m from that rank's own retained snapshot
+(``reads/remote.py``).  A follower answers such a read round at the
+fence, while it waits for the next epoch, and mid-epoch at its slab
+boundaries, by point-to-point messages only, so the partitioned phase
+stays free of collective calls.
 """
 from __future__ import annotations
 
@@ -188,16 +198,33 @@ class ClusterRuntime:
     def read_views(self):
         return self.eng.read_views()
 
+    @property
+    def read_peers(self):
+        """The master's transport to copies on other ranks, once the read
+        tier attached it (None on one process and off the master)."""
+        return getattr(self.eng, "read_peers", None)
+
+    def attach_read_peers(self):
+        """The master's transport to copies on other ranks, made on the
+        first call (``DistClusterStarEngine.attach_read_peers``)."""
+        return self.eng.attach_read_peers()
+
     def replica_consistent(self) -> bool:
         return self.eng.consistent()
 
-    def follow(self):
+    def follow(self, on_epoch=None):
         """A rank other than the master under a service: run epochs in step
-        with the master's until it calls :meth:`stop_followers`.  Returns
+        with the master's until it calls :meth:`stop_followers`, answering
+        the master's read rounds: at the fence (while it waits for the
+        next epoch) and mid-epoch (at its slab boundaries).
+        ``on_epoch(metrics)`` runs after each epoch, where the master runs
+        the same collective calls right after its ``run_epoch``.  Returns
         the epochs run."""
         n = 0
-        while self.run_epoch(None) is not None:
+        while (m := self.run_epoch(None)) is not None:
             n += 1
+            if on_epoch is not None:
+                on_epoch(m)
         return n
 
     def stop_followers(self):

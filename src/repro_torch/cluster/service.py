@@ -113,16 +113,21 @@ class ClusterTxnService(TxnService):
         return out
 
 
-def serve_cluster(runtime: ClusterRuntime, make_service, **run_kw):
+def serve_cluster(runtime: ClusterRuntime, make_service, on_epoch=None,
+                  **run_kw):
     """The node-sharded service with one process a node (a
     ``ClusterRuntime(..., distributed=True)`` on every rank): the master
     (rank 0) builds the service with ``make_service(runtime)``, whose
     batcher gives each node's block of the partitioned phase that node's
     own queues, runs it (``run_kw``) and then ends the other ranks'
-    :meth:`ClusterRuntime.follow`.  Returns (service, summary) on the
-    master, (None, epochs followed) elsewhere."""
+    :meth:`ClusterRuntime.follow`.  A service with ``read_tier=`` and
+    ``analytics=`` runs both lanes on the master; the other ranks serve
+    the read groups sent to the copies they hold from inside ``follow``.
+    ``on_epoch`` is ``follow``'s (the other ranks' side of collective
+    calls the master makes after each epoch).  Returns (service,
+    summary) on the master, (None, epochs followed) elsewhere."""
     if not runtime.eng.is_master:
-        return None, runtime.follow()
+        return None, runtime.follow(on_epoch)
     svc = make_service(runtime)
     out = svc.run(**run_kw)
     runtime.stop_followers()

@@ -52,11 +52,13 @@ engine unchanged.
 :class:`DistClusterStarEngine` is the same cluster with one process a
 node over a ``torch.distributed`` process group (the reference's one
 device a node): each rank holds its own blocks, the slab ships and the
-scatter-back cross the group, and it is bit-equal to
+scatter-back cross the group, the read tier's groups for a secondary
+copy run on the rank that holds it, and it is bit-equal to
 :class:`ClusterStarEngine` fed the same batches.
 """
 from __future__ import annotations
 
+import pickle
 import time
 
 import numpy as np
@@ -818,6 +820,21 @@ class _Sent:
         self.buf = None
 
 
+class _PendingObj:
+    def __init__(self, comm, src: int, tag: int):
+        self.comm, self.src, self.tag = comm, src, tag
+        self.head = comm.irecv(8, src, tag)
+
+    def done(self) -> bool:
+        return self.head[0].is_completed()
+
+    def take(self):
+        c = self.comm
+        n = int(c.take(self.head).cpu().view(torch.int64)[0])
+        body = c.take(c.irecv(n, self.src, self.tag + 1))
+        return pickle.loads(body.cpu().numpy().tobytes())
+
+
 class _Comm:
     """The engine's calls on its process group, counted by kind (``calls``)
     with the bytes each rank put on the wire (``bytes_sent``).  With gloo a
@@ -877,6 +894,28 @@ class _Comm:
         buf, layout = _pack(like)
         got = self.take(self.irecv(buf.numel(), src, tag))
         return _unpack(got, layout)
+
+    def _out(self, t):
+        return t if self.stage else t.to(self.device)
+
+    def send_obj(self, obj, dst: int, tag: int):
+        """A picklable object to ``dst``: its length (``tag``), then its
+        bytes (``tag + 1``)."""
+        raw = pickle.dumps(obj)
+        head = torch.tensor([len(raw)], dtype=torch.int64).view(torch.uint8)
+        body = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+        sent = [self.isend(self._out(head), dst, tag),
+                self.isend(self._out(body), dst, tag + 1)]
+        for w in sent:
+            w.wait()
+
+    def post_obj(self, src: int, tag: int) -> "_PendingObj":
+        """Listen for :meth:`send_obj`'s object from ``src``: ``.done()``
+        polls for its length, ``.take()`` waits for the object."""
+        return _PendingObj(self, src, tag)
+
+    def recv_obj(self, src: int, tag: int):
+        return self.post_obj(src, tag).take()
 
     # -- collectives ----------------------------------------------------
     def all_reduce(self, t, op="sum"):
@@ -1011,7 +1050,19 @@ class DistClusterStarEngine(ClusterStarEngine):
     The node surgery of §4.5 moves blocks between ranks: the donor copy,
     the surviving secondary copy, the re-replication of the full copy, the
     secondary resync and ``consistent()`` are sends and receives of whole
-    blocks."""
+    blocks.
+
+    **The read round** (``reads/remote.py``): ``read_views`` gives the
+    single-process views with each copy where it lives, so the read tier
+    on the master serves the full copy and node 0's secondary copy itself
+    and sends a group for ``sec{m}`` to rank m, which answers from the
+    snapshots it keeps of its own secondary copy (``read_host``).  Between
+    epochs a rank waiting in :meth:`_scatter_batch` answers the rounds the
+    master opens; during a partitioned phase whose epoch carries an ingest
+    hook (once :meth:`attach_read_peers` was called) it answers at each
+    slab boundary and after its last slab until the master's END, with
+    point-to-point messages only (``partitioned_collectives`` counts what the phases
+    called: 0)."""
 
     def __init__(self, n_partitions: int, rows_per_partition: int,
                  n_cols: int = 10, init_val=None, max_rounds: int = 16,
@@ -1099,6 +1150,12 @@ class DistClusterStarEngine(ClusterStarEngine):
         self.changelog.subscribe(_DistShip(self))
         self.committed_epoch = 0
         self._snap = _clone(self._state())
+        # the read round: the master's transport, this rank's serving side
+        self._peers = self._host = None
+        self._in_phase = self._phase_reads = False
+        # collective calls made inside every partitioned phase run, doomed
+        # epochs and mid-epoch reads included (the §4.1 claim: 0)
+        self.partitioned_collectives = 0
 
     # -- layout -----------------------------------------------------------
     def _names(self):
@@ -1133,20 +1190,23 @@ class DistClusterStarEngine(ClusterStarEngine):
         return sorted(s - {self.rank})
 
     # -- the batch: each rank its node's queues ---------------------------
-    def _scatter_batch(self, batch, stop=False):
+    def _scatter_batch(self, batch, stop=False, reads=False):
         """The master pads ``batch`` and sends rank n its node's block of
-        the partitioned queues.  Returns (this rank's ptxn block, cross on
-        the master / None, stop)."""
+        the partitioned queues; ``reads``: the master may send read
+        requests during the phase.  Another rank first answers the read
+        rounds the master opens before the epoch.  Returns (this rank's
+        ptxn block, cross on the master / None, stop, reads)."""
         c, pad = self.comm, StarEngine._pad_axis
         if self.is_master:
             if stop:
-                c.broadcast_object({"stop": True})
-                return None, None, True
+                c.broadcast_object({"op": "stop"})
+                return None, None, True, False
             ptxn = self._to_device(pad(batch["ptxn"], 1))
             cross = self._to_device(pad(batch["cross"], 0))
             _, layout = _pack({k: v[self.node_slice(0)]
                                for k, v in ptxn.items()})
-            c.broadcast_object({"stop": False, "layout": layout})
+            c.broadcast_object({"op": "epoch", "layout": layout,
+                                "reads": reads})
             works = []
             for r in range(1, self.n_nodes):
                 buf, _ = _pack({k: v[self.node_slice(r)]
@@ -1156,15 +1216,76 @@ class DistClusterStarEngine(ClusterStarEngine):
             for w in works:
                 w.wait()
             return ({k: v[self.node_slice(0)] for k, v in ptxn.items()},
-                    cross, False)
-        meta = c.broadcast_object(None)
-        if meta["stop"]:
-            return None, None, True
+                    cross, False, reads)
+        while True:
+            meta = c.broadcast_object(None)
+            if meta["op"] != "reads":
+                break
+            self._read_host().answer_round()
+        if meta["op"] == "stop":
+            return None, None, True, False
         layout = meta["layout"]
         n = sum(int(np.prod(s, dtype=np.int64)) * d.itemsize
                 for _, d, s in layout)
         got = c.take(c.irecv(n, 0, tag=2))
-        return _unpack(got, layout), None, False
+        return _unpack(got, layout), None, False, meta["reads"]
+
+    # -- the read round (reads/remote.py) ---------------------------------
+    def _read_host(self):
+        """This rank's serving side: the ring of its secondary snapshots."""
+        if self._host is None:
+            from repro_torch.reads.remote import ReadHost
+            self._host = ReadHost(self)
+        return self._host
+
+    @property
+    def read_host(self):
+        """This rank's :class:`~repro_torch.reads.remote.ReadHost` (None
+        until the master's read tier first reached it, and on the
+        master)."""
+        return self._host
+
+    @property
+    def read_peers(self):
+        """The master's :class:`~repro_torch.reads.remote.RemoteReads`
+        once :meth:`attach_read_peers` made it, else None."""
+        return self._peers
+
+    def attach_read_peers(self):
+        """Master only: make (once) and return the transport to the copies
+        on other ranks.  From then on an epoch run with ``ingest`` lets the
+        ingest hook send read requests during the partitioned phase (the
+        other ranks poll for them at their slab boundaries)."""
+        assert self.is_master
+        if self._peers is None:
+            from repro_torch.reads.remote import RemoteReads
+            self._peers = RemoteReads(self)
+        return self._peers
+
+    def read_mode(self) -> str:
+        """Master: the round a read request now belongs to, "mid_epoch"
+        (in a partitioned phase whose other ranks serve reads) or "fence"
+        (between epochs).  Raises inside a phase whose other ranks do not
+        serve reads (the read tier reached the engine after the epoch
+        began)."""
+        if self._phase_reads:
+            return "mid_epoch"
+        if self._in_phase:
+            raise RuntimeError("a read request inside a partitioned phase "
+                               "whose epoch the other ranks do not serve "
+                               "reads in")
+        return "fence"
+
+    def open_read_round(self):
+        """Master, between epochs: the other ranks, waiting in
+        :meth:`_scatter_batch`, answer read requests until an END."""
+        self.comm.broadcast_object({"op": "reads"})
+
+    def secondary_snapshot(self):
+        """(val, tid, idx) of this rank's committed secondary copy (node
+        ``pred``'s partitions, as of ``committed_epoch``)."""
+        snap = self._snap
+        return snap["sec_val"], snap["sec_tid"], snap["sec_idx"]
 
     def stop_followers(self):
         """Master only, in step with the other ranks' :meth:`follow`: end
@@ -1183,10 +1304,15 @@ class DistClusterStarEngine(ClusterStarEngine):
         c = self.comm
         pad = StarEngine._pad_axis
         sent0 = c.bytes_sent
-        ptxn, cross, stop = self._scatter_batch(batch)
+        ptxn, cross, stop, reads = self._scatter_batch(
+            batch, reads=self.is_master and ingest is not None
+            and self._peers is not None)
         if stop:
             return None
         N, ppn = self.n_nodes, self.ppn
+        host = self._read_host() if reads and not self.is_master else None
+        if host is not None:
+            host.phase_begin()
 
         # ---- partitioned phase: slab-chained execution + streaming ------
         T = ptxn["row"].shape[1]
@@ -1244,10 +1370,20 @@ class DistClusterStarEngine(ClusterStarEngine):
                 aborted_at = s
                 break
             post(s, out["log"])
+            if host is not None:     # a slab boundary: answer reads
+                host.poll()
+        if host is not None:
+            host.poll(wait=True)
         t_ingest = 0.0
         if ingest is not None:       # host ingest while the card executes
             ti = time.perf_counter()
-            ingest()
+            self._in_phase, self._phase_reads = True, reads
+            try:
+                ingest()
+            finally:
+                self._in_phase = self._phase_reads = False
+            if reads:
+                self._peers.end_phase()
             t_ingest = time.perf_counter() - ti
             tr.complete("service.ingest_overlap", "service", ti,
                         ti + t_ingest, epoch=self.epoch)
@@ -1256,6 +1392,7 @@ class DistClusterStarEngine(ClusterStarEngine):
         t1 = time.perf_counter()
         t_part = max(t1 - t0 - t_ingest, t1 - tb)
         coll_phase = c.collectives() - coll0
+        self.partitioned_collectives += coll_phase
         tr.complete("engine.partitioned", "phase", t0, t1,
                     epoch=self.epoch, slabs=S)
         self.part_val, self.part_tid = pv, pt
@@ -1685,16 +1822,46 @@ class DistClusterStarEngine(ClusterStarEngine):
         return self._snap["full_val"], self._snap["full_tid"]
 
     def read_views(self):
-        raise NotImplementedError(
-            "the read tier reads the single-process cluster's copies; with "
-            "one process a node the secondary copies live on other ranks")
+        """The single-process engine's views (same ids, kinds, nodes,
+        epochs, watermarks and covers) with each copy where it lives: the
+        full copy on the master, ``sec{m}`` (node m-1's partitions) on
+        rank m, whose ``ppn`` rows hold them in order, so
+        ``row_of_partition`` maps a covered partition to its row there
+        (-1 elsewhere).  A view of a copy on another rank carries
+        ``val``/``tid``/``idx`` None: the read tier sends its groups to
+        that rank (``reads/remote.py``)."""
+        wm = self.changelog.watermark(self.committed_epoch)
+        P, ppn, snap = self.P, self.ppn, self._snap
+        parts = np.arange(P, dtype=np.int64)
+
+        def copy(view, node, which):
+            mine = self.rank == node
+            view.update({k: snap[f"{which}_{k}"] if mine else None
+                         for k in ("val", "tid", "idx")})
+            return view
+        views = [copy({
+            "id": "full", "kind": "full", "node": 0,
+            "epoch": self.committed_epoch, "watermark": wm,
+            "cover": np.ones(P, bool), "row_of_partition": parts}, 0, "full")]
+        if self.secondary:
+            for m in range(self.n_nodes):
+                owner = (m - 1) % self.n_nodes
+                cover = np.zeros(P, bool)
+                cover[self.node_slice(owner)] = True
+                views.append(copy({
+                    "id": f"sec{m}", "kind": "secondary", "node": m,
+                    "epoch": self.committed_epoch, "watermark": wm,
+                    "cover": cover,
+                    "row_of_partition": np.where(cover, parts - owner * ppn,
+                                                 -1)}, m, "sec"))
+        return views
 
     def partitioned_phase_has_no_collectives(self, batch) -> bool:
         """The §4.1 zero-coordination claim, counted: run this rank's first
         slab on copies (its own block, its global partition ids) and check
         that no collective call reached the group meanwhile; all ranks'
         verdicts are all-reduced.  ``batch`` is read on the master."""
-        ptxn, _, _ = self._scatter_batch(batch)
+        ptxn = self._scatter_batch(batch)[0]
         bounds = self._slab_bounds(ptxn["row"].shape[1])
         slab = {k: v[:, bounds[0]:bounds[1]] for k, v in ptxn.items()}
         before = self.comm.collectives()

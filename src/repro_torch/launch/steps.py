@@ -1,8 +1,13 @@
 """The training step (the port of ``make_train_fn`` in
-``repro/launch/steps.py``).  The prefill and decode steps are
-``models.transformer.prefill`` / ``decode_step`` themselves; the dry-run
-bundles lower XLA programs and have no counterpart here (ROADMAP Queue 1,
-item 7f).
+``repro/launch/steps.py``) and the dry run's bundles.  The prefill and
+decode steps are ``models.transformer.prefill`` / ``decode_step``
+themselves.  A bundle (:func:`bundle_for`) is what one step of a cell
+holds on a mesh: its trees (parameters, optimizer state, batch, cache)
+as tensors on the ``meta`` device, which allocate nothing, and their
+placement specs; the JAX package's bundles also carry the jitted
+function to lower and compile, which has no counterpart here
+(``launch/dryrun.py``).  The reference's ``opt_shapes`` is
+``train.optimizer.init_opt_state`` itself, given meta tensors.
 
 On a mesh of several ranks (``launch.mesh.Mesh``) a step is, on every
 rank: run the rank's shard of the batch (``sharding.data_specs``) through
@@ -13,18 +18,23 @@ optimizer state the rank owns (``sharding.opt_specs``: ZeRO-1 over
 ``data``) with the norm of the whole gradient; gather the updated master
 weights back into every rank's parameters.  GSPMD's tensor-parallel split
 of the dense layers is not reproduced: a dense layer runs whole on each
-rank, which computes the same function.
+rank, which computes the same function (``launch/dryrun.py`` records
+what a rank then holds: ``held_bytes_whole_params``, the whole
+gradients included).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.data.pipeline import input_specs
 from repro_torch.launch import sharding as shd
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
-                                         global_norm)
+                                         global_norm, init_opt_state)
 
 
 def param_grads(loss, params: dict, cfg: ArchConfig) -> dict:
@@ -146,3 +156,75 @@ def make_train_fn(cfg: ArchConfig, hp: AdamWConfig = AdamWConfig(),
         return {**out, "loss": vals[0][0], "grad_norm": gnorm}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the dry run's bundles (``repro/launch/steps.py``'s lowering bundles)
+# ---------------------------------------------------------------------------
+@dataclass
+class Bundle:
+    """One step of a cell on a mesh: ``trees`` {"params", "opt_state",
+    "batch", "cache"} of ``meta`` tensors (the trees the step holds),
+    ``specs`` the same keys' placement specs and ``arguments`` the trees
+    the JAX step takes as arguments (a prefill's cache is its output)."""
+    kind: str
+    trees: dict
+    specs: dict
+    arguments: tuple
+
+
+def param_meta(cfg: ArchConfig) -> dict:
+    """{name: meta tensor} of the model's state dict."""
+    return {k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype) in tf.param_shapes(cfg).items()}
+
+
+def _cache(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    return tf.init_cache(cfg, cell.global_batch, cell.seq_len, device="meta")
+
+
+def train_bundle(cfg: ArchConfig, cell: ShapeCell, mesh) -> Bundle:
+    params = param_meta(cfg)
+    opt = init_opt_state(params)         # meta in, meta out: no allocation
+    batch = input_specs(cfg, cell)
+    pspec = shd.param_specs(cfg, params, mesh)
+    return Bundle("train", {"params": params, "opt_state": opt,
+                            "batch": batch},
+                  {"params": pspec,
+                   "opt_state": shd.opt_specs(cfg, opt, pspec, mesh),
+                   "batch": shd.data_specs(batch, mesh, cfg, cell.kind)},
+                  ("params", "opt_state", "batch"))
+
+
+def prefill_bundle(cfg: ArchConfig, cell: ShapeCell, mesh) -> Bundle:
+    params = param_meta(cfg)
+    batch = input_specs(cfg, cell)
+    cache = _cache(cfg, cell)
+    return Bundle("prefill", {"params": params, "batch": batch,
+                              "cache": cache},
+                  {"params": shd.param_specs(cfg, params, mesh),
+                   "batch": shd.data_specs(batch, mesh, cfg, cell.kind),
+                   "cache": shd.cache_specs(cfg, cache, mesh)},
+                  ("params", "batch"))
+
+
+def decode_bundle(cfg: ArchConfig, cell: ShapeCell, mesh) -> Bundle:
+    params = param_meta(cfg)
+    batch = input_specs(cfg, cell)
+    cache = _cache(cfg, cell)
+    return Bundle("decode", {"params": params, "cache": cache,
+                             "batch": batch},
+                  {"params": shd.param_specs(cfg, params, mesh),
+                   "cache": shd.cache_specs(cfg, cache, mesh),
+                   "batch": shd.data_specs(batch, mesh, cfg, cell.kind)},
+                  ("params", "cache", "batch"))
+
+
+def bundle_for(cfg: ArchConfig, cell: ShapeCell, mesh) -> Bundle:
+    if cell.kind == "train":
+        return train_bundle(cfg, cell, mesh)
+    if cell.kind == "prefill":
+        return prefill_bundle(cfg, cell, mesh)
+    if cell.kind == "decode":
+        return decode_bundle(cfg, cell, mesh)
+    raise ValueError(cell.kind)

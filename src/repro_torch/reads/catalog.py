@@ -24,6 +24,12 @@ is enqueued on the current stream and an event recorded after it
 (``snap["ready"]``): the read executor's own stream waits on that event
 alone, not on the epoch queued behind it.
 
+With one process a node (``core.cluster.DistClusterStarEngine``) a copy
+on another rank is an entry with the same metadata whose snapshots hold
+no tensors, only ``{"host": rank}``: that rank retains the snapshot
+itself (``reads/remote.py``), and the catalog never copies a remote
+block.
+
 Lifecycle: a killed node's hosted copies are ``remove()``d — their
 retained snapshots died with the node's memory — and re-registered by the
 first post-recovery fence stamp (so freshness restarts from the recovered
@@ -45,6 +51,20 @@ def _own(x):
     if isinstance(x, torch.Tensor):
         return x.clone()
     return np.array(x, copy=True)
+
+
+def snapshot_copy(val, tid, idx, own=_own) -> dict:
+    """A retained snapshot of one copy: ``val``, ``tid`` and every index
+    field copied by ``own``.  On the card an event is recorded after the
+    copies were enqueued (``snap["ready"]``), which the read executor's
+    stream waits on."""
+    snap = {"val": own(val), "tid": own(tid),
+            "idx": [{f: own(ix[f]) for f in FIELDS} for ix in (idx or [])]}
+    val = snap["val"]
+    if isinstance(val, torch.Tensor) and val.device.type == "cuda":
+        snap["ready"] = torch.cuda.Event()
+        snap["ready"].record(torch.cuda.current_stream(val.device))
+    return snap
 
 
 class _FenceCopies:
@@ -119,13 +139,12 @@ class SnapshotCatalog:
             if fresh:
                 copied.append(c)
             return c
-        snap = {"val": own(view["val"]), "tid": own(view["tid"]),
-                "idx": [{f: own(ix[f]) for f in FIELDS}
-                        for ix in (view.get("idx") or [])]}
-        val = snap["val"]
-        if isinstance(val, torch.Tensor) and val.device.type == "cuda":
-            snap["ready"] = torch.cuda.Event()
-            snap["ready"].record(torch.cuda.current_stream(val.device))
+        if view["val"] is None:
+            # a copy on another rank: that rank keeps the snapshot
+            snap = {"host": int(view["node"])}
+        else:
+            snap = snapshot_copy(view["val"], view["tid"], view.get("idx"),
+                                 own)
         self.stamp_copies += 1
         self.stamp_bytes += sum(a.nbytes for a in copied)
         ent.snaps.append((epoch, snap, view.get("watermark")))

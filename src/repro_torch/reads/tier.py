@@ -17,6 +17,12 @@ Wired into the service epoch pipeline after every commit fence:
      bound re-enter their home partition's OCC queue (the fallback path:
      a bound violation is never served, it is re-routed).
 
+On the cluster with one process a node, a group whose chosen copy lives
+on another rank is served there (``reads/remote.py``): the catalog
+entry of such a copy holds the hosting rank, not the tensors, and
+``observe_epoch`` ends with every hosting rank keeping exactly the
+snapshots its entry keeps.
+
 Served reads commit at serve time (group-"commit" at the snapshot they
 drained against) into the tier's own LatencyRecorder, so the service
 reports the read vs write latency split from the same machinery.  A
@@ -94,6 +100,9 @@ class ReadTier:
         self.recorder = lat.LatencyRecorder()
         self.stats = ReadTierStats()
         self._gate: _DirtyGate | None = None
+        # the engine's transport to copies on other ranks (one process a
+        # node: ``reads/remote.py``), else None
+        self.remote = None
 
     def attach_changelog(self, changelog) -> None:
         """Subscribe the slab-watermark dirty gate to the engine's
@@ -108,7 +117,11 @@ class ReadTier:
         ev = (metrics or {}).get("recovery")
         if ev is not None:
             self._on_failure(ev)
-        for view in engine.read_views():
+        views = engine.read_views()
+        if self.remote is None and any(v["val"] is None for v in views):
+            # copies on other ranks (one process a node): serve them there
+            self.remote = engine.attach_read_peers()
+        for view in views:
             if self.catalog.P == 0:
                 self.catalog.P = len(np.asarray(view["cover"]))
             fresh_stamp = (view["kind"] == "full"
@@ -118,6 +131,15 @@ class ReadTier:
                 self.catalog.stamp(view)
             else:
                 self.catalog.announce_epoch(int(view["epoch"]))
+        if self.remote is not None:
+            # each rank that hosts a copy keeps the snapshots its entry
+            # keeps here: new ones taken at this fence, the rest dropped
+            ents = self.catalog.entries
+            self.remote.sync_rings({
+                int(v["node"]): ([e for e, _, _ in ents[v["id"]].snaps]
+                                 if v["id"] in ents else [])
+                for v in views if v["val"] is None})
+            self.remote.close()
 
     def _on_failure(self, event):
         """A killed node's memory is gone: every copy it hosted leaves the
@@ -189,11 +211,14 @@ class ReadTier:
                 continue
             gs = np.asarray(g["slots"], np.int64)
             t0 = time.perf_counter()
-            # returns once the outputs are ready on the device
-            out = self.executor.run(g["snap"],
-                                    np.asarray(g["arow"], np.int64),
-                                    pool.row[gs], pool.kind[gs],
-                                    pool.delta[gs])
+            args = (np.asarray(g["arow"], np.int64), pool.row[gs],
+                    pool.kind[gs], pool.delta[gs])
+            if "host" in g["snap"]:
+                # the copy lives on another rank, which serves the group
+                out = self.remote.read(g["snap"]["host"], g["epoch"], *args)
+            else:
+                # returns once the outputs are ready on the device
+                out = self.executor.run(g["snap"], *args)
             t1 = time.perf_counter()
             obs.complete("reads.serve_batch", "reads", t0, t1,
                          replica=rid, reads=int(gs.size),
@@ -216,6 +241,8 @@ class ReadTier:
             results.append({"replica": rid, "epoch": g["epoch"],
                             "freshness": freshness, "slots": gs,
                             "out": out})
+        if self.remote is not None:
+            self.remote.close()
         if served:
             admission.pool.release(np.concatenate(served))
         if defer:

@@ -48,6 +48,31 @@ def slice_request(req: dict, mask_or_idx) -> dict:
     return {k: req[k][mask_or_idx] for k in _REQ_FIELDS}
 
 
+def read_lane_request(raw: dict, sel) -> dict:
+    """The transactions ``sel`` of a ``make_raw`` draw (read-only ones) as
+    one read-lane arrival: tenant 0, arriving at 0.0."""
+    n = len(sel)
+    req = {k: raw[k][sel] for k in _REQ_FIELDS[:7]}
+    req.update(txn_id=np.arange(n, dtype=np.int64),
+               tenant=np.zeros(n, np.int32), arrival_s=np.zeros(n))
+    return req
+
+
+def without_writers(state: tpcc.TPCCState, raw: dict, homes) -> dict:
+    """A ``tpcc.make_raw`` draw without its single-partition writers homed
+    at a partition of ``homes``, unwound from the generator's mirror as a
+    shed request is: those partitions stay clean through the partitioned
+    phase."""
+    drop = (np.isin(raw["home"], np.asarray(homes))
+            & ~raw["declared_cross"] & ~raw["read_only"])
+    for i in np.nonzero(drop)[0]:
+        tpcc.unwind_never_executed(state, raw["kinds"][i, :tpcc.IDX_OPS],
+                                   raw["deltas"][i, :tpcc.IDX_OPS])
+    B = drop.size
+    return {k: (v[~drop] if isinstance(v, np.ndarray) and v.ndim
+                and v.shape[0] == B else v) for k, v in raw.items()}
+
+
 class YCSBSource:
     """Streaming YCSB payload generator (skew via cfg.zipf_theta etc.)."""
 

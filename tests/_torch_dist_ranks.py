@@ -424,3 +424,220 @@ def cluster_four(rank, world, dev, wal_dir):
                                   "service": out["service"],
                                   "calls": {k: v[1]["calls"] for k, v in
                                             out["engine"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# the read tier and the analytics lane on the cluster with one process a node
+# ---------------------------------------------------------------------------
+TPCC8 = dict(n_partitions=8, n_items=400, cust_per_district=40,
+             order_ring=64, mix="full", delivery_gen_lag=96)
+READ_EPOCHS, READ_TXNS = 6, 96
+READ_STATS = ("served", "batches", "fallbacks", "stale_violations",
+              "replicas_removed", "max_freshness_served",
+              "served_by_freshness", "mid_epoch_served",
+              "mid_epoch_deferred")
+AGGS = ("revenue", "stock_low", "undelivered", "order_latency")
+
+
+def _group(r):
+    return {"replica": r["replica"], "epoch": int(r["epoch"]),
+            "freshness": int(r["freshness"]), "slots": r["slots"].copy(),
+            "out": {k: _np(v) for k, v in r["out"].items()}}
+
+
+def _host_figures(rt):
+    """This rank's read serving and collective counts (``follow``'s
+    side)."""
+    h = rt.eng.read_host
+    return {"groups": h.groups if h else 0, "reads": h.reads if h else 0,
+            "launches": dict(h.launches) if h else {},
+            "ring": sorted(h.ring) if h else [],
+            "partitioned_collectives": rt.eng.partitioned_collectives}
+
+
+def read_scenario(distributed, rank=0):
+    """TPC-C, P = 8, 4 nodes, node 0 (the master) killed at epoch 3 slab
+    1 (FALLBACK_DIST_CC), both lanes: each epoch's read-only requests are
+    offered before the epoch, served mid-epoch from the ingest hook and
+    after the fence; the analytics lane serves after the fence.  The
+    epochs that start from an even fence, when the secondary copies are
+    fresh (``sec_refresh_every=2``), write only partitions 0-3, so reads
+    of 4-7 serve mid-epoch from every copy.  Returns
+    on the master every group, the tier's stats, each fence's aggregates
+    and the time travel; on another rank what it served."""
+    from repro_torch.changelog import AnalyticsLane
+    from repro_torch.cluster import ClusterRuntime
+    from repro_torch.core.fault import FaultInjector
+    from repro_torch.db import tpcc
+    from repro_torch.reads import ReadTier
+    from repro_torch.service import AdmissionController
+    from repro_torch.service.clients import (read_lane_request,
+                                             without_writers)
+    cfg = tpcc.TPCCConfig(**TPCC8)
+    state = tpcc.TPCCState(cfg)
+    init = tpcc.init_values(cfg, np.random.default_rng(0), state=state)
+    inj = FaultInjector()
+    inj.schedule_kill(0, epoch=3, slab=1)
+    rt = ClusterRuntime(4, 8, cfg.rows_per_partition, init_val=init,
+                        indexes=tpcc.index_specs(cfg), injector=inj,
+                        device="cpu", distributed=distributed)
+    if distributed and rank != 0:
+        followed = rt.follow()
+        return dict(_host_figures(rt), followed=followed)
+    tier = ReadTier(max_staleness_epochs=2, sec_refresh_every=2)
+    lane = AnalyticsLane(cfg, stock_threshold=40, retain=4)
+    assert lane.ensure_attached(rt)
+    tier.observe_epoch(rt)
+    tier.attach_changelog(rt.changelog)
+    out = {"groups": [], "fences": {}, "events": []}
+    for ep in range(READ_EPOCHS):
+        raw = tpcc.make_raw(cfg, state, READ_TXNS, np.random.default_rng(ep))
+        if ep % 2 == 0:
+            raw = without_writers(state, raw, range(4, 8))
+        batch = tpcc.make_batch(cfg, state, 0, raw=raw)
+        sel = np.nonzero(raw["read_only"])[0]
+        adm = AdmissionController(8, cfg.rows_per_partition,
+                                  max_ops=raw["rows"].shape[1],
+                                  n_cols=raw["deltas"].shape[2],
+                                  read_lane=True)
+        assert not adm.offer(read_lane_request(raw, sel), 0.0).any()
+
+        def mid_epoch(adm=adm):
+            out["groups"] += [dict(_group(r), mid_epoch=True)
+                              for r in tier.serve(adm, mid_epoch=True)]
+        m = rt.run_epoch(batch, ingest=mid_epoch)
+        tpcc.apply_consume_feedback(state, batch, m)
+        if "recovery" in m:
+            ev = m["recovery"]
+            out["events"].append((ev.case.name, ev.aborted_at_slab))
+        tier.observe_epoch(rt, m)
+        out["groups"] += [dict(_group(r), mid_epoch=False)
+                          for r in tier.serve(adm)]
+        res = lane.serve(rt.committed_epoch)
+        epoch, aggs = lane.views.latest()
+        out["fences"][epoch] = ({k: aggs[k].copy() for k in AGGS},
+                                res["top_revenue"], res["stock_low"])
+    out["time_travel"] = {e: {k: v.copy() for k, v in
+                              lane.views.time_travel(e).items()}
+                          for e in lane.views.retained_epochs()}
+    out["stats"] = {f: getattr(tier.stats, f) for f in READ_STATS}
+    out["by_replica"] = tier.catalog.serves_by_replica()
+    out["lane"] = {k: v for k, v in lane.summary().items()
+                   if not k.startswith("analytics_q_")
+                   and k != "analytics_query_s"}
+    out["catalog"] = {rid: [e for e, _, _ in ent.snaps]
+                      for rid, ent in tier.catalog.entries.items()}
+    if distributed:
+        out["remote"] = rt.read_peers.stats
+        rt.stop_followers()
+        out.update(master=_host_figures(rt))
+    return out
+
+
+READ_SERVICE_KILL = (2, 5)
+
+
+def read_service(rank):
+    """``serve_cluster`` with both lanes over TPC-C (P = 8), node 2 killed
+    at epoch 5: every group checked against ``reference_read`` of its
+    fence's committed full copy, the views' stamp against ``recompute``
+    at every fence, ``replica_consistent()`` after every epoch (the other
+    ranks' side through ``follow``'s ``on_epoch``)."""
+    from repro_torch.changelog import AnalyticsLane
+    from repro_torch.cluster import ClusterRuntime, ClusterTxnService
+    from repro_torch.cluster.service import serve_cluster
+    from repro_torch.core.fault import FaultInjector
+    from repro_torch.db import tpcc
+    from repro_torch.reads import ReadTier, reference_read
+    from repro_torch.service import (AdmissionConfig, OpenLoopClient,
+                                     TPCCSource)
+    cfg = tpcc.TPCCConfig(**TPCC8)
+    state = tpcc.TPCCState(cfg)
+    init = tpcc.init_values(cfg, np.random.default_rng(0), state=state)
+    inj = FaultInjector()
+    inj.schedule_kill(READ_SERVICE_KILL[0], epoch=READ_SERVICE_KILL[1])
+    rt = ClusterRuntime(4, 8, cfg.rows_per_partition, init_val=init,
+                        indexes=tpcc.index_specs(cfg), injector=inj,
+                        device="cpu", distributed=True)
+    consistent = []
+    checks = {"groups": 0, "mismatch": [], "stamps": 0, "stamp_bad": [],
+              "mid_epoch_groups": 0, "remote_groups": 0}
+
+    def on_epoch(m):
+        consistent.append(rt.replica_consistent())
+
+    def make_service(runtime):
+        tier = ReadTier(max_staleness_epochs=2, sec_refresh_every=2)
+        lane = AnalyticsLane(cfg, stock_threshold=40, retain=4)
+        full = {}
+        observe, serve, run = tier.observe_epoch, tier.serve, rt.run_epoch
+
+        def observed(engine, metrics=None):
+            observe(engine, metrics)
+            v = engine.read_views()[0]
+            full[int(v["epoch"])] = {
+                "val": _np(v["val"]), "tid": _np(v["tid"]),
+                "idx": [{k: _np(ix[k]) for k in FIELDS} for ix in v["idx"]]}
+
+        def served(adm, now_s=0.0, limit=None, mid_epoch=False):
+            res = serve(adm, now_s, limit=limit, mid_epoch=mid_epoch)
+            pool = adm.pool
+            for r in res:
+                s = r["slots"]
+                want = reference_read(full[int(r["epoch"])],
+                                      pool.home[s].astype(np.int64),
+                                      pool.row[s], pool.kind[s],
+                                      pool.delta[s])
+                ok = all(np.array_equal(_np(r["out"][k]), w)
+                         for k, w in want.items())
+                checks["groups"] += 1
+                checks["mid_epoch_groups"] += mid_epoch
+                checks["remote_groups"] += r["replica"] not in ("full",
+                                                                "sec0")
+                if not ok:
+                    checks["mismatch"].append((r["replica"], r["epoch"]))
+            return res
+
+        def fenced(batch, ingest=None):
+            m = run(batch, ingest=ingest)
+            consistent.append(rt.replica_consistent())
+            if lane.views.attached:
+                e, aggs = lane.views.latest()
+                want = lane.views.recompute(rt.committed_state()[0])
+                checks["stamps"] += 1
+                if e != rt.committed_epoch or not all(
+                        np.array_equal(aggs[k], want[k]) for k in want):
+                    checks["stamp_bad"].append(e)
+            return m
+        tier.observe_epoch, tier.serve = observed, served
+        runtime.run_epoch = fenced
+        client = OpenLoopClient(TPCCSource(cfg, state=state, seed=2),
+                                rate_txn_s=1500.0, seed=3)
+        return ClusterTxnService(
+            runtime, [client], AdmissionConfig(256, 256, node_queue_cap=512),
+            slots_per_partition=16, master_lanes=16, read_tier=tier,
+            analytics=lane, feedback=lambda b, m:
+            tpcc.apply_consume_feedback(state, b, m))
+
+    svc, out = serve_cluster(rt, make_service, on_epoch=on_epoch,
+                             duration_s=30.0, max_epochs=8)
+    res = {"consistent": all(consistent) and len(consistent) > 0,
+           "final_consistent": rt.replica_consistent()}
+    res.update(_host_figures(rt))
+    if svc is None:
+        return res
+    for c in svc.clients:
+        c.shutdown()
+    res.update(summary={k: out[k] for k in (
+        "epochs", "committed", "recoveries", "read_served",
+        "read_stale_violations", "read_mid_epoch_served",
+        "analytics_serves", "read_by_replica")}, checks=checks,
+        remote=rt.read_peers.stats,
+        cases=[e.case.name for e in svc.recovery_events])
+    return res
+
+
+def reads_four(rank, world, dev):
+    """4 ranks: the read scenario, then the service with both lanes."""
+    return {"scenario": read_scenario(True, rank),
+            "service": read_service(rank)}
